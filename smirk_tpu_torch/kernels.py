@@ -1,0 +1,115 @@
+"""Build and load the port's CUDA kernels (csrc/*.cu).
+
+Each source is compiled by `nvcc` for sm_90a into its own shared library
+with a plain C interface, at first use, into `smirk_tpu_torch/build/`
+(listed in .gitignore), and loaded with ctypes. `build()` compiles all
+stale sources at once, one `nvcc` process per source started together.
+Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Optional
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# library name -> (source file, {C function: argtypes})
+LIBRARIES = {
+    "compact_faces": ("compact_faces.cu", {
+        # tof, starts, total, bins, out, B, Tp, cpt, cmax, device, stream
+        "smirk_compact_faces": [_P] * 5 + [_I] * 5 + [_P],
+    }),
+    "raster_fused": ("raster_fused.cu", {
+        # starts, ends, recs, p2f, zbuf, nx, ny, nz,
+        # B, Tp, n_chunks, H, W, TX, device, stream
+        "smirk_raster_fused_windows": [_P] * 8 + [_I] * 7 + [_P],
+    }),
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ((os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None),
+                 shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def _paths(name: str):
+    source = os.path.join(CSRC_DIR, LIBRARIES[name][0])
+    return source, os.path.join(BUILD_DIR, f"lib{name}.so")
+
+
+def _stale(name: str) -> bool:
+    source, lib = _paths(name)
+    return not os.path.isfile(lib) or os.path.getmtime(lib) < os.path.getmtime(source)
+
+
+def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, dict]:
+    """Compile the named libraries (default: all) that are stale, all
+    `nvcc` processes at once. -> {name: {"seconds", "log"}} for each
+    library compiled; `log` holds ptxas's register/shared-memory/spill
+    report. Raises with the compiler output if any build fails."""
+    names = list(LIBRARIES if names is None else names)
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return {}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    exe = nvcc()
+    procs = {}
+    t0 = time.perf_counter()
+    for n in todo:
+        source, lib = _paths(n)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs[n] = (subprocess.Popen(
+            [exe, *NVCC_FLAGS, "-o", tmp, source],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True),
+            tmp, lib)
+    report, failed = {}, []
+    for n, (proc, tmp, lib) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{n} (rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: concurrent builders never see a partial file
+        report[n] = {"seconds": time.perf_counter() - t0, "log": log}
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if stale."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(_paths(name)[1])
+        for fn, argtypes in LIBRARIES[name][1].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = ctypes.c_int
+        lib.smirk_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.smirk_cuda_error_string.restype = ctypes.c_char_p
+        _loaded[name] = lib
+    return lib
+
+
+def error_string(code: int) -> str:
+    for lib in _loaded.values():
+        return lib.smirk_cuda_error_string(code).decode()
+    return "unknown"
