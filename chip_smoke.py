@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # full run, batch 64, 224 px, fp32
+    python3 chip_smoke.py            # full run: infer b64 + train b32, 224 px, fp32
     python3 chip_smoke.py --quick    # build + kernel checks at batch 8 only
 
 Phases (any failure exits non-zero):
@@ -16,6 +16,17 @@ Phases (any failure exits non-zero):
     (K1b) vs the plain version: pix_to_face, zbuf and normals bitwise
     equal; compact == padded when nothing overflows; a truncated budget
     (24 chunks) overflows and renders its trailing tiles empty;
+ 4b. K3 raster_planes_windows (the differentiable raster's forward) on the
+    compact and padded (K3b) layouts vs its plain version at the training
+    shapes (b32): pix_to_face, zbuf, slot and the 3 value planes bitwise
+    equal; a truncated budget (24 chunks) gives the plan's overflow and
+    renders the clipped tiles empty with slot -1;
+ 4c. K4 segment_moments and K5 fold_slots_to_faces vs their plain versions:
+    every element within 1e-5 x the sum of the magnitudes of its terms;
+ 4d. the raster gradient (K3 -> K4 -> K5 -> attr_planes) at b4 against a
+    dense gather-based autograd reference on the card and against the
+    port's CPU path, within 1e-4 x its rounding scale
+    (rasterizer.dense_gradient_and_scale);
  5. the main path through `Predictor` at full width (three full
     MobileNetV3-minimal encoders, FLAME with 300 shape / 50 expression
     components on the full-size procedural head, batch 64, 224 px), random
@@ -24,11 +35,23 @@ Phases (any failure exits non-zero):
     launch counters rose; then the padded layout's path
     (raster_compact=0); then the card's outputs against the port's plain
     CPU path on a small input;
+ 5b. the training path through `SmirkSystem.train_step` at full width (the
+    training recipe's settings: generator 32 features / 5 ResNet blocks,
+    mask ratio 0.01, dilation 10, Ke 1; teachers absent), b32, 224 px,
+    fp32, bench.py's synthetic batch: 3 steps of each parity with finite
+    metrics, zero raster overflow on both paths, the expression encoder
+    and the generator moved, the pose and shape encoders not, and K1-K5's
+    launch counters rose; then one step of each parity on the padded layout
+    (K3b);
  6. timings, warm, each beside the card's name and power limit: with CUDA
-    events each kernel, its plain version, K2's library yardstick (one
-    advanced-index gather) and the stages of infer; on the host clock the
-    median and spread of 5 windows of 50 infer calls (ms/batch, images/s)
-    and of 3 windows of 20 Predictor calls; occupied chunks vs the budget;
+    events each kernel, its plain version, its library yardstick where
+    there is one (K2: one advanced-index gather; K4: one scatter_add_ of
+    prebuilt moment rows; K5: one index_add_), the stages of infer and of
+    one train step, a torch.profiler trace of one train step per parity
+    (device time by kernel class, busy share) and its convolution FLOPs;
+    on the host clock the median and spread of 5 windows of 50 infer calls
+    (ms/batch, images/s), of 3 windows of 20 Predictor calls and of 3
+    windows of 5 train steps per parity; occupied chunks vs the budget;
  7. a `kernels` JSON line; 8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
@@ -48,10 +71,20 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # ~fp32 operations of one face-pixel test: 4 affine forms x (2 mul + 2 add)
 OPS_PER_FACE_PIXEL = 16
-OPS_PER_NORMAL_PIXEL = 12  # the winner's 3 normal planes
 # end-to-end timing: windows x calls per window
 INFER_WINDOWS, INFER_CALLS = 5, 50
 CALL_WINDOWS, CALL_CALLS = 3, 20
+TRAIN_WINDOWS, TRAIN_STEPS = 3, 5
+INFER_B = 64  # bench.py's inference batch
+TRAIN_B = 32  # the training recipe's batch
+# tolerances of the float-order-dependent checks: K4 and K5 within 1e-5 x
+# the sum of the magnitudes of their terms; the end-to-end gradient within
+# 1e-4 x its kappa^2-weighted magnitudes (rasterizer.dense_gradient_and_
+# scale): a sum of n fp32 terms in any order is within n*u of their
+# magnitudes (u = 2^-24), and a face's gradient sums up to ~1000 pixels
+# here, 1000 u = 6e-5
+SUM_RTOL = 1e-5
+GRAD_RTOL = 1e-4
 
 
 def log(*a):
@@ -113,6 +146,136 @@ def check(cond, what):
     log(f"  ok: {what}")
 
 
+def within(got, want, scale, what, rtol=SUM_RTOL):
+    """Check every element of `got` within rtol * scale + 1e-30 of `want`
+    -> (worst ratio |got - want| / (rtol * scale + 1e-30), max |got -
+    want|)."""
+    diff = (got.double() - want.double()).abs()
+    ratio = float((diff / (rtol * scale.double() + 1e-30)).max())
+    check(ratio <= 1.0, f"{what}: worst |diff| / ({rtol:g} x scale) = {ratio:.4g} <= 1")
+    return ratio, float(diff.max())
+
+
+def raster_bound(win, n_tiles, n_out, n_planes, B, Tp):
+    """(bound ms, bound_by) of a chunk-window raster: 16 fp32 operations per
+    face-pixel test over the windows + 4 per value plane per pixel, against
+    the windows, the records they read once and n_out output arrays."""
+    from smirk_tpu_torch.render import rasterizer as R
+
+    ops = win * 32 * R.TILE_PIX * OPS_PER_FACE_PIXEL + \
+        n_tiles * R.TILE_PIX * 4 * n_planes
+    nbytes = 2 * B * Tp * 4 + win * 32 * 32 * 4 + n_out * B * Tp * R.TILE_PIX * 4
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def train_batch(B, S, seed):
+    """bench.py's synthetic training batch."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {
+        "img": rng.random((B, S, S, 3), np.float32),
+        "landmarks_fan": rng.uniform(-1, 1, (B, 68, 2)).astype(np.float32),
+        "flag_landmarks_fan": np.ones((B,), bool),
+        "landmarks_mp": rng.uniform(-1, 1, (B, 105, 2)).astype(np.float32),
+        "mask": (rng.random((B, S, S, 1)) > 0.5).astype(np.float32),
+        "img_mica": np.zeros((B, 112, 112, 3), np.float32),
+    }
+
+
+# kernel-name fragments -> class, first match wins (for the train profile)
+KERNEL_CLASSES = (
+    ("port kernels K1-K5", ("raster_fused", "compact_faces", "raster_planes",
+                            "segment_moments", "fold_faces")),
+    ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft",
+                     "wgrad", "dgrad", "nchw", "nhwc")),
+    ("matmul", ("gemm", "cutlass", "ampere", "sm90")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
+    ("reduction", ("reduce", "welford", "var_mean", "norm")),
+    ("scatter / gather / index", ("scatter", "gather", "index", "topk", "sort",
+                                  "radix", "cumsum", "scan")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "copy", "fill",
+                     "where", "clamp", "pool")),
+)
+
+
+def profile_train_step(system, batch, parity, gen):
+    """One warm train step under torch.profiler -> (wall ms, {class: device
+    ms}), or None when the trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    system.train_step(batch, parity, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        system.train_step(batch, parity, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    by_class = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).split(".")[-1] != "CUDA":
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        name = e.key.lower()
+        cls = next((c for c, keys in KERNEL_CLASSES if any(k in name for k in keys)),
+                   "other")
+        by_class[cls] = by_class.get(cls, 0.0) + us / 1e3
+    return (wall, by_class) if sum(by_class.values()) > 0 else None
+
+
+def conv_flops_of_step(system, batch, parity, gen):
+    """Convolution FLOPs (2 per multiply-add) of one train step, counted by
+    forward hooks on every Conv2d / ConvTranspose2d of the encoder and the
+    generator: each call's forward, plus one forward's worth for the input
+    gradient and one for the weight gradient where autograd takes them."""
+    import torch
+
+    total = [0.0]
+
+    def hook(m, inp, out):
+        x = inp[0]
+        k = m.weight.shape[2] * m.weight.shape[3]
+        if isinstance(m, torch.nn.ConvTranspose2d):
+            fwd = 2.0 * x.numel() * (m.out_channels // m.groups) * k
+        else:
+            fwd = 2.0 * out.numel() * (m.in_channels // m.groups) * k
+        grads = torch.is_grad_enabled() and (x.requires_grad or m.weight.requires_grad)
+        total[0] += fwd * (1 + (grads and x.requires_grad) + (grads and m.weight.requires_grad))
+
+    handles = [m.register_forward_hook(hook)
+               for mod in (system.encoder, system.generator) for m in mod.modules()
+               if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
+    try:
+        system.train_step(batch, parity, gen)
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+def train_stages(system, batch, parity, gen):
+    """CUDA-event ms of one train step's stages: phase-1 forward, phase-1
+    backward + both Adam steps, phase 2 (forward, backward, Adam)."""
+    import torch
+
+    bt = system._batch(batch)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    ev[0].record()
+    loss1, aux = system._loss1(bt, True, gen)
+    ev[1].record()
+    system._update_path1(loss1)
+    ev[2].record()
+    system._phase2(bt, aux["encoder_output"], aux["transformed_vertices"], parity, gen)
+    ev[3].record()
+    torch.cuda.synchronize()
+    system._eval_mode()
+    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -157,7 +320,7 @@ def main(argv=None) -> int:
                 log(f"  {lib}: {line.strip()}")
 
     # ---------------- main-path inputs ----------------
-    B = 8 if args.quick else 64
+    B = 8 if args.quick else INFER_B
     S = 224
     bundle = procedural_bundle(seed=0, full_size=True)
     # bench.py's cam_fix: random-init weights leave cam = [7, 0, 0], so
@@ -247,6 +410,104 @@ def main(argv=None) -> int:
         check(torch.equal(tk1[0][keep & (te == ends)], k1[0][keep & (te == ends)]),
               "tiles inside the truncated budget equal the full render")
 
+    # ---------------- 4b. K3 / K3b at the training shapes ----------------
+    BT = min(B, TRAIN_B)
+    D = 3
+    dev = face_verts.device
+    F_render = int(renderer.faces.shape[0])
+    log(f"[4b] K3 raster_planes_windows at B={BT}, compact and padded layouts")
+    with torch.inference_mode():
+        fvt, fnt = face_verts[:BT], face_normals[:BT]
+        bins_t, counts_t = R.bin_faces_flat(fvt, S, cap)
+        prec = R.planes_records(fvt, fnt)
+        bins3_t = bins_t.reshape(BT, Tp * CPT, R.V3_CHUNK)
+        s3, e3, tof3, tot3, drop3 = R._compact_plan(counts_t, budget)
+        f3 = R.compact_faces(tof3, s3, tot3, bins3_t, CPT)
+        recs3 = R._gather_recs(prec, f3.reshape(BT, budget * R.V3_CHUNK)).contiguous()
+        k3 = R.raster_planes_windows(s3, e3, recs3, S, TX, D)
+        k3_plain = R.raster_planes_windows_plain(s3, e3, recs3, S, TX, D)
+        torch.cuda.synchronize()
+        K3_OUT = ("p2f", "zbuf", "slot", "vals")
+        k3_err = 0.0
+        for nm, a, b in zip(K3_OUT, k3, k3_plain):
+            check(torch.equal(a, b), f"K3 {nm} == plain (bitwise)")
+            k3_err = max(k3_err, float((a.double() - b.double()).abs().max()))
+        ps3, pe3 = R.padded_windows(counts_t, CPT)
+        recs3p = R._gather_recs(prec, bins_t.reshape(BT, Tp * cap)).contiguous()
+        k3b = R.raster_planes_windows(ps3, pe3, recs3p, S, TX, D)
+        k3b_plain = R.raster_planes_windows_plain(ps3, pe3, recs3p, S, TX, D)
+        torch.cuda.synchronize()
+        k3b_err = 0.0
+        for nm, a, b in zip(K3_OUT, k3b, k3b_plain):
+            check(torch.equal(a, b), f"K3b (padded) {nm} == plain (bitwise)")
+            k3b_err = max(k3b_err, float((a.double() - b.double()).abs().max()))
+        check(int(drop3.max()) == 0, f"no overflow at the budget {budget}")
+        for nm, a, b in zip(K3_OUT, k3, k3b):
+            check(torch.equal(a, b), f"K3 compact {nm} == padded {nm}")
+        check(bool((k3[2] < cap).all()) and int(k3[2].max()) >= 0,
+              "slots are per-tile indices into the bins")
+        ts3, te3, ttof3, ttot3, tdrop3 = R._compact_plan(counts_t, tb)
+        tf3 = R.compact_faces(ttof3, ts3, ttot3, bins3_t, CPT)
+        trecs3 = R._gather_recs(prec, tf3.reshape(BT, tb * R.V3_CHUNK)).contiguous()
+        tk3 = R.raster_planes_windows(ts3, te3, trecs3, S, TX, D)
+        tk3_plain = R.raster_planes_windows_plain(ts3, te3, trecs3, S, TX, D)
+        for nm, a, b in zip(K3_OUT, tk3, tk3_plain):
+            check(torch.equal(a, b), f"K3 {nm} == plain at budget {tb}")
+        _, _, _, ovf3 = R.rasterize_planes_diff(fvt, fnt, S, cap, tb)
+        check(torch.equal(ovf3, tdrop3) and int(tdrop3.min()) > 0,
+              f"rasterize_planes_diff overflow at budget {tb} == the plan's "
+              f"(min {int(tdrop3.min())}, max {int(tdrop3.max())})")
+        empty3 = (te3 - ts3) == 0
+        check(bool(empty3.any()) and bool((tk3[0][empty3] == -1).all())
+              and bool((tk3[2][empty3] == -1).all()),
+              f"{int(empty3.sum())} clipped tiles render empty with slot -1")
+
+        # ---------------- 4c. K4 / K5 ----------------
+        log("[4c] K4 segment_moments and K5 fold_slots_to_faces vs plain")
+        gimg = torch.randn((BT, S, S, D), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(0))
+        g_t = R.image_to_tiles(gimg, S).contiguous()
+        slots3 = k3[2]
+        k4 = R.segment_moments(slots3, g_t, cap, S)
+        k4_plain = R.segment_moments_plain(slots3, g_t, cap, S)
+        k4_scale = R.segment_sum(slots3, R.moment_rows(g_t, S).abs(), cap)
+        torch.cuda.synchronize()
+        k4_ratio, k4_err = within(k4, k4_plain, k4_scale, "K4 vs plain")
+        k5 = R.fold_slots_to_faces(k4, bins_t, F_render)
+        k5_plain = R.fold_slots_to_faces_plain(k4, bins_t, F_render)
+        k5_scale = R.fold_slots_to_faces_plain(k4.abs(), bins_t, F_render)
+        torch.cuda.synchronize()
+        k5_ratio, k5_err = within(k5, k5_plain, k5_scale, "K5 vs plain")
+        check(float(k5.abs().sum()) > 0, "K5 folded a nonzero gradient")
+
+    # ---------------- 4d. the raster gradient ----------------
+    G4 = min(4, B)
+    log(f"[4d] rasterize gradient at b{G4}: card vs a dense reference and vs the CPU path")
+    fv4 = face_verts[:G4].clone().requires_grad_(True)
+    fn4 = face_normals[:G4].clone().requires_grad_(True)
+    R.reset_launch_counts()
+    vals4, _, p2f4, _ = R.rasterize(fv4, fn4, S, cap, budget)
+    w4 = torch.randn(vals4.shape, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(1))
+    d_fv, d_fn = torch.autograd.grad((vals4 * w4).sum(), (fv4, fn4))
+    torch.cuda.synchronize()
+    check(all(k.launches == 1 for k in (R.compact_faces, R.raster_planes_windows,
+                                        R.segment_moments, R.fold_slots_to_faces)),
+          "one forward + backward launched K2, K3, K4 and K5 once each")
+    ref_fv, sc_fv, ref_fn, sc_fn = R.dense_gradient_and_scale(
+        p2f4, fv4.detach(), fn4.detach(), w4)
+    grad_ratio = max(within(d_fv, ref_fv, sc_fv, "d face_verts vs dense", GRAD_RTOL)[0],
+                     within(d_fn, ref_fn, sc_fn, "d normals vs dense", GRAD_RTOL)[0])
+    dvals, _ = R.interpolate_attributes(p2f4, fv4.detach(), fn4.detach())
+    log(f"    values vs dense: max |diff| {float((vals4.detach() - dvals).abs().max()):.3g}")
+    fvc = fv4.detach().cpu().requires_grad_(True)
+    fnc = fn4.detach().cpu().requires_grad_(True)
+    vc, _, pc, _ = R.rasterize(fvc, fnc, S, cap, budget)
+    dc_fv, dc_fn = torch.autograd.grad((vc * w4.cpu()).sum(), (fvc, fnc))
+    check(torch.equal(pc, p2f4.cpu()), "pix_to_face card == cpu")
+    within(d_fv.cpu(), dc_fv, sc_fv.cpu(), "d face_verts card vs cpu", GRAD_RTOL)
+    within(d_fn.cpu(), dc_fn, sc_fn.cpu(), "d normals card vs cpu", GRAD_RTOL)
+
     if args.quick:
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                "count": count}}))
@@ -296,6 +557,59 @@ def main(argv=None) -> int:
     agree = float((ref["pix_to_face"] == got["pix_to_face"]).mean())
     check(agree >= 0.995, f"pix_to_face card vs cpu agree on {agree:.5f} >= 0.995")
 
+    # ---------------- 5b. the training path ----------------
+    from smirk_tpu_torch.config import Config
+    from smirk_tpu_torch.train.trainer import SUB_ENCODERS, SmirkSystem
+
+    TB = TRAIN_B
+    log(f"[5b] training path: SmirkSystem.train_step at b{TB}, {S} px, fp32, "
+        "both parities")
+    tsys = SmirkSystem(Config(), bundle)  # the card
+    tbatch = train_batch(TB, S, 0)
+    gen_t = torch.Generator(device=dev).manual_seed(0)
+    enc0 = {n: p.detach().clone() for n, p in tsys.encoder.named_parameters()}
+    gen0 = [p.detach().clone() for p in tsys.generator.parameters()]
+    R.reset_launch_counts()
+    train_metrics = []
+    for parity in (0, 1) * 3:
+        m, taux = tsys.train_step(tbatch, parity, gen_t)
+        train_metrics.append(m)
+    torch.cuda.synchronize()
+    train_launches = {k.__name__: k.launches for k in R.KERNELS}
+    log(f"    launches over 6 train steps: {train_launches}")
+    check(all(v > 0 for v in train_launches.values()),
+          "the training path went through K1, K2, K3, K4 and K5")
+    for i, m in enumerate(train_metrics):
+        check(all(math.isfinite(v) for v in m.values()), f"step {i} metrics finite")
+        check(m["raster_overflow"] == 0 and m["raster_overflow_2nd"] == 0,
+              f"step {i} raster_overflow == raster_overflow_2nd == 0")
+    log("    step 0 metrics: " + json.dumps(train_metrics[0]))
+    log("    step 5 metrics: " + json.dumps(train_metrics[-1]))
+    moved = {sub: sum(float((p.detach() - enc0[n]).abs().sum())
+                      for n, p in tsys.encoder.named_parameters() if n.startswith(sub))
+             for sub in SUB_ENCODERS}
+    gen_moved = sum(float((p.detach() - q).abs().sum())
+                    for p, q in zip(tsys.generator.parameters(), gen0))
+    check(moved["expression_encoder"] > 0 and gen_moved > 0,
+          f"the expression encoder ({moved['expression_encoder']:.4g}) and the "
+          f"generator ({gen_moved:.4g}) moved")
+    check(moved["pose_encoder"] == 0 and moved["shape_encoder"] == 0,
+          "the pose and shape encoders did not move")
+    cov_t = float((taux["rendered_img"].sum(-1) > 0).float().mean())
+    check(cov_t > 0.05, f"training render coverage {cov_t:.4f} > 0.05")
+    log("    padded layout: one train step of each parity with raster_compact=0")
+    tsys.renderer.raster_compact = 0
+    R.reset_launch_counts()
+    for parity in (0, 1):
+        m, _ = tsys.train_step(tbatch, parity, gen_t)
+        check(all(math.isfinite(v) for v in m.values()), f"padded parity {parity} finite")
+    train_launches_pad = {k.__name__: k.launches for k in R.KERNELS}
+    tsys.renderer.raster_compact = renderer.raster_compact
+    log(f"    launches on the padded training path: {train_launches_pad}")
+    check(train_launches_pad["raster_planes_windows"] > 0
+          and train_launches_pad["compact_faces"] == 0,
+          "the padded training path went through K3 and no K2")
+
     # ---------------- 6. timings ----------------
     log(f"[6] timings {card}")
     res = {}
@@ -331,11 +645,37 @@ def main(argv=None) -> int:
         }
         for k, fn in stages.items():
             res[f"stage_{k}_ms"] = cuda_ms(fn, 10)
+        res["k3_ms"] = cuda_ms(lambda: R.raster_planes_windows(s3, e3, recs3, S, TX, D), 50)
+        res["k3_plain_ms"] = cuda_ms(
+            lambda: R.raster_planes_windows_plain(s3, e3, recs3, S, TX, D), 3, 1)
+        res["k3b_ms"] = cuda_ms(lambda: R.raster_planes_windows(ps3, pe3, recs3p, S, TX, D), 50)
+        res["k3b_plain_ms"] = cuda_ms(
+            lambda: R.raster_planes_windows_plain(ps3, pe3, recs3p, S, TX, D), 3, 1)
+        res["k4_ms"] = cuda_ms(lambda: R.segment_moments(slots3, g_t, cap, S), 200)
+        res["k4_plain_ms"] = cuda_ms(lambda: R.segment_moments_plain(slots3, g_t, cap, S), 20)
+        # yardstick: the one scatter_add_ of prebuilt moment rows
+        rows4 = R.moment_rows(g_t, S).reshape(BT, -1, 3 * D)
+        idx4 = R.slot_index(slots3, cap, 3 * D)
+        buf4 = torch.zeros((BT, Tp * cap + 1, 3 * D), device=dev)
+        res["k4_library_ms"] = cuda_ms(lambda: buf4.scatter_add_(1, idx4, rows4), 200)
+        res["k5_ms"] = cuda_ms(lambda: R.fold_slots_to_faces(k4, bins_t, F_render), 200)
+        res["k5_plain_ms"] = cuda_ms(
+            lambda: R.fold_slots_to_faces_plain(k4, bins_t, F_render), 20)
+        # yardstick: the one index_add_ of the same rows into the face table
+        idx5 = R._fold_index(bins_t, F_render)
+        src5 = k4.reshape(-1, 3 * D)
+        buf5 = torch.zeros((BT * F_render + 1, 3 * D), device=dev)
+        res["k5_library_ms"] = cuda_ms(lambda: buf5.index_add_(0, idx5, src5), 200)
     # end to end: warm windows of back-to-back calls, each window ended by a
     # synchronize, on the host clock; the median window and the spread
     infer_w = timed_windows(lambda: system.infer(img), INFER_WINDOWS, INFER_CALLS)
     call_w = timed_windows(lambda: pred(images), CALL_WINDOWS, CALL_CALLS)
     infer_ms, call_ms = statistics.median(infer_w), statistics.median(call_w)
+    train_w = {p: timed_windows(lambda p=p: tsys.train_step(tbatch, p, gen_t),
+                                TRAIN_WINDOWS, TRAIN_STEPS) for p in (0, 1)}
+    stage_runs = {p: [train_stages(tsys, tbatch, p, gen_t) for _ in range(3)] for p in (0, 1)}
+    profiles = {p: profile_train_step(tsys, tbatch, p, gen_t) for p in (0, 1)}
+    conv_flops = {p: conv_flops_of_step(tsys, tbatch, p, gen_t) for p in (0, 1)}
     occ = renderer.measure_compact_occupancy(fl["vertices"], enc["cam"])
     for k, v in res.items():
         log(f"    {k:32s} {v:10.4f} ms {card}")
@@ -346,6 +686,35 @@ def main(argv=None) -> int:
         f"{call_ms:.3f} over {CALL_WINDOWS} windows of {CALL_CALLS} calls (min "
         f"{call_w[0]:.3f}, max {call_w[-1]:.3f}, spread {spread(call_w):.1f} %)  "
         f"images/s {B / call_ms * 1e3:.1f} {card}")
+    train_ms = {p: statistics.median(w) for p, w in train_w.items()}
+    for p, w in train_w.items():
+        log(f"    train_ms_batch{TB}_fp32_p{p} median {train_ms[p]:.3f} over "
+            f"{TRAIN_WINDOWS} windows of {TRAIN_STEPS} steps (min {w[0]:.3f}, max "
+            f"{w[-1]:.3f}, spread {spread(w):.1f} %) {card}")
+    log(f"    train_ms_batch{TB}_fp32_avg {(train_ms[0] + train_ms[1]) / 2:.3f} {card}")
+    for p, runs in stage_runs.items():
+        med = [statistics.median(r[i] for r in runs) for i in range(3)]
+        log(f"    train stages p{p} (median of 3, ms): phase1_forward {med[0]:.3f} "
+            f"phase1_backward_adam {med[1]:.3f} phase2 {med[2]:.3f} {card}")
+    for p, prof in profiles.items():
+        if prof is None:
+            log(f"    train profile p{p}: no device time in the trace; not measured")
+            continue
+        wall, by_class = prof
+        busy = sum(by_class.values())
+        log(f"    train profile p{p} (one step, torch.profiler): wall {wall:.3f} ms, "
+            f"device busy {busy:.3f} ms ({busy / wall * 100:.1f} %, idle "
+            f"{100 - busy / wall * 100:.1f} %) {card}")
+        for cls, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
+            log(f"      {cls:28s} {ms:9.3f} ms  {ms / busy * 100:5.1f} % of device time")
+        conv_ms = by_class.get("convolution", 0.0)
+        if conv_ms > 0:
+            log(f"      convolutions: {conv_flops[p] / 1e12:.4f} TFLOP per step (forward "
+                f"hooks) in {conv_ms:.3f} ms = {conv_flops[p] / conv_ms / 1e9:.2f} "
+                f"TFLOP/s, {conv_flops[p] / conv_ms / 1e9 / (PEAK_FP32_FLOPS / 1e12) * 100:.1f}"
+                f" % of the fp32 peak {card}")
+    for p in (0, 1):
+        log(f"    convolution TFLOP per train step p{p}: {conv_flops[p] / 1e12:.4f}")
     log(f"    occupied chunks (max over images) {occ['occupied_chunks']} vs budget "
         f"{occ['budget']} (headroom {occ['headroom']:.3f}); mean "
         f"{float(occupied.float().mean()):.1f}")
@@ -354,16 +723,13 @@ def main(argv=None) -> int:
     win_c = int((ends - starts).sum())
     win_p = int((pe - ps).sum())
 
-    def k1_bound(win, n_in_tiles):
-        ops = win * 32 * R.TILE_PIX * OPS_PER_FACE_PIXEL + \
-            n_in_tiles * R.TILE_PIX * OPS_PER_NORMAL_PIXEL
-        nbytes = 2 * B * Tp * 4 + win * 32 * 32 * 4 + 5 * B * Tp * R.TILE_PIX * 4
-        t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
-
     n_tiles = B * Tp
-    k1_bms, k1_by = k1_bound(win_c, n_tiles)
-    k1b_bms, k1b_by = k1_bound(win_p, n_tiles)
+    k1_bms, k1_by = raster_bound(win_c, n_tiles, 5, 3, B, Tp)
+    k1b_bms, k1b_by = raster_bound(win_p, n_tiles, 5, 3, B, Tp)
+    k3_bms, k3_by = raster_bound(int((e3 - s3).sum()), BT * Tp, 3 + D, D, BT, Tp)
+    k3b_bms, k3b_by = raster_bound(int((pe3 - ps3).sum()), BT * Tp, 3 + D, D, BT, Tp)
+    k4_bytes = BT * Tp * R.TILE_PIX * 4 * (1 + D) + BT * Tp * cap * 3 * D * 4
+    k5_bytes = BT * Tp * cap * (3 * D + 1) * 4 + BT * F_render * 3 * D * 4
     k2_bytes = (B * budget * 4 + B * Tp * 4 + B * 4 + int(total.sum()) * 32 * 4
                 + B * budget * 32 * 4)
     src = "smirk_tpu_torch/csrc/"
@@ -385,10 +751,35 @@ def main(argv=None) -> int:
          "launches": launches_pad["raster_fused_windows"], "max_abs_err": k1b_err,
          "ms": res["k1b_ms"], "plain_ms": res["k1b_plain_ms"],
          "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
+        {"name": "raster_planes_windows", "route": "cuda", "source": src + "raster_planes.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:2443",
+         "launches": train_launches["raster_planes_windows"], "max_abs_err": k3_err,
+         "ms": res["k3_ms"], "plain_ms": res["k3_plain_ms"],
+         "bound_ms": k3_bms, "bound_by": k3_by, "library_ms": None},
+        {"name": "raster_planes_windows (padded layout)", "route": "cuda",
+         "source": src + "raster_planes.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:2382",
+         "launches": train_launches_pad["raster_planes_windows"], "max_abs_err": k3b_err,
+         "ms": res["k3b_ms"], "plain_ms": res["k3b_plain_ms"],
+         "bound_ms": k3b_bms, "bound_by": k3b_by, "library_ms": None},
+        {"name": "segment_moments", "route": "cuda", "source": src + "segment_moments.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:2225",
+         "launches": train_launches["segment_moments"], "max_abs_err": k4_err,
+         "ms": res["k4_ms"], "plain_ms": res["k4_plain_ms"],
+         "bound_ms": k4_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+         "library_ms": res["k4_library_ms"]},
+        {"name": "fold_slots_to_faces", "route": "cuda", "source": src + "fold_faces.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:2120",
+         "launches": train_launches["fold_slots_to_faces"], "max_abs_err": k5_err,
+         "ms": res["k5_ms"], "plain_ms": res["k5_plain_ms"],
+         "bound_ms": k5_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+         "library_ms": res["k5_library_ms"]},
     ]}
     for k in line["kernels"]:
         assert all(isinstance(k[f], (int, float)) and math.isfinite(k[f])
                    for f in ("ms", "plain_ms", "bound_ms", "max_abs_err"))
+    log(f"    worst tolerance ratios: K4 {k4_ratio:.4g}, K5 {k5_ratio:.4g}, "
+        f"gradient {grad_ratio:.4g} (of 1e-5, 1e-5, 1e-4 x scale; <= 1 passes)")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -7,10 +7,12 @@ package's layout (NHWC images in [0,1], the same output dict keys).
 Layout:
   config.py, assets.py  copies of the host-side loaders + procedural_bundle
   flame/                FLAME blendshapes + LBS + landmarks
-  models/               MobileNetV3-minimal encoders
-  render/               camera, geometry, shading, rasterizer, renderer
+  models/               MobileNetV3-minimal encoders, the fuse generator
+  render/               camera, geometry, shading, rasterizer (inference
+                        and differentiable), renderer
+  masking/, losses/     mesh-anchored pixel hints and masks; the losses
   csrc/                 CUDA kernels (sm_90a), built by kernels.py
-  train/                SmirkSystem (inference)
+  train/                SmirkSystem: infer and the two-path train_step
   api.py                Predictor
 """
 

@@ -7,7 +7,9 @@ absent. Both packages take the same bundle dict, so tests build one bundle
 and hand it to the JAX classes and to the port alike.
 
 The FLAME2020 `generic_model.pkl` is license-gated. When it is absent the
-deformation tensors come from `synthetic_deformation_tensors`.
+deformation tensors come from `synthetic_deformation_tensors`
+(`load_all`); `procedural_bundle` replaces their shape and expression
+bases with smooth ones.
 """
 from __future__ import annotations
 
@@ -303,6 +305,27 @@ def _lat_long_ellipsoid(n_lat: int, n_lon: int, rng) -> tuple:
     return verts.astype(np.float32), faces.astype(np.int32), unit
 
 
+def _smooth_bases(unit: np.ndarray, n: int, scale: float, rng,
+                  front_only: bool) -> np.ndarray:
+    """(V,3,n) smooth displacement fields over the head, PCA-like: field k
+    is a random combination of the monomials of the unit direction up to
+    degree 3, normalized to an RMS vertex displacement of scale /
+    sqrt(1 + k) per unit parameter; `front_only` fades it out behind the
+    face (FLAME's expressions move the face, not the back of the head)."""
+    x, y, z = unit.T
+    mono = [np.ones_like(x)]
+    for deg in range(1, 4):
+        for i in range(deg + 1):
+            for j in range(deg + 1 - i):
+                mono.append(x ** i * y ** j * z ** (deg - i - j))
+    basis = np.stack(mono, -1)  # (V,20)
+    fields = np.einsum("vm,kdm->vdk", basis, rng.normal(size=(n, 3, basis.shape[1])))
+    if front_only:
+        fields *= np.clip((z + 0.2) / 1.2, 0.0, 1.0)[:, None, None]
+    rms = np.sqrt((fields ** 2).sum(1).mean(0))  # (n,)
+    return (fields * (scale / np.sqrt(1.0 + np.arange(n)) / rms)).astype(np.float32)
+
+
 def procedural_bundle(seed: int = 0, full_size: bool = True) -> Dict:
     """A deterministic head-like FLAME bundle, standing in for the FLAME
     assets (head_template.obj, the landmark embeddings, FLAME_masks, the
@@ -314,8 +337,11 @@ def procedural_bundle(seed: int = 0, full_size: bool = True) -> Dict:
     FLAME's counts: 5024 vertices and 10044 faces, with a front 'face'
     region of 1787 vertices (about 3400 faces) that the renderer draws.
     `full_size=False` gives a few hundred faces, for tests on the CPU.
-    Deformation tensors come from `synthetic_deformation_tensors`; the
-    landmark embeddings, eyelid blendshapes and per-face sampling
+    The pose tensors come from `synthetic_deformation_tensors`; the shape
+    and expression bases are smooth, PCA-like fields (`_smooth_bases`: 2 mm
+    RMS per unit of the first component, decreasing), so that the
+    augmented expressions of training (up to +-4) bend the surface as
+    FLAME's do instead of scattering its vertices; the landmark embeddings, eyelid blendshapes and per-face sampling
     probabilities are drawn from `seed` on the face region, at the shapes
     the real assets have.
     """
@@ -331,6 +357,10 @@ def procedural_bundle(seed: int = 0, full_size: bool = True) -> Dict:
     region_faces = np.nonzero(in_region[faces].all(1))[0].astype(np.int32)
 
     bundle = synthetic_deformation_tensors(V, faces, verts, seed=seed)
+    brng = np.random.default_rng(seed + 1)
+    bundle["shapedirs"] = np.concatenate(
+        [_smooth_bases(unit, N_SHAPE_FULL, 2e-3, brng, front_only=False),
+         _smooth_bases(unit, N_EXP_FULL, 2e-3, brng, front_only=True)], axis=2)
 
     def lmk(*shape):
         idx = rng.choice(region_faces, size=shape).astype(np.int32)

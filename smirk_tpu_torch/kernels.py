@@ -36,6 +36,19 @@ LIBRARIES = {
         # B, Tp, n_chunks, H, W, TX, device, stream
         "smirk_raster_fused_windows": [_P] * 8 + [_I] * 7 + [_P],
     }),
+    "raster_planes": ("raster_planes.cu", {
+        # starts, ends, recs, p2f, zbuf, slot, vals,
+        # B, Tp, n_chunks, H, W, TX, D, device, stream
+        "smirk_raster_planes_windows": [_P] * 7 + [_I] * 8 + [_P],
+    }),
+    "segment_moments": ("segment_moments.cu", {
+        # slots, g, out, B, Tp, C, D, H, W, TX, device, stream
+        "smirk_segment_moments": [_P] * 3 + [_I] * 8 + [_P],
+    }),
+    "fold_faces": ("fold_faces.cu", {
+        # per_slot, bins, out, B, rows_per_image, CHN, F, device, stream
+        "smirk_fold_faces": [_P] * 3 + [_I] * 5 + [_P],
+    }),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -4,7 +4,9 @@
 Pose -> 3 pose + 3 cam (cam-scale row zero, bias 7); Shape -> n_shape
 (zero head); Expression -> n_exp + 2 eyelid (clamped [0,1]) + 3 jaw (relu,
 clamp +-0.2). Images come in NHWC in [0,1], as in the JAX package, and are
-permuted to NCHW here. Module names follow the reference checkpoint
+permuted to NCHW here. `train()` / `eval()` switch every backbone's batch
+norm between batch and running statistics (mobilenetv3.BatchNorm2d, Flax's
+update rule). Module names follow the reference checkpoint
 (`pose_encoder.encoder.conv_stem.weight`, `pose_encoder.pose_cam_layers.0`,
 ...), so `load_state_dict` takes a reference encoder state dict.
 """

@@ -4,7 +4,10 @@ smirk_tpu/models/mobilenetv3.py).
 The two timm backbones the reference encoders use
 (`tf_mobilenetv3_small_minimal_100`, `tf_mobilenetv3_large_minimal_100`):
 ReLU everywhere, no squeeze-excite, 3x3 kernels, TF-style asymmetric SAME
-padding and BN eps 1e-3. Batch norm runs in eval mode (running stats).
+padding and BN eps 1e-3. Batch norm (`BatchNorm2d`) follows Flax: in eval
+mode it normalizes with the running stats; in train mode with the batch's,
+and it updates the running stats as ra = 0.9 ra + 0.1 batch with the
+BIASED batch variance (torch's own BatchNorm2d uses the unbiased one).
 
 Stage tables are constructor arguments; `ARCHS` maps the timm names to
 the published tables and is never written to. Module names follow timm's
@@ -20,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS_TF = 1e-3
+BN_MOMENTUM = 0.9  # Flax's: ra = 0.9 ra + 0.1 batch
 
 Stage = Sequence[Tuple[str, int, int, int]]  # (block, exp_chs, out_chs, stride)
 
@@ -68,8 +72,26 @@ class Conv2dSame(nn.Conv2d):
         return F.conv2d(x, self.weight, None, self.stride, 0, 1, self.groups)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """nn.BatchNorm2d (same parameters, buffers and state-dict keys) with
+    Flax's running-stat rule: in train mode the batch statistics normalize,
+    and the running mean and variance move as ra = 0.9 ra + 0.1 batch,
+    with the biased batch variance. num_batches_tracked stays unused."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0, self.eps)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
+        return y
+
+
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=BN_EPS_TF)
+    return BatchNorm2d(c, eps=BN_EPS_TF)
 
 
 class DepthwiseSeparable(nn.Module):

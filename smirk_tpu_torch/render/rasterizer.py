@@ -1,9 +1,11 @@
-"""Inference rasterizer: binning, face records, and the fused z-buffer.
+"""Rasterizer: binning, face records, the fused inference z-buffer and the
+differentiable planes raster.
 
-Port of the inference subset of smirk_tpu/render/rasterizer.py. The output
-contract is the JAX package's: pixel-to-face ids, z-buffer, interpolated
-normals, and the `raster_overflow` count of compact chunks dropped past the
-budget, with the same drop order and tie-breaks.
+Port of smirk_tpu/render/rasterizer.py's inference raster and its
+differentiable planes raster (`rasterize`, D <= 6 attribute channels). The
+output contract is the JAX package's: pixel-to-face ids, z-buffer,
+interpolated attributes, and the `raster_overflow` count of compact chunks
+dropped past the budget, with the same drop order and tie-breaks.
 
 NDC convention: +x -> right (column), +y -> down (row), pixel (r, c) centre
 at ((2c+1-W)/W, (2r+1-H)/H); smaller z is closer. Background is
@@ -25,7 +27,16 @@ Pipeline (`rasterize_normals_fused`):
    keep the nearest covering face (first in slot order on ties), and
    evaluate its normal planes at the pixel.
 
-K1 and K2 are CUDA kernels (csrc/). Each wrapper checks its arguments,
+The differentiable raster (`rasterize` -> `rasterize_planes_diff`, a
+torch.autograd.Function) bins, plans and packs the same way, with a
+training record per face (edge and depth planes, the face id, D attribute
+planes). Forward: `raster_planes_windows` (K3) keeps the nearest face, its
+per-tile slot and its D interpolated planes. Backward: the value cotangent
+goes tile-major, `segment_moments` (K4) sums [g*x | g*y | g] per (tile,
+slot), `fold_slots_to_faces` (K5) folds the slots into faces, and autograd
+of `attr_planes` takes it to the vertices and attributes.
+
+K1-K5 are CUDA kernels (csrc/). Each wrapper checks its arguments,
 launches on PyTorch's current stream and counts its launches; for tensors
 on the CPU it runs the plain PyTorch version beside it.
 """
@@ -348,23 +359,25 @@ def _affine(rec, ia, ib, ic, xs, ys):
     return rec[..., ia] * xs + rec[..., ib] * ys + rec[..., ic]
 
 
-def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
-    """Plain version of K1.
+def _plain_zbuffer(starts, ends, recs, image_size: int, tiles_x: int):
+    """The chunk walk shared by the plain versions of K1 and K3.
 
     starts/ends (B,Tp) int32: tile t walks chunks [starts, ends) of its
-    image's record list recs (B, N*32, 32) f32. Within a chunk the nearest
+    image's record list recs (B, N*32, L) f32. Within a chunk the nearest
     inside face wins, first slot on ties; a later chunk replaces the winner
-    only if strictly nearer. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf
-    (1e10 empty), nx, ny, nz (0 empty), all f32 but p2f.
+    only if strictly nearer. Yields, per group of images (bounded so that
+    no intermediate exceeds _PLAIN_BLOCK_ELEMS elements): (bidx (G,1)
+    image ids, bz (G,Tp,P) nearest depth (1e10 empty), win (G,Tp,P) the
+    winner's index in its image's record list, x, y (1,Tp,P) pixel
+    centres).
     """
     B, Tp = starts.shape
     dev = recs.device
-    CH, L = V3_CHUNK, RECF_LANES
+    CH, L = V3_CHUNK, recs.shape[-1]
     chunks = recs.reshape(B, -1, CH, L)
     xs, ys = _tile_centers(Tp, image_size, tiles_x, dev)
     xs, ys = xs[None, :, None, :], ys[None, :, None, :]  # (1,Tp,1,P)
     slot = torch.arange(CH, device=dev)[None, None, :, None]
-    outs = []
     group = max(1, _PLAIN_BLOCK_ELEMS // (Tp * CH * TILE_PIX))
     for b0 in range(0, B, group):
         s, e = starts[b0:b0 + group].long(), ends[b0:b0 + group].long()
@@ -390,10 +403,18 @@ def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int
             better = cz < bz
             bz = torch.where(better, cz, bz)
             win = torch.where(better, c[:, :, None, None] * CH + best, win)
-        bz, win = bz[:, :, 0], win[:, :, 0]  # (G,Tp,P)
+        yield bidx, bz[:, :, 0], win[:, :, 0], xs[:, :, 0], ys[:, :, 0]
+
+
+def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
+    """Plain version of K1: `_plain_zbuffer` over records in the
+    RECF_LANES layout. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf (1e10
+    empty), nx, ny, nz (0 empty), all f32 but p2f.
+    """
+    outs = []
+    for bidx, bz, win, x, y in _plain_zbuffer(starts, ends, recs, image_size, tiles_x):
         covered = bz < BIG_Z
         wrec = recs[bidx[:, :, None], win]  # (G,Tp,P,L)
-        x, y = xs[:, :, 0], ys[:, :, 0]
         planes = [_affine(wrec, 16 + d, 19 + d, 22 + d, x, y) for d in range(3)]
         outs.append((
             torch.where(covered, wrec[..., 12].to(torch.int32), -1),
@@ -449,8 +470,8 @@ raster_fused_windows.launches = 0
 
 
 def reset_launch_counts() -> None:
-    compact_faces.launches = 0
-    raster_fused_windows.launches = 0
+    for kernel in KERNELS:
+        kernel.launches = 0
 
 
 def fused_records(face_verts: torch.Tensor, face_normals: torch.Tensor) -> torch.Tensor:
@@ -527,3 +548,438 @@ def rasterize_normals_fused(
     if return_overflow:
         return normals, p2f, zbuf, overflow
     return normals, p2f, zbuf
+
+
+# ---------------------------------------------------------------------------
+# The differentiable raster (training): K3 forward, K4 + K5 backward
+# ---------------------------------------------------------------------------
+
+REC5_LANES = 32  # [9 edge | 3 zplane | fid | PA(D) PB(D) PC(D) | pad], D <= 6
+_REC5_PLANE0 = 13
+
+
+def image_to_tiles(x: torch.Tensor, image_size: int) -> torch.Tensor:
+    """(B,H,W,[D]) image -> (B,Tp,1024,[D]) tile-major, zero-padded to the
+    tile grid and to a multiple of 8 tiles."""
+    B, H, W = x.shape[:3]
+    chan = tuple(x.shape[3:])
+    ty = -(-H // TILE_ROWS)
+    tx = -(-W // TILE_COLS)
+    T = ty * tx
+    Tp = -(-T // 8) * 8
+    grid = x.new_zeros((B, ty * TILE_ROWS, tx * TILE_COLS) + chan)
+    grid[:, :H, :W] = x
+    tiles = grid.reshape((B, ty, TILE_ROWS, tx, TILE_COLS) + chan).movedim(3, 2)
+    tiles = tiles.reshape((B, T, TILE_PIX) + chan)
+    if Tp != T:
+        tiles = torch.cat([tiles, tiles.new_zeros((B, Tp - T, TILE_PIX) + chan)], dim=1)
+    return tiles
+
+
+def planes_records(face_verts: torch.Tensor, attributes: torch.Tensor) -> torch.Tensor:
+    """The training record: face_records lanes 0-11, lane 12 the face id,
+    then attr_planes [PA(D) | PB(D) | PC(D)], zero padded -> (B,F,32)."""
+    B, F = face_verts.shape[:2]
+    D = attributes.shape[-1]
+    base = face_records(face_verts)[..., :13].clone()
+    base[..., 12] = torch.arange(F, dtype=base.dtype, device=base.device)
+    planes = attr_planes(face_verts, attributes)
+    pad = face_verts.new_zeros((B, F, REC5_LANES - 13 - 3 * D))
+    return torch.cat([base, planes, pad], dim=-1)
+
+
+def raster_planes_windows_plain(starts, ends, recs, image_size: int,
+                                tiles_x: int, D: int):
+    """Plain version of K3: `_plain_zbuffer` over records in the
+    REC5_LANES layout. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf f32 (1e10
+    empty), slot (B,Tp,1024) int32, the winner's per-tile slot
+    (c - start)*32 + best (-1 empty), vals (D,B,Tp,1024) f32 (0 empty)."""
+    outs = []
+    for bidx, bz, win, x, y in _plain_zbuffer(starts, ends, recs, image_size, tiles_x):
+        covered = bz < BIG_Z
+        wrec = recs[bidx[:, :, None], win]  # (G,Tp,P,L)
+        first = starts[bidx[:, 0]].long()[:, :, None] * V3_CHUNK
+        p0 = _REC5_PLANE0
+        vals = [_affine(wrec, p0 + d, p0 + D + d, p0 + 2 * D + d, x, y)
+                for d in range(D)]
+        outs.append((
+            torch.where(covered, wrec[..., 12].to(torch.int32), -1),
+            torch.where(covered, bz, BIG_Z),
+            torch.where(covered, win - first, -1).to(torch.int32),
+            torch.stack([torch.where(covered, v, 0.0) for v in vals]),
+        ))
+    p2f, zbuf, slot, vals = zip(*outs)
+    return (torch.cat(p2f), torch.cat(zbuf), torch.cat(slot), torch.cat(vals, dim=1))
+
+
+def raster_planes_windows(starts, ends, recs, image_size: int, tiles_x: int, D: int):
+    """K3: per-tile z-buffer over chunk windows + the winner's per-tile slot
+    and D attribute planes (the differentiable raster's forward).
+
+    Replaces `_raster_kernel_v5c` (compact record list) and, fed the padded
+    layout, `_raster_kernel_v5` (smirk_tpu/render/rasterizer.py). Bound on
+    H100: fp32 operations (~16 per face-pixel test), with FMAs forbidden so
+    that it stays bitwise equal to the plain version. Design: K1's, one
+    block per (tile, image), 256 threads x 4 pixels, each chunk's 32
+    records staged in shared memory and read as broadcasts; the slot and
+    the D planes of the winner are evaluated once, at the end. CPU tensors
+    take the plain version. -> as `raster_planes_windows_plain`.
+    """
+    if recs.device.type == "cpu":
+        return raster_planes_windows_plain(starts, ends, recs, image_size, tiles_x, D)
+    if recs.device.type != "cuda":
+        raise ValueError(f"raster_planes_windows: unsupported device {recs.device}")
+    dev = recs.device
+    B, Tp = starts.shape
+    _check_cuda("starts", starts, torch.int32, 2, dev)
+    _check_cuda("ends", ends, torch.int32, 2, dev)
+    _check_cuda("recs", recs, torch.float32, 3, dev)
+    if (tuple(ends.shape) != (B, Tp) or recs.shape[0] != B
+            or recs.shape[2] != REC5_LANES or recs.shape[1] % V3_CHUNK
+            or not 1 <= D <= (REC5_LANES - 13) // 3):
+        raise ValueError("raster_planes_windows: inconsistent shapes "
+                         f"starts {tuple(starts.shape)} ends {tuple(ends.shape)} "
+                         f"recs {tuple(recs.shape)} D {D}")
+    if recs.data_ptr() % 16:
+        raise ValueError("raster_planes_windows: recs must be 16-byte aligned")
+    n_chunks = recs.shape[1] // V3_CHUNK
+    p2f = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
+    zbuf = torch.empty((B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
+    slot = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
+    vals = torch.empty((D, B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
+    lib = kernels.library("raster_planes")
+    rc = lib.smirk_raster_planes_windows(
+        starts.data_ptr(), ends.data_ptr(), recs.data_ptr(), p2f.data_ptr(),
+        zbuf.data_ptr(), slot.data_ptr(), vals.data_ptr(), B, Tp, n_chunks,
+        image_size, image_size, tiles_x, D, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "raster_planes_windows")
+    raster_planes_windows.launches += 1
+    return p2f, zbuf, slot, vals
+
+
+raster_planes_windows.launches = 0
+
+
+def moment_rows(g: torch.Tensor, image_size: int) -> torch.Tensor:
+    """g (B,Tp,1024,D) tile-major -> (B,Tp,1024,3D) [g*x | g*y | g], x and y
+    the pixel centres."""
+    Tp = g.shape[1]
+    xs, ys = _tile_centers(Tp, image_size, -(-image_size // TILE_COLS), g.device)
+    return torch.cat([g * xs[None, :, :, None], g * ys[None, :, :, None], g], dim=-1)
+
+
+def slot_index(slots: torch.Tensor, capacity: int, width: int) -> torch.Tensor:
+    """slots (B,Tp,1024) -> (B, Tp*1024, width) int64 rows t*C + slot of a
+    (B, Tp*C + 1) table, -1 slots to the dropped last row; expanded (no
+    copy) over `width` channels, as scatter_add_ takes it."""
+    B, Tp, P = slots.shape
+    tile = torch.arange(Tp, device=slots.device)[None, :, None] * capacity
+    idx = torch.where(slots >= 0, tile + slots.long(), Tp * capacity)
+    return idx.reshape(B, Tp * P, 1).expand(B, Tp * P, width)
+
+
+def segment_sum(slots, rows, capacity: int):
+    """Per-(tile, slot) sums of per-pixel rows (B,Tp,1024,W) by one
+    scatter_add_ -> (B,Tp,C,W)."""
+    B, Tp, P, Wd = rows.shape
+    out = rows.new_zeros((B, Tp * capacity + 1, Wd))
+    out.scatter_add_(1, slot_index(slots, capacity, Wd), rows.reshape(B, Tp * P, Wd))
+    return out[:, :Tp * capacity].reshape(B, Tp, capacity, Wd)
+
+
+def segment_moments_plain(slots, g, capacity: int, image_size: int):
+    """Plain version of K4: the moment rows, then one scatter_add_ into the
+    (B, Tp*C) slot rows (-1 slots go to a dropped row). -> (B,Tp,C,3D)."""
+    return segment_sum(slots, moment_rows(g, image_size), capacity)
+
+
+def segment_moments(slots, g, capacity: int, image_size: int):
+    """K4: per-(tile, slot) sums of [g*x | g*y | g] over the pixels the slot
+    won; slots (B,Tp,1024) int32 (-1 = none), g (B,Tp,1024,D) f32
+    tile-major -> (B,Tp,C,3D) f32, zeros for slots that won nothing.
+
+    Replaces `_segment_moments_kernel` (`segment_reduce_moments`,
+    smirk_tpu/render/rasterizer.py). Bound on H100: bytes (slots + g read
+    once, the rows written once; ~16 us at b32, 224 px). Design: one block
+    per (tile, image) with the tile's C x 3D accumulators in shared memory,
+    shared-memory atomics per pixel, one coalesced store; the atomics make
+    the float order vary, so it matches the plain version within a
+    tolerance, not bitwise. CPU tensors take the plain version.
+    """
+    if g.device.type == "cpu":
+        return segment_moments_plain(slots, g, capacity, image_size)
+    if g.device.type != "cuda":
+        raise ValueError(f"segment_moments: unsupported device {g.device}")
+    dev = g.device
+    _check_cuda("slots", slots, torch.int32, 3, dev)
+    _check_cuda("g", g, torch.float32, 4, dev)
+    B, Tp, P, D = g.shape
+    if tuple(slots.shape) != (B, Tp, P) or P != TILE_PIX:
+        raise ValueError("segment_moments: inconsistent shapes "
+                         f"slots {tuple(slots.shape)} g {tuple(g.shape)}")
+    if capacity * 3 * D * 4 > 48 * 1024:
+        raise ValueError(f"segment_moments: capacity {capacity} x 3D={3 * D} "
+                         "accumulators exceed 48 KB of shared memory")
+    out = torch.empty((B, Tp, capacity, 3 * D), dtype=torch.float32, device=dev)
+    lib = kernels.library("segment_moments")
+    rc = lib.smirk_segment_moments(
+        slots.data_ptr(), g.data_ptr(), out.data_ptr(), B, Tp, capacity, D,
+        image_size, image_size, -(-image_size // TILE_COLS), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "segment_moments")
+    segment_moments.launches += 1
+    return out
+
+
+segment_moments.launches = 0
+
+
+def _fold_index(bins: torch.Tensor, F: int) -> torch.Tensor:
+    """bins (B,Tp,C) -> flat (B*Tp*C,) rows b*F + id of a (B*F + 1) table;
+    ids outside [0, F) go to the dropped last row."""
+    B = bins.shape[0]
+    ids = bins.reshape(B, -1).long()
+    b = torch.arange(B, device=bins.device)[:, None] * F
+    return torch.where((ids >= 0) & (ids < F), b + ids, B * F).reshape(-1)
+
+
+def fold_slots_to_faces_plain(per_slot, bins, F: int):
+    """Plain version of K5: one index_add_ over (B*F) rows. -> (B,F,CHN)."""
+    B, Tp, C, CHN = per_slot.shape
+    out = per_slot.new_zeros((B * F + 1, CHN))
+    out.index_add_(0, _fold_index(bins, F), per_slot.reshape(-1, CHN))
+    return out[:B * F].reshape(B, F, CHN)
+
+
+def fold_slots_to_faces(per_slot, bins, F: int):
+    """K5: per-face totals of per-(tile, slot) rows; per_slot (B,Tp,C,CHN)
+    f32, bins (B,Tp,C) int32 face ids (< 0 dropped) -> (B,F,CHN) f32.
+
+    Replaces `_fold_kernel` (`_fold_matmul` / `fold_slots_to_faces`,
+    smirk_tpu/render/rasterizer.py). Bound on H100: bytes (~9.4 us at b32,
+    224 px). Design: one thread per element, atomicAdd into the zeroed
+    output where the slot holds a face and the value is not 0; a face
+    appears once per tile, so its atomics rarely collide. The float order
+    varies, so it matches the plain version within a tolerance. CPU tensors
+    take the plain version.
+    """
+    if per_slot.device.type == "cpu":
+        return fold_slots_to_faces_plain(per_slot, bins, F)
+    if per_slot.device.type != "cuda":
+        raise ValueError(f"fold_slots_to_faces: unsupported device {per_slot.device}")
+    dev = per_slot.device
+    _check_cuda("per_slot", per_slot, torch.float32, 4, dev)
+    _check_cuda("bins", bins, torch.int32, 3, dev)
+    B, Tp, C, CHN = per_slot.shape
+    if tuple(bins.shape) != (B, Tp, C):
+        raise ValueError("fold_slots_to_faces: inconsistent shapes "
+                         f"per_slot {tuple(per_slot.shape)} bins {tuple(bins.shape)}")
+    out = torch.zeros((B, F, CHN), dtype=torch.float32, device=dev)
+    lib = kernels.library("fold_faces")
+    rc = lib.smirk_fold_faces(
+        per_slot.data_ptr(), bins.data_ptr(), out.data_ptr(), B, Tp * C, CHN, F,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "fold_slots_to_faces")
+    fold_slots_to_faces.launches += 1
+    return out
+
+
+fold_slots_to_faces.launches = 0
+
+KERNELS = (compact_faces, raster_fused_windows, raster_planes_windows,
+           segment_moments, fold_slots_to_faces)
+
+
+def _v5_impl(face_verts, attributes, image_size: int, capacity: int,
+             compact: Optional[int] = None):
+    """The differentiable raster's forward on detached inputs -> (vals
+    (B,H,W,D), pix_to_face (B,H,W), zbuf (B,H,W), slots (B,Tp,1024)
+    tile-major per-tile slots, bins (B,Tp,C), overflow (B,) int32).
+
+    compact: chunk budget of the compact layout (rounded up to 8; the plan,
+    K2 and the record gather of the inference raster); None = padded
+    layout. overflow counts compact chunks dropped past the budget.
+    """
+    if capacity % V3_CHUNK:
+        raise ValueError(f"capacity {capacity} is not a multiple of {V3_CHUNK}")
+    B = face_verts.shape[0]
+    D = attributes.shape[-1]
+    H = W = image_size
+    ty = -(-H // TILE_ROWS)
+    tx = -(-W // TILE_COLS)
+    T = ty * tx
+    CH = V3_CHUNK
+    CPT = capacity // CH
+
+    bins, counts = bin_faces_flat(face_verts, image_size, capacity)
+    Tp = bins.shape[1]
+    records = planes_records(face_verts, attributes)
+    if compact is not None:
+        compact = -(-compact // 8) * 8
+        starts, ends, tof, total, overflow = _compact_plan(counts, compact)
+        faces = compact_faces(tof, starts, total, bins.reshape(B, Tp * CPT, CH), CPT)
+        recs = _gather_recs(records, faces.reshape(B, compact * CH))
+    else:
+        overflow = torch.zeros((B,), dtype=torch.int32, device=face_verts.device)
+        starts, ends = padded_windows(counts, CPT)
+        recs = _gather_recs(records, bins.reshape(B, Tp * capacity))
+    p2f, zbuf, slots, vals = raster_planes_windows(
+        starts, ends, recs.contiguous(), image_size, tx, D)
+
+    def to_image(x):
+        x = x[:, :T].reshape(B, ty, tx, TILE_ROWS, TILE_COLS)
+        return x.permute(0, 1, 3, 2, 4).reshape(
+            B, ty * TILE_ROWS, tx * TILE_COLS)[:, :H, :W]
+
+    vals = torch.stack([to_image(v) for v in vals], dim=-1)
+    return vals, to_image(p2f), to_image(zbuf), slots, bins, overflow
+
+
+def _pixelwise_interp(fv_px, attr_px, mask, image_size: int):
+    """Barycentric interpolation of per-pixel gathered faces: fv_px
+    (B,H,W,3,3), attr_px (B,H,W,3,D), mask (B,H,W,1) -> (B,H,W,D). The
+    barycentrics are signed sub-areas relative to the pixel centre over
+    twice the face's area (the JAX package's `_edge_terms`)."""
+    S = image_size
+    c = _ndc(torch.arange(S, device=fv_px.device), S)
+    xs, ys = c[None, None, :], c[None, :, None]  # (1,1,W), (1,H,1)
+    x0, y0 = fv_px[..., 0, 0], fv_px[..., 0, 1]
+    x1, y1 = fv_px[..., 1, 0], fv_px[..., 1, 1]
+    x2, y2 = fv_px[..., 2, 0], fv_px[..., 2, 1]
+    e0 = (x1 - xs) * (y2 - ys) - (y1 - ys) * (x2 - xs)
+    e1 = (x2 - xs) * (y0 - ys) - (y2 - ys) * (x0 - xs)
+    e2 = (x0 - xs) * (y1 - ys) - (y0 - ys) * (x1 - xs)
+    denom = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    safe = torch.where(denom.abs() < AREA_EPS, 1.0, denom)
+    bary = torch.stack([e0 / safe, e1 / safe, e2 / safe], dim=-1)
+    vals = torch.einsum("bhwc,bhwcd->bhwd", bary, attr_px)
+    return torch.where(mask, vals, 0.0)
+
+
+def interpolate_attributes(pix_to_face, face_verts, attributes):
+    """Gather-based differentiable interpolation (the JAX package's
+    `interpolate_attributes`): pix_to_face (B,H,W) int, face_verts
+    (B,F,3,3), attributes (B,F,3,D) -> (vals (B,H,W,D), mask (B,H,W,1)).
+    Autograd differentiates it through per-pixel gathers; it is the dense
+    reference the planes raster's gradient is checked against, and runs on
+    no path of the port."""
+    B, H, W = pix_to_face.shape
+    fid = pix_to_face.clamp_min(0).long()
+    mask = (pix_to_face >= 0)[..., None]
+    b = torch.arange(B, device=face_verts.device)[:, None, None]
+    vals = _pixelwise_interp(face_verts[b, fid], attributes[b, fid], mask, H)
+    return vals, mask.to(vals.dtype)
+
+
+def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g):
+    """The planes raster's gradient by another road, with its rounding scale.
+
+    -> (d_fv, scale_fv, d_attr, scale_attr): d sum(vals * g) /
+    d(face_verts, attributes) by autograd through per-pixel gathers of the
+    faces in pix_to_face (`_pixelwise_interp`, the JAX package's
+    interpolate_attributes), and per element the sum over the pixels the
+    face won of kappa^2 |per-pixel term| (float64), kappa the pixel's edge
+    condition number: the sum of |a x|, |b y|, |x_j y_k| and |y_j x_k| over
+    the three edges, over |2 area|. The planes raster evaluates edge and
+    attribute planes in absolute coordinates and its gradient
+    differentiates 1/area, so fp32 rounding is amplified by kappa twice;
+    two fp32 evaluations of the gradient that sum n pixel terms in
+    different orders agree to about n u times this scale. For checks only:
+    nothing on the port's paths calls it."""
+    B, F = face_verts.shape[:2]
+    S = pix_to_face.shape[1]
+    dev = face_verts.device
+    fid = pix_to_face.clamp_min(0).long()
+    mask = (pix_to_face >= 0)[..., None]
+    b = torch.arange(B, device=dev)[:, None, None]
+    with torch.enable_grad():
+        fv_px = face_verts[b, fid].detach().requires_grad_(True)
+        at_px = attributes[b, fid].detach().requires_grad_(True)
+        vals = _pixelwise_interp(fv_px, at_px, mask, S)
+        d_fv, d_at = torch.autograd.grad((vals * g).sum(), (fv_px, at_px))
+    with torch.no_grad():
+        c = (2 * torch.arange(S, device=dev, dtype=torch.float64) + 1 - S) / S
+        x, y = c[None, None, :], c[None, :, None]
+        X, Y = fv_px[..., 0].double(), fv_px[..., 1].double()
+        terms = 0.0
+        for i in range(3):
+            j, k = (i + 1) % 3, (i + 2) % 3
+            terms = terms + ((Y[..., j] - Y[..., k]) * x).abs() + \
+                ((X[..., k] - X[..., j]) * y).abs() + (X[..., j] * Y[..., k]).abs() + \
+                (Y[..., j] * X[..., k]).abs()
+        area2 = ((X[..., 1] - X[..., 0]) * (Y[..., 2] - Y[..., 0])
+                 - (Y[..., 1] - Y[..., 0]) * (X[..., 2] - X[..., 0])).abs()
+        k2 = torch.where(mask[..., 0], (terms / area2.clamp_min(1e-30)) ** 2, 0.0)
+        k2 = k2[..., None, None]
+        idx = (b * F + fid).reshape(-1)
+
+        def fold(t):
+            out = torch.zeros((B * F,) + t.shape[3:], dtype=t.dtype, device=dev)
+            out.index_add_(0, idx, t.reshape((-1,) + t.shape[3:]))
+            return out.reshape((B, F) + t.shape[3:])
+
+        return (fold(d_fv), fold(k2 * d_fv.double().abs()),
+                fold(d_at), fold(k2 * d_at.double().abs()))
+
+
+class _RasterizePlanesDiff(torch.autograd.Function):
+    """Forward `_v5_impl` (K3); backward image_to_tiles -> K4 -> K5 -> the
+    vector-Jacobian product of attr_planes. The cotangent of an affine
+    plane is its first moments over the pixels it won, so the backward
+    gathers nothing per pixel. Coverage is not differentiable: the
+    gradient reaches the vertices through the planes only, and the
+    gradient to z is zero."""
+
+    @staticmethod
+    def forward(ctx, face_verts, attributes, image_size, capacity, compact):
+        vals, p2f, _, slots, bins, overflow = _v5_impl(
+            face_verts.detach(), attributes.detach(), image_size, capacity, compact)
+        mask = (p2f >= 0)[..., None].to(vals.dtype)
+        ctx.mark_non_differentiable(mask, p2f, overflow)
+        ctx.save_for_backward(face_verts, attributes, slots, bins)
+        ctx.image_size = image_size
+        ctx.capacity = capacity
+        return vals, mask, p2f, overflow
+
+    @staticmethod
+    def backward(ctx, g_vals, _g_mask, _g_p2f, _g_overflow):
+        face_verts, attributes, slots, bins = ctx.saved_tensors
+        if g_vals is None:
+            return None, None, None, None, None
+        g_t = image_to_tiles(g_vals, ctx.image_size).contiguous()
+        per_slot = segment_moments(slots, g_t, ctx.capacity, ctx.image_size)
+        plane_ct = fold_slots_to_faces(per_slot, bins, face_verts.shape[1])
+        with torch.enable_grad():
+            fv = face_verts.detach().requires_grad_(True)
+            at = attributes.detach().requires_grad_(True)
+            dfv, dat = torch.autograd.grad(attr_planes(fv, at), (fv, at), plane_ct)
+        needs = ctx.needs_input_grad
+        return (dfv if needs[0] else None, dat if needs[1] else None,
+                None, None, None)
+
+
+def rasterize_planes_diff(face_verts, attributes, image_size: int,
+                          capacity: int, compact: Optional[int] = None):
+    """Fused differentiable raster -> (vals (B,H,W,D), mask (B,H,W,1),
+    pix_to_face (B,H,W) int32, overflow (B,) int32). Value- and
+    gradient-equivalent to coverage + barycentric interpolation of the
+    corner attributes; mask, pix_to_face and overflow carry no gradient.
+    overflow > 0 means trailing tiles rendered EMPTY and carry no
+    gradients."""
+    return _RasterizePlanesDiff.apply(face_verts, attributes, image_size,
+                                      capacity, compact)
+
+
+def rasterize(face_verts, attributes, image_size: int, capacity: int = 512,
+              compact: Optional[int] = None):
+    """Full differentiable raster (the JAX package's `rasterize` on its
+    Pallas path): the planes raster for D attribute channels with
+    13 + 3D <= 32, i.e. D <= 6. -> as `rasterize_planes_diff`."""
+    D = attributes.shape[-1]
+    if 13 + 3 * D > REC5_LANES:
+        raise NotImplementedError(
+            f"rasterize with D={D} > 6 attribute channels needs the coverage "
+            "raster K6 (_raster_kernel_v3) and its segment reduction K7 "
+            "(_segment_reduce_kernel), which are not ported yet")
+    return rasterize_planes_diff(face_verts, attributes, image_size, capacity, compact)

@@ -1,7 +1,11 @@
-"""Mesh renderer: orthographic projection + face-region cut + fused raster
-+ shading (port of smirk_tpu/render/renderer.py, inference path).
+"""Mesh renderer: orthographic projection + face-region cut + raster +
+shading (port of smirk_tpu/render/renderer.py).
 
-Images are NHWC in [0,1]; the coverage mask is returned explicitly.
+`forward(inference=True)` takes the fused, non-differentiable inference
+raster (`render_inference`); `forward(inference=False)` the differentiable
+planes raster (`render`), whose gradient reaches the vertices through the
+interpolated normals and the barycentrics. Images are NHWC in [0,1]; the
+coverage mask is returned explicitly.
 """
 from __future__ import annotations
 
@@ -28,7 +32,7 @@ def _env_set(name: str) -> Optional[str]:
 
 
 class Renderer(nn.Module):
-    """Inference renderer over the FLAME face region.
+    """Renderer over the FLAME face region.
 
     bin_capacity / raster_compact default to the JAX package's auto sizes
     (capacity 384 and a 216-chunk budget at 224 px on the 3408-face
@@ -135,26 +139,37 @@ class Renderer(nn.Module):
         landmarks: Optional[Dict[str, torch.Tensor]] = None,
         inference: bool = False,
     ) -> Dict[str, torch.Tensor]:
-        if not inference:
-            raise NotImplementedError(
-                "the differentiable render (Renderer.render) belongs to the "
-                "training slice of the port, which is not written yet; pass "
-                "inference=True for the fused inference render")
         out = {}
         transformed_vertices = self.project(vertices, cam)
         out["transformed_vertices"] = transformed_vertices
         if landmarks:
             for key, lmk in landmarks.items():
                 out[key] = camera_lib.project_landmarks(lmk, cam)
-        rendered, mask, pix_to_face, overflow = self.render_inference(
+        render_fn = self.render_inference if inference else self.render
+        rendered, mask, pix_to_face, overflow = render_fn(
             vertices, transformed_vertices)
         out["rendered_img"] = rendered
         out["rendered_mask"] = mask
         out["pix_to_face"] = pix_to_face
         # (B,) int32 compact chunks dropped past the budget: 0 = exact
-        # render; > 0 = trailing tiles rendered EMPTY
+        # render; > 0 = trailing tiles rendered EMPTY (and, in training,
+        # carry no gradient)
         out["raster_overflow"] = overflow
         return out
+
+    def render(self, vertices, transformed_vertices):
+        """Differentiable render -> (shaded image (B,H,W,3), mask
+        (B,H,W,1), pix_to_face (B,H,W), overflow (B,)): the vertex normals
+        are D=3 interpolated attributes of the planes raster, shaded by 5
+        directional lights on gray albedo."""
+        face_verts, face_normals = self._face_geometry(vertices, transformed_vertices)
+        normal_img, mask, pix_to_face, overflow = raster_lib.rasterize(
+            face_verts, face_normals, self.image_size,
+            capacity=self.bin_capacity,
+            compact=self.raster_compact or None,
+        )
+        shade = shading.directional_shading(normal_img)
+        return shading.GRAY_ALBEDO * shade * mask, mask, pix_to_face, overflow
 
     @torch.no_grad()
     def render_inference(self, vertices, transformed_vertices):

@@ -1,15 +1,19 @@
-"""Weight layout conversion from the JAX package's encoder variables.
+"""Weight layout conversion from the JAX package's variables.
 
-`encoder_state_dict_from_jax` turns the Flax `SmirkEncoder` variables of
-the JAX package (a nested dict of arrays with `params` and `batch_stats`)
-into this port's `SmirkEncoder` state dict, without importing JAX. The
-rules invert `smirk_tpu/utils/importer.py`:
+`encoder_state_dict_from_jax` and `generator_state_dict_from_jax` turn the
+Flax `SmirkEncoder` / `SmirkGenerator` variables of the JAX package (a
+nested dict of arrays with `params` and `batch_stats`) into this port's
+state dicts, without importing JAX. The rules invert
+`smirk_tpu/utils/importer.py`:
 
   conv kernel  HWIO -> OIHW (depthwise (3,3,1,C) -> (C,1,3,3), same transpose)
+  ConvTranspose kernel (kh,kw,I,O) -> (I,O,kh,kw), spatially flipped
   Dense kernel (I,O) -> Linear weight (O,I)
   BN scale/bias -> weight/bias; batch_stats mean/var -> running_mean/var
   module names: trailing `_<digits>` become list indices
-  (blocks_0_1 -> blocks.0.1, pose_cam_layers_0 -> pose_cam_layers.0)
+  (blocks_0_1 -> blocks.0.1, pose_cam_layers_0 -> pose_cam_layers.0);
+  generator blocks take the reference's names (encoder1/conv1 ->
+  encoder1.enc1conv1, resnet_blocks_0/norm2 -> resnet_blocks.0.conv_block.6)
 """
 from __future__ import annotations
 
@@ -34,20 +38,37 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()):
             yield prefix + (k,), v
 
 
+# generator block shorthands of the reference (smirk_generator.py)
+_GEN_SHORT = {
+    "encoder1": "enc1", "encoder2": "enc2", "encoder3": "enc3",
+    "encoder4": "enc4", "decoder1": "dec1", "decoder2": "dec2",
+    "decoder3": "dec3", "decoder4": "dec4", "bottleneck": "bottleneck",
+}
+# ResnetBlock conv_block indices (pad, conv, norm, relu, pad, conv, norm)
+_RES_IDX = {"conv1": 1, "norm1": 2, "conv2": 5, "norm2": 6}
+_RES_BLOCK = re.compile(r"resnet_blocks_(\d+)")
+
+
 def _torch_key(path: Tuple[str, ...]) -> str:
     *mods, leaf = path
+    if len(mods) > 1 and mods[0] in _GEN_SHORT:
+        return f"{mods[0]}.{_GEN_SHORT[mods[0]]}{mods[1]}.{_LEAF_TO_TORCH[leaf]}"
+    m = _RES_BLOCK.fullmatch(mods[0]) if mods else None
+    if m:
+        return (f"resnet_blocks.{m.group(1)}.conv_block."
+                f"{_RES_IDX[mods[1]]}.{_LEAF_TO_TORCH[leaf]}")
     return ".".join([_TRAILING_IDX.sub(r".\1", m) for m in mods]
                     + [_LEAF_TO_TORCH[leaf]])
 
 
-def encoder_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """{'params': ..., 'batch_stats': ...} -> state dict for `SmirkEncoder`
-    (with the `num_batches_tracked` buffers torch batch norm carries)."""
+def _state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
         for path, leaf in _flatten(variables[collection]):
-            arr = np.asarray(leaf, np.float32)
-            if path[-1] == "kernel" and arr.ndim == 4:
+            arr = np.array(leaf, np.float32)  # a writable copy
+            if path[-1] == "kernel" and arr.ndim == 4 and path[-2].startswith("upconv"):
+                arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+            elif path[-1] == "kernel" and arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif path[-1] == "kernel" and arr.ndim == 2:
                 arr = arr.T
@@ -59,3 +80,15 @@ def encoder_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch
                 out[key[:-len("running_var")] + "num_batches_tracked"] = (
                     torch.zeros((), dtype=torch.int64))
     return out
+
+
+def encoder_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} -> state dict for `SmirkEncoder`
+    (with the `num_batches_tracked` buffers torch batch norm carries)."""
+    return _state_dict_from_jax(variables)
+
+
+def generator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} of the Flax `SmirkGenerator` ->
+    state dict for the port's `SmirkGenerator` (reference key names)."""
+    return _state_dict_from_jax(variables)

@@ -149,3 +149,35 @@ def test_init_weights_head_quirks():
     a.init_weights(torch.Generator().manual_seed(0))
     for (k, v), w in zip(a.state_dict().items(), enc.state_dict().values()):
         assert torch.equal(v, w), k
+
+
+def test_encoder_train_mode_batch_norm_matches_flax(tiny_archs):
+    """train=True on all three sub-encoders: outputs from the batch
+    statistics, and running statistics moved by Flax's rule (0.9 / 0.1,
+    biased batch variance) on every sub-encoder, frozen ones included."""
+    n_shape, n_exp, B = 30, 10, 3
+    jenc = JaxSmirkEncoder(n_exp=n_exp, n_shape=n_shape)
+    img = np.random.default_rng(4).random((B, 64, 64, 3), np.float32)
+    variables = perturb(to_numpy_tree(
+        {k: v for k, v in jenc.init(jax.random.PRNGKey(1), jnp.asarray(img)).items()}), 5)
+    ref, mut = jenc.apply(jax.tree_util.tree_map(jnp.asarray, variables),
+                          jnp.asarray(img), train=True, mutable=["batch_stats"])
+    enc = SmirkEncoder(n_exp=n_exp, n_shape=n_shape, pose_stages=TINY_SMALL,
+                       shape_stages=TINY_LARGE, expression_stages=TINY_LARGE)
+    enc.load_state_dict(encoder_state_dict_from_jax(variables), strict=True)
+    enc.train()
+    out = enc(torch.from_numpy(img))
+    for k in ref:
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]),
+                                   rtol=1e-4, atol=1e-4, err_msg=k)
+    want = encoder_state_dict_from_jax({"params": variables["params"],
+                                        "batch_stats": to_numpy_tree(mut["batch_stats"])})
+    got = enc.state_dict()
+    for k in want:
+        if "running" in k:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=k)
+    for sub in ("pose_encoder", "shape_encoder", "expression_encoder"):
+        k = f"{sub}.encoder.bn1.running_mean"
+        assert not np.array_equal(got[k].numpy(), np.asarray(
+            variables["batch_stats"][sub]["encoder"]["bn1"]["mean"])), sub

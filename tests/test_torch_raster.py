@@ -322,5 +322,15 @@ def test_renderer_sizes_and_env(bundles, monkeypatch):
     monkeypatch.setenv("SMIRK_RASTER_COMPACT", "")
     r1 = Renderer(full, image_size=224, device="cpu")
     assert r1.raster_compact == 216
-    with pytest.raises(NotImplementedError, match="training slice"):
-        r1(torch.zeros((1, 5024, 3)), torch.tensor([[7.0, 0.0, 0.0]]))
+    # inference=False is the differentiable render: the inference render's
+    # keys and pixels, and an image that carries a gradient to the vertices
+    v = torch.from_numpy(np.array(full["v_template"][None])).requires_grad_(True)
+    cam = torch.tensor([[7.0, 0.0, 0.0]])
+    out = r1(v, cam)
+    ref = r1(v.detach(), cam, inference=True)
+    assert set(out) == set(ref)
+    assert out["rendered_img"].requires_grad and not ref["rendered_img"].requires_grad
+    assert (out["pix_to_face"] == ref["pix_to_face"]).float().mean() > 0.999
+    assert float(out["rendered_mask"].mean()) > 0.05
+    out["rendered_img"].sum().backward()
+    assert float(v.grad.abs().sum()) > 0
