@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py            # full run: infer b64 + train b32, 224 px, fp32
+    python3 chip_smoke.py            # infer b64, train + op path b32, 224 px, fp32
     python3 chip_smoke.py --quick    # build + kernel checks at batch 8 only
 
 Phases (any failure exits non-zero):
@@ -27,6 +27,18 @@ Phases (any failure exits non-zero):
     dense gather-based autograd reference on the card and against the
     port's CPU path, within 1e-4 x its rounding scale
     (rasterizer.dense_gradient_and_scale);
+ 4e. K6 raster_coverage_windows at b32, 224 px on the face region at
+    capacity 512 and 384: pix_to_face, zbuf and slot bitwise equal to its
+    plain version and to K3's on the same padded bins;
+ 4f. K7 segment_reduce_tiles against `segment_sum` (one scatter_add_),
+    every element within 1e-5 x the sum of the magnitudes of its terms: 36
+    channels at capacity 512 (74 KB of accumulators per block), and 72
+    channels at capacity 1024 (295 KB: the channels split over the grid);
+ 4g. K8 raster_bins_coverage at b32, capacity 384: bitwise equal to its
+    plain version, and against K6's pix_to_face by the tests' edge/depth
+    tie rule;
+ 4h. K4 segment_moments at D = 6, capacity 768 (55 KB of accumulators)
+    against its plain version, within 1e-5 x the sum of magnitudes;
  5. the main path through `Predictor` at full width (three full
     MobileNetV3-minimal encoders, FLAME with 300 shape / 50 expression
     components on the full-size procedural head, batch 64, 224 px), random
@@ -43,16 +55,31 @@ Phases (any failure exits non-zero):
     and the generator moved, the pose and shape encoders not, and K1-K5's
     launch counters rose; then one step of each parity on the padded layout
     (K3b);
+ 5c. the op path through `smirk_tpu_torch.ops` at full width: FLAME from
+    seeded parameters (300 shape / 50 expression components) on the
+    recentred procedural head, its face region at b32, 224 px;
+    `ops.rasterize` with D = 9 [gray albedo | world position | normal] at
+    capacity 512, point shading with 2 lights and SH shading, an L2 loss
+    to a seeded target and its gradient to the expression parameters:
+    coverage > 5 %, every output and gradient finite, K6, K7 and K5
+    launched and K3 not, the values equal to `interpolate_attributes`,
+    and the gradient to the face vertices and attributes within 1e-5 x the
+    sum of the per-pixel terms' magnitudes of a dense gather-based
+    autograd reference on the card; one more pass at capacity 384; then
+    the coverage entry points `ops.rasterize_coverage` (K6) and
+    `ops.rasterize_coverage_pallas` (K8) on the same faces;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events each kernel, its plain version, its library yardstick where
-    there is one (K2: one advanced-index gather; K4: one scatter_add_ of
-    prebuilt moment rows; K5: one index_add_), the stages of infer and of
+    there is one (K2: one advanced-index gather; K4 and K7: one
+    scatter_add_ of prebuilt rows; K5: one index_add_), the op path's
+    forward and backward, the stages of infer and of
     one train step, a torch.profiler trace of one train step per parity
     (device time by kernel class, busy share) and its convolution FLOPs;
     on the host clock the median and spread of 5 windows of 50 infer calls
     (ms/batch, images/s), of 3 windows of 20 Predictor calls and of 3
     windows of 5 train steps per parity; occupied chunks vs the budget;
- 7. a `kernels` JSON line; 8. the last line, {"ok": true, "device": ...}.
+ 7. a `kernels` JSON line (10 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8);
+ 8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
 stand-in (smirk_tpu_torch.assets.procedural_bundle) at FLAME's sizes.
@@ -71,6 +98,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 # ~fp32 operations of one face-pixel test: 4 affine forms x (2 mul + 2 add)
 OPS_PER_FACE_PIXEL = 16
+# K8's face-pixel test: 3 edge terms x (4 sub + 2 mul + 1 sub), 3
+# divisions, the depth's 3 mul + 2 add
+OPS_PER_FACE_PIXEL_K8 = 29
+OP_B = 32  # the op path's batch: the training recipe's
 # end-to-end timing: windows x calls per window
 INFER_WINDOWS, INFER_CALLS = 5, 50
 CALL_WINDOWS, CALL_CALLS = 3, 20
@@ -87,7 +118,14 @@ SUM_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
+    """Print and flush; a phase header ("[n] ...") gets the seconds since
+    the script started."""
+    if a and str(a[0]).startswith("["):
+        a = (*a, f"(t={time.perf_counter() - _T0:.1f} s)")
     print(*a, flush=True)
 
 
@@ -156,17 +194,74 @@ def within(got, want, scale, what, rtol=SUM_RTOL):
     return ratio, float(diff.max())
 
 
-def raster_bound(win, n_tiles, n_out, n_planes, B, Tp):
+def bound(ops, nbytes):
+    """(bound ms, bound_by): the larger of ops at the fp32 peak and bytes at
+    the memory rate."""
+    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def raster_bound(win, n_tiles, n_out, n_planes, B, Tp, lanes=32):
     """(bound ms, bound_by) of a chunk-window raster: 16 fp32 operations per
     face-pixel test over the windows + 4 per value plane per pixel, against
-    the windows, the records they read once and n_out output arrays."""
+    the windows, the records (`lanes` floats) they read once and n_out
+    output arrays."""
     from smirk_tpu_torch.render import rasterizer as R
 
     ops = win * 32 * R.TILE_PIX * OPS_PER_FACE_PIXEL + \
         n_tiles * R.TILE_PIX * 4 * n_planes
-    nbytes = 2 * B * Tp * 4 + win * 32 * 32 * 4 + n_out * B * Tp * R.TILE_PIX * 4
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    nbytes = 2 * B * Tp * 4 + win * 32 * lanes * 4 + n_out * B * Tp * R.TILE_PIX * 4
+    return bound(ops, nbytes)
+
+
+def tie_mismatches(p2f_a, p2f_b, zb_a, zb_b, fv, size):
+    """tests/test_torch_raster.py's check_p2f_zbuf on the card: pix_to_face
+    equal except at pixels where an edge of one of the two candidate faces
+    passes through the pixel centre, or both are there at equal depth,
+    within 8u of the magnitudes rounded (float64 edge terms); at most 0.1 %
+    of pixels differ; zbuf equal where uncovered and within 8u of the
+    winner's depth magnitudes where both agree. -> mismatch count."""
+    import torch
+
+    rounding = 8 * 2.0 ** -24
+    fv = fv.double()
+    c = (2 * torch.arange(size, device=fv.device, dtype=torch.float64) + 1 - size) / size
+    x, y = c[None, None, :], c[None, :, None]
+    b = torch.arange(fv.shape[0], device=fv.device)[:, None, None]
+
+    def interp(p2f):
+        f = fv[b, p2f.clamp_min(0).long()]  # (B,H,W,3,3)
+        X, Y, Z = f[..., 0], f[..., 1], f[..., 2]
+        es, ss = [], []
+        for i in range(3):
+            j, k = (i + 1) % 3, (i + 2) % 3
+            a, bb = Y[..., j] - Y[..., k], X[..., k] - X[..., j]
+            p, q = X[..., j] * Y[..., k], Y[..., j] * X[..., k]
+            es.append(a * x + bb * y + p - q)
+            ss.append((a * x).abs() + (bb * y).abs() + p.abs() + q.abs())
+        e, s = torch.stack(es, -1), torch.stack(ss, -1)
+        denom = e.sum(-1)
+        safe = torch.where(denom == 0, 1.0, denom)
+        z = (e * Z).sum(-1) / safe
+        return e, s, z, (s * Z.abs()).sum(-1) / safe.abs() + z.abs()
+
+    same = p2f_a == p2f_b
+    cov = same & (p2f_a >= 0)
+    check(torch.equal(zb_a[same & ~cov], zb_b[same & ~cov]), "zbuf equal where uncovered")
+    ea, sa, za, zsa = interp(p2f_a)
+    eb, sb, zb, zsb = interp(p2f_b)
+    zerr = (zb_a.double() - zb_b.double()).abs()
+    check(bool((zerr[cov] <= rounding * zsa[cov]).all()),
+          f"zbuf within 8u of its magnitudes where pix_to_face agrees (max |dz| "
+          f"{float(zerr[cov].max()):.3g})")
+    edge_a = (ea.abs() <= rounding * sa).any(-1) & (p2f_a >= 0)
+    edge_b = (eb.abs() <= rounding * sb).any(-1) & (p2f_b >= 0)
+    ztie = (p2f_a >= 0) & (p2f_b >= 0) & ((za - zb).abs() <= rounding * (zsa + zsb))
+    bad = int((~same).sum())
+    check(bool((same | edge_a | edge_b | ztie).all()),
+          f"the {bad} differing pixels are edge or depth ties")
+    check(bad <= 1e-3 * p2f_a.numel(), f"{bad} differing pixels <= 0.1 %")
+    return bad
 
 
 def train_batch(B, S, seed):
@@ -186,8 +281,9 @@ def train_batch(B, S, seed):
 
 # kernel-name fragments -> class, first match wins (for the train profile)
 KERNEL_CLASSES = (
-    ("port kernels K1-K5", ("raster_fused", "compact_faces", "raster_planes",
-                            "segment_moments", "fold_faces")),
+    ("port kernels K1-K8", ("raster_fused", "compact_faces", "raster_planes",
+                            "segment_moments", "fold_faces", "raster_coverage",
+                            "segment_reduce", "raster_bins")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft",
                      "wgrad", "dgrad", "nchw", "nhwc")),
     ("matmul", ("gemm", "cutlass", "ampere", "sm90")),
@@ -296,6 +392,9 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the smirk_tpu_torch package is not here ({e})",
               file=sys.stderr)
         return 2
+
+    TRAIN_KERNELS = (R.compact_faces, R.raster_fused_windows, R.raster_planes_windows,
+                     R.segment_moments, R.fold_slots_to_faces)
 
     # ---------------- 1. device ----------------
     torch.backends.cudnn.allow_tf32 = False
@@ -486,7 +585,7 @@ def main(argv=None) -> int:
     fv4 = face_verts[:G4].clone().requires_grad_(True)
     fn4 = face_normals[:G4].clone().requires_grad_(True)
     R.reset_launch_counts()
-    vals4, _, p2f4, _ = R.rasterize(fv4, fn4, S, cap, budget)
+    vals4, _, p2f4, _ = R.rasterize(fv4, fn4, S, cap, compact=budget)
     w4 = torch.randn(vals4.shape, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(1))
     d_fv, d_fn = torch.autograd.grad((vals4 * w4).sum(), (fv4, fn4))
@@ -502,11 +601,79 @@ def main(argv=None) -> int:
     log(f"    values vs dense: max |diff| {float((vals4.detach() - dvals).abs().max()):.3g}")
     fvc = fv4.detach().cpu().requires_grad_(True)
     fnc = fn4.detach().cpu().requires_grad_(True)
-    vc, _, pc, _ = R.rasterize(fvc, fnc, S, cap, budget)
+    vc, _, pc, _ = R.rasterize(fvc, fnc, S, cap, compact=budget)
     dc_fv, dc_fn = torch.autograd.grad((vc * w4.cpu()).sum(), (fvc, fnc))
     check(torch.equal(pc, p2f4.cpu()), "pix_to_face card == cpu")
     within(d_fv.cpu(), dc_fv, sc_fv.cpu(), "d face_verts card vs cpu", GRAD_RTOL)
     within(d_fn.cpu(), dc_fn, sc_fn.cpu(), "d normals card vs cpu", GRAD_RTOL)
+
+    # ---------------- 4e. K6 ----------------
+    log(f"[4e] K6 raster_coverage_windows at B={BT}, capacity 512 and {cap}")
+    with torch.inference_mode():
+        crec = R.coverage_records(fvt)
+        k6, k6_err = {}, 0.0
+        for c6 in (512, cap):
+            b6, n6 = R.bin_faces(fvt, S, c6)
+            s6, e6, r6, _ = R._layout(crec, b6, n6, c6, None)
+            out6 = R.raster_coverage_windows(s6, e6, r6, S, TX)
+            plain6 = R.raster_coverage_windows_plain(s6, e6, r6, S, TX)
+            torch.cuda.synchronize()
+            for nm, a, b in zip(("p2f", "zbuf", "slot"), out6, plain6):
+                check(torch.equal(a, b), f"K6 {nm} == plain at capacity {c6} (bitwise)")
+                k6_err = max(k6_err, float((a.double() - b.double()).abs().max()))
+            _, _, r63, _ = R._layout(prec, b6, n6, c6, None)
+            k3c = R.raster_planes_windows(s6, e6, r63, S, TX, D)
+            for nm, a, b in zip(("p2f", "zbuf", "slot"), out6, k3c):
+                check(torch.equal(a, b), f"K6 {nm} == K3's on the same bins at capacity {c6}")
+            k6[c6] = (b6, n6, s6, e6, r6, out6)
+        check(float((k6[512][5][0] >= 0).float().mean()) > 0.05, "K6 covers > 5 % of pixels")
+
+        # ---------------- 4f. K7 ----------------
+        log("[4f] K7 segment_reduce_tiles vs segment_sum (one scatter_add_)")
+        k7_lib = kernels.library("segment_reduce")
+        slots7 = R.image_to_tiles(R._tiles_to_image(k6[512][5][2], S), S).contiguous()
+        gen7 = torch.Generator(device=dev).manual_seed(7)
+        pay7 = torch.randn(tuple(slots7.shape) + (36,), device=dev, generator=gen7)
+        k7 = R.segment_reduce_tiles(slots7, pay7, 512)
+        k7_plain = R.segment_sum(slots7, pay7, 512)
+        torch.cuda.synchronize()
+        check(R._channel_group(k7_lib, 512, 36, dev) == 36,
+              "K7 at C=512, CHN=36: 74 KB of accumulators in one block (opt-in)")
+        k7_ratio, k7_err = within(k7, k7_plain, R.segment_sum(slots7, pay7.abs(), 512),
+                                  "K7 vs plain, C=512, CHN=36")
+        B7 = min(B, 8)
+        slots7b = torch.randint(-1, 1024, (B7, Tp, R.TILE_PIX), device=dev,
+                                generator=gen7, dtype=torch.int32)
+        pay7b = torch.randn((B7, Tp, R.TILE_PIX, 72), device=dev, generator=gen7)
+        group7b = R._channel_group(k7_lib, 1024, 72, dev)
+        k7b = R.segment_reduce_tiles(slots7b, pay7b, 1024)
+        check(group7b < 72, f"K7 at C=1024, CHN=72 (295 KB) splits the channels into "
+              f"groups of {group7b}")
+        within(k7b, R.segment_sum(slots7b, pay7b, 1024),
+               R.segment_sum(slots7b, pay7b.abs(), 1024), "K7 vs plain, C=1024, CHN=72")
+
+        # ---------------- 4g. K8 ----------------
+        log(f"[4g] K8 raster_bins_coverage at B={BT}, capacity {cap}")
+        fv9 = fvt.reshape(BT, -1, 9).contiguous()
+        k8 = R.raster_bins_coverage(counts_t, bins_t, fv9, S)
+        k8_plain = R.raster_bins_coverage_plain(counts_t, bins_t, fv9, S)
+        torch.cuda.synchronize()
+        k8_err = 0.0
+        for nm, a, b in zip(("p2f", "zbuf"), k8, k8_plain):
+            check(torch.equal(a, b), f"K8 {nm} == plain (bitwise)")
+            k8_err = max(k8_err, float((a.double() - b.double()).abs().max()))
+        k6_img = [R._tiles_to_image(x, S) for x in k6[cap][5][:2]]
+        k8_bad = tie_mismatches(k8[0][:, :S, :S], k6_img[0], k8[1][:, :S, :S], k6_img[1],
+                                fvt, S)
+        log(f"    K8 vs K6 pix_to_face: {k8_bad} tie pixels")
+
+        # ---------------- 4h. K4 past 48 KB ----------------
+        log("[4h] K4 segment_moments at D=6, capacity 768 (55 KB of accumulators)")
+        slots4 = torch.randint(-1, 768, (B7, Tp, R.TILE_PIX), device=dev, generator=gen7,
+                               dtype=torch.int32)
+        g4 = torch.randn((B7, Tp, R.TILE_PIX, 6), device=dev, generator=gen7)
+        within(R.segment_moments(slots4, g4, 768, S), R.segment_moments_plain(slots4, g4, 768, S),
+               R.segment_sum(slots4, R.moment_rows(g4, S).abs(), 768), "K4 vs plain at C=768, D=6")
 
     if args.quick:
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -577,7 +744,7 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     train_launches = {k.__name__: k.launches for k in R.KERNELS}
     log(f"    launches over 6 train steps: {train_launches}")
-    check(all(v > 0 for v in train_launches.values()),
+    check(all(train_launches[k.__name__] > 0 for k in TRAIN_KERNELS),
           "the training path went through K1, K2, K3, K4 and K5")
     for i, m in enumerate(train_metrics):
         check(all(math.isfinite(v) for v in m.values()), f"step {i} metrics finite")
@@ -609,6 +776,101 @@ def main(argv=None) -> int:
     check(train_launches_pad["raster_planes_windows"] > 0
           and train_launches_pad["compact_faces"] == 0,
           "the padded training path went through K3 and no K2")
+
+    # ---------------- 5c. the op path ----------------
+    from smirk_tpu_torch import ops
+    from smirk_tpu_torch.flame.model import FlameModel
+    from smirk_tpu_torch.render.shading import GRAY_ALBEDO
+
+    log(f"[5c] op path: FLAME -> ops.rasterize (D=9) -> point + SH shading -> L2 -> "
+        f"d expression, b{OP_B}, {S} px, fp32")
+    op_flame = FlameModel(bundle)  # the card
+    rng = np.random.default_rng(0)
+
+    def seeded(*shape, scale=1.0):
+        return torch.tensor(rng.normal(0, scale, shape), dtype=torch.float32, device=dev)
+
+    op_params = {"shape_params": seeded(OP_B, 300, scale=0.5),
+                 "expression_params": seeded(OP_B, 50, scale=0.5),
+                 "pose_params": seeded(OP_B, 3, scale=0.05),
+                 "jaw_params": seeded(OP_B, 3, scale=0.05).abs(),
+                 "eyelid_params": seeded(OP_B, 2).abs().clamp(max=1)}
+    op_cam = torch.tensor([[7.0, 0.0, 0.0]] * OP_B, device=dev)
+    light_pos = torch.tensor([[[-1.0, 1.0, 1.0], [1.0, 1.0, 2.0]]] * OP_B, device=dev)
+    light_int = torch.full((OP_B, 2, 3), 1.5, device=dev)
+    sh_coeff = seeded(OP_B, 9, 3, scale=0.3)
+    op_target = torch.tensor(rng.random((OP_B, S, S, 3)), dtype=torch.float32, device=dev)
+    faces, kept = renderer.faces, renderer.kept
+
+    def op_path(expr, capacity):
+        """-> (loss, face_verts, attributes, vals, mask, p2f, overflow)."""
+        verts = op_flame({**op_params, "expression_params": expr})["vertices"]
+        tv = ops.orth_proj_ndc(verts, op_cam)[:, kept]
+        tv = torch.cat([tv[..., :2], tv[..., 2:] + 10.0], -1)  # the renderer's z offset
+        sub_v = verts[:, kept]
+        normals = ops.vertex_normals_gather(sub_v, faces, renderer.inc_face,
+                                            renderer.inc_corner)
+        fv = ops.face_vertices(tv, faces)
+        fn = ops.face_vertices(normals, faces)
+        attrs = torch.cat([torch.full_like(fn, GRAY_ALBEDO), ops.face_vertices(sub_v, faces),
+                           fn], -1)
+        vals, mask, p2f, ovf = ops.rasterize(fv, attrs, S, capacity)
+        pos, nrm = vals[..., 3:6], vals[..., 6:9]
+        point = ops.point_shading(pos.reshape(OP_B, -1, 3), nrm.reshape(OP_B, -1, 3),
+                                  light_pos, light_int).reshape(OP_B, S, S, 3)
+        img = vals[..., :3] * (point + ops.sh_shading(nrm, sh_coeff)) * mask
+        return ((img - op_target) ** 2).mean(), fv, attrs, vals, mask, p2f, ovf
+
+    op_grad_ratio = 0.0
+    for c5 in (512, cap):
+        expr = op_params["expression_params"].clone().requires_grad_(True)
+        R.reset_launch_counts()
+        loss, fv5, at5, vals5, mask5, p2f5, ovf5 = op_path(expr, c5)
+        g_vals, d_fv5, d_at5, d_exp = torch.autograd.grad(loss, (vals5, fv5, at5, expr))
+        torch.cuda.synchronize()
+        launched = {k.__name__: k.launches for k in R.KERNELS}
+        if c5 == 512:
+            op_launches, fv_op, p2f_op = launched, fv5.detach(), p2f5
+        log(f"    capacity {c5}: loss {float(loss.detach()):.6f}; launches {launched}")
+        check(all(launched[k.__name__] > 0 for k in (R.raster_coverage_windows,
+                                                     R.segment_reduce_tiles,
+                                                     R.fold_slots_to_faces))
+              and launched["raster_planes_windows"] == 0,
+              "the op path went through K6, K7 and K5, and not K3")
+        cov5 = float(mask5.mean())
+        check(cov5 > 0.05, f"coverage {cov5:.4f} > 0.05")
+        check(int(ovf5.abs().max()) == 0, "overflow == 0")
+        for nm, t in (("loss", loss), ("vals", vals5), ("d vals", g_vals),
+                      ("d face_verts", d_fv5), ("d attributes", d_at5),
+                      ("d expression", d_exp)):
+            check(bool(torch.isfinite(t).all()), f"{nm} {tuple(t.shape)} finite")
+        check(float(d_exp.abs().max()) > 0, "the gradient reaches the expression")
+        fv5, at5 = fv5.detach(), at5.detach()
+        check(torch.equal(vals5.detach(), R.interpolate_attributes(p2f5, fv5, at5)[0]),
+              "vals == interpolate_attributes(p2f, ...) (bitwise)")
+        ref_fv, sc_fv, ref_at, sc_at = R.dense_gradient_and_scale(
+            p2f5, fv5, at5, g_vals, weighted=False)
+        op_grad_ratio = max(
+            op_grad_ratio,
+            within(d_fv5, ref_fv, sc_fv, f"d face_verts vs dense at capacity {c5}")[0],
+            within(d_at5, ref_at, sc_at, f"d attributes vs dense at capacity {c5}")[0])
+
+    log("    the coverage entry points on the same faces")
+    with torch.inference_mode():
+        R.reset_launch_counts()
+        p2f_cov, z_cov = ops.rasterize_coverage(fv_op, S, 512)
+        cov_launches = {k.__name__: k.launches for k in R.KERNELS}
+        R.reset_launch_counts()
+        p2f_k8, z_k8 = ops.rasterize_coverage_pallas(fv_op, S, cap)
+        k8_launches = {k.__name__: k.launches for k in R.KERNELS}
+        torch.cuda.synchronize()
+    check(cov_launches["raster_coverage_windows"] == 1 and sum(cov_launches.values()) == 1,
+          "rasterize_coverage launched K6 once and nothing else")
+    check(k8_launches["raster_bins_coverage"] == 1 and sum(k8_launches.values()) == 1,
+          "rasterize_coverage_pallas launched K8 once and nothing else")
+    check(torch.equal(p2f_cov, p2f_op), "rasterize_coverage pix_to_face == the op path's")
+    log(f"    K8 vs K6 on the op path's faces: "
+        f"{tie_mismatches(p2f_k8, p2f_cov, z_k8, z_cov, fv_op, S)} tie pixels")
 
     # ---------------- 6. timings ----------------
     log(f"[6] timings {card}")
@@ -666,6 +928,37 @@ def main(argv=None) -> int:
         src5 = k4.reshape(-1, 3 * D)
         buf5 = torch.zeros((BT * F_render + 1, 3 * D), device=dev)
         res["k5_library_ms"] = cuda_ms(lambda: buf5.index_add_(0, idx5, src5), 200)
+        _, _, s6, e6, r6, _ = k6[512]
+        res["k6_ms"] = cuda_ms(lambda: R.raster_coverage_windows(s6, e6, r6, S, TX), 50)
+        res["k6_plain_ms"] = cuda_ms(
+            lambda: R.raster_coverage_windows_plain(s6, e6, r6, S, TX), 3, 1)
+        res["k7_ms"] = cuda_ms(lambda: R.segment_reduce_tiles(slots7, pay7, 512), 100)
+        res["k7_plain_ms"] = cuda_ms(lambda: R.segment_sum(slots7, pay7, 512), 20)
+        # yardstick: the one scatter_add_ of the payload rows, index prebuilt
+        idx7 = R.slot_index(slots7, 512, 36)
+        rows7 = pay7.reshape(BT, -1, 36)
+        buf7 = torch.zeros((BT, Tp * 512 + 1, 36), device=dev)
+        res["k7_library_ms"] = cuda_ms(lambda: buf7.scatter_add_(1, idx7, rows7), 100)
+        res["k8_ms"] = cuda_ms(lambda: R.raster_bins_coverage(counts_t, bins_t, fv9, S), 20)
+        res["k8_plain_ms"] = cuda_ms(
+            lambda: R.raster_bins_coverage_plain(counts_t, bins_t, fv9, S), 3, 1)
+    # the op path at b32, capacity 512: forward (FLAME -> loss) and backward
+    # to the expression, CUDA events, median of 5 warm passes
+    expr_t = op_params["expression_params"].clone().requires_grad_(True)
+    op_fwd, op_bwd = [], []
+    for i in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        loss_t = op_path(expr_t, 512)[0]
+        ev[1].record()
+        torch.autograd.grad(loss_t, expr_t)
+        ev[2].record()
+        torch.cuda.synchronize()
+        if i:
+            op_fwd.append(ev[0].elapsed_time(ev[1]))
+            op_bwd.append(ev[1].elapsed_time(ev[2]))
+    res["op_path_forward_ms"] = statistics.median(op_fwd)
+    res["op_path_backward_ms"] = statistics.median(op_bwd)
     # end to end: warm windows of back-to-back calls, each window ended by a
     # synchronize, on the host clock; the median window and the spread
     infer_w = timed_windows(lambda: system.infer(img), INFER_WINDOWS, INFER_CALLS)
@@ -730,6 +1023,13 @@ def main(argv=None) -> int:
     k3b_bms, k3b_by = raster_bound(int((pe3 - ps3).sum()), BT * Tp, 3 + D, D, BT, Tp)
     k4_bytes = BT * Tp * R.TILE_PIX * 4 * (1 + D) + BT * Tp * cap * 3 * D * 4
     k5_bytes = BT * Tp * cap * (3 * D + 1) * 4 + BT * F_render * 3 * D * 4
+    k6_bms, k6_by = raster_bound(int((e6 - s6).sum()), BT * Tp, 3, 0, BT, Tp, lanes=16)
+    k7_bytes = BT * Tp * R.TILE_PIX * (36 + 1) * 4 + BT * Tp * 512 * 36 * 4
+    T_real = -(-S // R.TILE_ROWS) * TX
+    k8_pairs = int(counts_t[:, :T_real].sum()) * R.TILE_PIX
+    k8_bms, k8_by = bound(k8_pairs * OPS_PER_FACE_PIXEL_K8,
+                          BT * Tp * 4 + int(counts_t.sum()) * 4 + BT * F_render * 9 * 4
+                          + 2 * BT * T_real * R.TILE_PIX * 4)
     k2_bytes = (B * budget * 4 + B * Tp * 4 + B * 4 + int(total.sum()) * 32 * 4
                 + B * budget * 32 * 4)
     src = "smirk_tpu_torch/csrc/"
@@ -774,12 +1074,34 @@ def main(argv=None) -> int:
          "ms": res["k5_ms"], "plain_ms": res["k5_plain_ms"],
          "bound_ms": k5_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
          "library_ms": res["k5_library_ms"]},
+        {"name": "raster_coverage_windows", "route": "cuda",
+         "source": src + "raster_coverage.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:936",
+         "launches": op_launches["raster_coverage_windows"], "max_abs_err": k6_err,
+         "ms": res["k6_ms"], "plain_ms": res["k6_plain_ms"],
+         "bound_ms": k6_bms, "bound_by": k6_by, "library_ms": None},
+        {"name": "segment_reduce_tiles", "route": "cuda", "source": src + "segment_reduce.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:2035",
+         "launches": op_launches["segment_reduce_tiles"], "max_abs_err": k7_err,
+         "ms": res["k7_ms"], "plain_ms": res["k7_plain_ms"],
+         "bound_ms": k7_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+         "library_ms": res["k7_library_ms"]},
+        {"name": "raster_bins_coverage", "route": "cuda", "source": src + "raster_bins.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:597",
+         "launches": k8_launches["raster_bins_coverage"], "max_abs_err": k8_err,
+         "ms": res["k8_ms"], "plain_ms": res["k8_plain_ms"],
+         "bound_ms": k8_bms, "bound_by": k8_by, "library_ms": None},
     ]}
     for k in line["kernels"]:
         assert all(isinstance(k[f], (int, float)) and math.isfinite(k[f])
                    for f in ("ms", "plain_ms", "bound_ms", "max_abs_err"))
     log(f"    worst tolerance ratios: K4 {k4_ratio:.4g}, K5 {k5_ratio:.4g}, "
-        f"gradient {grad_ratio:.4g} (of 1e-5, 1e-5, 1e-4 x scale; <= 1 passes)")
+        f"gradient {grad_ratio:.4g}, K7 {k7_ratio:.4g}, op-path gradient "
+        f"{op_grad_ratio:.4g} (of 1e-5, 1e-5, 1e-4, 1e-5, 1e-5 x scale; <= 1 passes)")
+    log(f"    bounds: K6 {k6_bms:.4f} ms ({k6_by}, {OPS_PER_FACE_PIXEL} operations per "
+        f"face-pixel test), K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
+        f"{k7_bytes / 1e6:.1f} MB), K8 {k8_bms:.4f} ms ({k8_by}, {OPS_PER_FACE_PIXEL_K8} "
+        f"operations per face-pixel test over {k8_pairs} pairs)")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -42,12 +42,27 @@ LIBRARIES = {
         "smirk_raster_planes_windows": [_P] * 7 + [_I] * 8 + [_P],
     }),
     "segment_moments": ("segment_moments.cu", {
-        # slots, g, out, B, Tp, C, D, H, W, TX, device, stream
-        "smirk_segment_moments": [_P] * 3 + [_I] * 8 + [_P],
+        # slots, g, out, B, Tp, C, D, group, H, W, TX, device, stream
+        "smirk_segment_moments": [_P] * 3 + [_I] * 9 + [_P],
+        "smirk_max_shared_optin": [_I],  # device
     }),
     "fold_faces": ("fold_faces.cu", {
         # per_slot, bins, out, B, rows_per_image, CHN, F, device, stream
         "smirk_fold_faces": [_P] * 3 + [_I] * 5 + [_P],
+    }),
+    "raster_coverage": ("raster_coverage.cu", {
+        # starts, ends, recs, p2f, zbuf, slot,
+        # B, Tp, n_chunks, H, W, TX, device, stream
+        "smirk_raster_coverage_windows": [_P] * 6 + [_I] * 7 + [_P],
+    }),
+    "segment_reduce": ("segment_reduce.cu", {
+        # slots, payload, out, B, Tp, C, CHN, group, device, stream
+        "smirk_segment_reduce_tiles": [_P] * 3 + [_I] * 6 + [_P],
+        "smirk_max_shared_optin": [_I],  # device
+    }),
+    "raster_bins": ("raster_bins.cu", {
+        # counts, bins, fv, p2f, zbuf, B, Tp, T, C, F, H, W, TX, device, stream
+        "smirk_raster_bins_coverage": [_P] * 5 + [_I] * 9 + [_P],
     }),
 }
 

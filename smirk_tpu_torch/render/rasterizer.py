@@ -1,14 +1,14 @@
-"""Rasterizer: binning, face records, the fused inference z-buffer and the
-differentiable planes raster.
+"""Rasterizer: binning, face records, the fused inference z-buffer, the
+coverage rasters and the differentiable raster for any number of
+attribute channels.
 
-Port of smirk_tpu/render/rasterizer.py's inference raster and its
-differentiable planes raster (`rasterize`, D <= 6 attribute channels). The
-output contract is the JAX package's: pixel-to-face ids, z-buffer,
-interpolated attributes, and the `raster_overflow` count of compact chunks
-dropped past the budget, with the same drop order and tie-breaks.
+Port of smirk_tpu/render/rasterizer.py. The output contract is the JAX
+package's: pixel-to-face ids, z-buffer, per-tile bin slots, interpolated
+attributes, and the `raster_overflow` count of compact chunks dropped past
+the budget, with the same drop order and tie-breaks.
 
-NDC convention: +x -> right (column), +y -> down (row), pixel (r, c) centre
-at ((2c+1-W)/W, (2r+1-H)/H); smaller z is closer. Background is
+NDC convention: +x -> right (column), +y -> down (row), pixel (r, c)
+centre at ((2c+1-W)/W, (2r+1-H)/H); smaller z is closer. Background is
 pix_to_face = -1 and zbuf = 1e10.
 
 Pipeline (`rasterize_normals_fused`):
@@ -27,16 +27,28 @@ Pipeline (`rasterize_normals_fused`):
    keep the nearest covering face (first in slot order on ties), and
    evaluate its normal planes at the pixel.
 
-The differentiable raster (`rasterize` -> `rasterize_planes_diff`, a
-torch.autograd.Function) bins, plans and packs the same way, with a
-training record per face (edge and depth planes, the face id, D attribute
-planes). Forward: `raster_planes_windows` (K3) keeps the nearest face, its
-per-tile slot and its D interpolated planes. Backward: the value cotangent
-goes tile-major, `segment_moments` (K4) sums [g*x | g*y | g] per (tile,
-slot), `fold_slots_to_faces` (K5) folds the slots into faces, and autograd
-of `attr_planes` takes it to the vertices and attributes.
+The coverage rasters: `rasterize_coverage_jnp` (all pairs, plain
+PyTorch), `rasterize_coverage_pallas_v3[_full]` (`face_records` on the
+padded layout, `raster_coverage_windows`, kernel K6: pix_to_face, zbuf and
+the per-tile slot) and `rasterize_coverage_pallas` (`raster_bins_coverage`,
+kernel K8: one face at a time per tile, division barycentrics).
+`rasterize_coverage` takes K6 on the card and the all-pairs version on the
+CPU.
 
-K1-K5 are CUDA kernels (csrc/). Each wrapper checks its arguments,
+The differentiable raster (`rasterize`). For D <= 6 attribute channels,
+`rasterize_planes_diff`, a torch.autograd.Function, bins, plans and packs
+the same way, with a training record per face (edge and depth planes, the
+face id, D attribute planes). Forward: `raster_planes_windows` (K3) keeps
+the nearest face, its per-tile slot and its D interpolated planes.
+Backward: the value cotangent goes tile-major, `segment_moments` (K4)
+sums [g*x | g*y | g] per (tile, slot), `fold_slots_to_faces` (K5) folds
+the slots into faces, and autograd of `attr_planes` takes it to the
+vertices and attributes. For D > 6, K6 gives the coverage and
+`interpolate_attributes_fast` interpolates by per-pixel gathers; its
+backward reduces the per-pixel gradients per (tile, slot) with
+`segment_reduce_tiles` (K7) and folds them into faces with K5.
+
+K1-K8 are CUDA kernels (csrc/). Each wrapper checks its arguments,
 launches on PyTorch's current stream and counts its launches; for tensors
 on the CPU it runs the plain PyTorch version beside it.
 """
@@ -146,6 +158,49 @@ def bin_faces_flat(
     bins = torch.where(valid, idx.to(torch.int32), -1)
     counts = valid.sum(-1, dtype=torch.int32)  # (B,T)
     return _pad_bins(bins, counts, capacity, k, T)
+
+
+_OTHER_BINNING = ("the port bins exactly with bin_faces_flat; the JAX package's "
+                  "approximate, hierarchical and sorted binning are not ported "
+                  "(ROADMAP.md, Queue 2)")
+
+
+def set_bin_mode(hier: bool, approx: Optional[float] = None,
+                 sorted_: bool = False) -> None:
+    """The JAX package's binning switch. Only the exact flat mode (False,
+    None, False) exists here; the others raise NotImplementedError."""
+    if hier or approx is not None or sorted_:
+        raise NotImplementedError(_OTHER_BINNING)
+
+
+def bin_faces(face_verts: torch.Tensor, image_size: int, capacity: int,
+              approx: Optional[float] = None, with_misses: bool = False):
+    """The JAX package's binning dispatch: exact flat binning
+    (`bin_faces_flat`) -> (bins, counts[, misses (B,) int32]). An exact
+    top-k misses no overlapping face, so `with_misses` appends zeros;
+    `approx` raises NotImplementedError."""
+    if approx is not None:
+        raise NotImplementedError(_OTHER_BINNING)
+    bins, counts = bin_faces_flat(face_verts, image_size, capacity)
+    if with_misses:
+        misses = torch.zeros((bins.shape[0],), dtype=torch.int32, device=bins.device)
+        return bins, counts, misses
+    return bins, counts
+
+
+def _tile_grid(image_size: int):
+    """-> (tile rows ty, tile columns tx) of an image."""
+    return -(-image_size // TILE_ROWS), -(-image_size // TILE_COLS)
+
+
+def _tiles_to_image(x: torch.Tensor, image_size: int) -> torch.Tensor:
+    """(B,Tp,1024) tile-major -> (B,H,W) image (padding tiles, rows and
+    columns cropped)."""
+    B = x.shape[0]
+    ty, tx = _tile_grid(image_size)
+    x = x[:, :ty * tx].reshape(B, ty, tx, TILE_ROWS, TILE_COLS)
+    x = x.permute(0, 1, 3, 2, 4).reshape(B, ty * TILE_ROWS, tx * TILE_COLS)
+    return x[:, :image_size, :image_size]
 
 
 def face_records(face_verts: torch.Tensor) -> torch.Tensor:
@@ -474,6 +529,15 @@ def reset_launch_counts() -> None:
         kernel.launches = 0
 
 
+def coverage_records(face_verts: torch.Tensor) -> torch.Tensor:
+    """face_records with lane 12 set to the face id -> (B,F,16), K6's
+    records."""
+    records = face_records(face_verts)
+    records[..., 12] = torch.arange(face_verts.shape[1], dtype=records.dtype,
+                                    device=records.device)
+    return records
+
+
 def fused_records(face_verts: torch.Tensor, face_normals: torch.Tensor) -> torch.Tensor:
     """face_records_shaded with lane 12 set to the face id -> (B,F,32)."""
     records = face_records_shaded(face_verts, face_normals)
@@ -490,6 +554,34 @@ def padded_windows(counts: torch.Tensor, cpt: int):
     tile0 = torch.arange(Tp, dtype=torch.int32, device=counts.device)[None] * cpt
     starts = tile0.expand(B, Tp).contiguous()
     return starts, starts + (counts + (V3_CHUNK - 1)) // V3_CHUNK
+
+
+def _check_capacity(capacity: int) -> None:
+    if capacity % V3_CHUNK:
+        raise ValueError(f"capacity {capacity} is not a multiple of {V3_CHUNK}")
+
+
+def _layout(records, bins, counts, capacity: int, compact: Optional[int]):
+    """Chunk windows and the record list the window rasters walk -> (starts,
+    ends (B,Tp) int32, recs (B, N*32, L) contiguous, overflow (B,) int32).
+
+    compact: chunk budget of the compact layout (rounded up to 8: the plan,
+    K2 and a gather of the packed chunks); None = the padded layout, tile t
+    walking its own bin. Empty slots gather a kill row; overflow counts the
+    compact chunks dropped past the budget (0 on the padded layout)."""
+    B, Tp = counts.shape
+    CPT = capacity // V3_CHUNK
+    if compact is None:
+        starts, ends = padded_windows(counts, CPT)
+        faces = bins.reshape(B, Tp * capacity)
+        overflow = torch.zeros((B,), dtype=torch.int32, device=counts.device)
+    else:
+        compact = -(-compact // 8) * 8
+        starts, ends, tof, total, overflow = _compact_plan(counts, compact)
+        faces = compact_faces(tof, starts, total,
+                              bins.reshape(B, Tp * CPT, V3_CHUNK), CPT)
+        faces = faces.reshape(B, compact * V3_CHUNK)
+    return starts, ends, _gather_recs(records, faces).contiguous(), overflow
 
 
 # ---------------------------------------------------------------------------
@@ -512,39 +604,15 @@ def rasterize_normals_fused(
     padded layout, each tile walking its own bin. overflow counts compact
     chunks dropped past the budget (0 on the padded layout).
     """
-    if capacity % V3_CHUNK:
-        raise ValueError(f"capacity {capacity} is not a multiple of {V3_CHUNK}")
-    B = face_verts.shape[0]
-    H = W = image_size
-    ty = -(-H // TILE_ROWS)
-    tx = -(-W // TILE_COLS)
-    T = ty * tx
-    CH = V3_CHUNK
-    CPT = capacity // CH
-
+    _check_capacity(capacity)
     bins, counts = bin_faces_flat(face_verts, image_size, capacity)
-    Tp = bins.shape[1]
-    records = fused_records(face_verts, face_normals)
-    if compact is not None:
-        compact = -(-compact // 8) * 8
-        starts, ends, tof, total, overflow = _compact_plan(counts, compact)
-        faces = compact_faces(tof, starts, total,
-                              bins.reshape(B, Tp * CPT, CH), CPT)
-        recs = _gather_recs(records, faces.reshape(B, compact * CH))
-    else:
-        overflow = torch.zeros((B,), dtype=torch.int32, device=face_verts.device)
-        starts, ends = padded_windows(counts, CPT)
-        recs = _gather_recs(records, bins.reshape(B, Tp * capacity))
-    outs = raster_fused_windows(starts, ends, recs.contiguous(), image_size, tx)
-
-    def to_image(x):
-        x = x[:, :T].reshape(B, ty, tx, TILE_ROWS, TILE_COLS)
-        return x.permute(0, 1, 3, 2, 4).reshape(
-            B, ty * TILE_ROWS, tx * TILE_COLS)[:, :H, :W]
-
-    p2f = to_image(outs[0])
-    zbuf = to_image(outs[1])
-    normals = torch.stack([to_image(o) for o in outs[2:5]], dim=-1)
+    starts, ends, recs, overflow = _layout(
+        fused_records(face_verts, face_normals), bins, counts, capacity, compact)
+    outs = raster_fused_windows(starts, ends, recs, image_size,
+                                -(-image_size // TILE_COLS))
+    p2f = _tiles_to_image(outs[0], image_size)
+    zbuf = _tiles_to_image(outs[1], image_size)
+    normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
     if return_overflow:
         return normals, p2f, zbuf, overflow
     return normals, p2f, zbuf
@@ -588,6 +656,19 @@ def planes_records(face_verts: torch.Tensor, attributes: torch.Tensor) -> torch.
     return torch.cat([base, planes, pad], dim=-1)
 
 
+def _winner_and_slot(starts, recs, bidx, bz, win):
+    """One group of `_plain_zbuffer` -> (the winners' records (G,Tp,P,L),
+    covered, p2f int32 (-1 empty), zbuf (1e10 empty), per-tile slot
+    (c - start)*32 + best int32 (-1 empty))."""
+    covered = bz < BIG_Z
+    wrec = recs[bidx[:, :, None], win]  # (G,Tp,P,L)
+    first = starts[bidx[:, 0]].long()[:, :, None] * V3_CHUNK
+    return (wrec, covered,
+            torch.where(covered, wrec[..., 12].to(torch.int32), -1),
+            torch.where(covered, bz, BIG_Z),
+            torch.where(covered, win - first, -1).to(torch.int32))
+
+
 def raster_planes_windows_plain(starts, ends, recs, image_size: int,
                                 tiles_x: int, D: int):
     """Plain version of K3: `_plain_zbuffer` over records in the
@@ -595,19 +676,14 @@ def raster_planes_windows_plain(starts, ends, recs, image_size: int,
     empty), slot (B,Tp,1024) int32, the winner's per-tile slot
     (c - start)*32 + best (-1 empty), vals (D,B,Tp,1024) f32 (0 empty)."""
     outs = []
-    for bidx, bz, win, x, y in _plain_zbuffer(starts, ends, recs, image_size, tiles_x):
-        covered = bz < BIG_Z
-        wrec = recs[bidx[:, :, None], win]  # (G,Tp,P,L)
-        first = starts[bidx[:, 0]].long()[:, :, None] * V3_CHUNK
+    for group in _plain_zbuffer(starts, ends, recs, image_size, tiles_x):
+        wrec, covered, p2f, zbuf, slot = _winner_and_slot(starts, recs, *group[:3])
+        x, y = group[3:]
         p0 = _REC5_PLANE0
         vals = [_affine(wrec, p0 + d, p0 + D + d, p0 + 2 * D + d, x, y)
                 for d in range(D)]
-        outs.append((
-            torch.where(covered, wrec[..., 12].to(torch.int32), -1),
-            torch.where(covered, bz, BIG_Z),
-            torch.where(covered, win - first, -1).to(torch.int32),
-            torch.stack([torch.where(covered, v, 0.0) for v in vals]),
-        ))
+        outs.append((p2f, zbuf, slot,
+                     torch.stack([torch.where(covered, v, 0.0) for v in vals])))
     p2f, zbuf, slot, vals = zip(*outs)
     return (torch.cat(p2f), torch.cat(zbuf), torch.cat(slot), torch.cat(vals, dim=1))
 
@@ -671,11 +747,12 @@ def moment_rows(g: torch.Tensor, image_size: int) -> torch.Tensor:
 
 def slot_index(slots: torch.Tensor, capacity: int, width: int) -> torch.Tensor:
     """slots (B,Tp,1024) -> (B, Tp*1024, width) int64 rows t*C + slot of a
-    (B, Tp*C + 1) table, -1 slots to the dropped last row; expanded (no
-    copy) over `width` channels, as scatter_add_ takes it."""
+    (B, Tp*C + 1) table, slots outside [0, C) to the dropped last row;
+    expanded (no copy) over `width` channels, as scatter_add_ takes it."""
     B, Tp, P = slots.shape
     tile = torch.arange(Tp, device=slots.device)[None, :, None] * capacity
-    idx = torch.where(slots >= 0, tile + slots.long(), Tp * capacity)
+    idx = torch.where((slots >= 0) & (slots < capacity), tile + slots.long(),
+                      Tp * capacity)
     return idx.reshape(B, Tp * P, 1).expand(B, Tp * P, width)
 
 
@@ -686,6 +763,21 @@ def segment_sum(slots, rows, capacity: int):
     out = rows.new_zeros((B, Tp * capacity + 1, Wd))
     out.scatter_add_(1, slot_index(slots, capacity, Wd), rows.reshape(B, Tp * P, Wd))
     return out[:, :Tp * capacity].reshape(B, Tp, capacity, Wd)
+
+
+def _channel_group(lib, capacity: int, channels: int, device) -> int:
+    """Channels per block of a per-(tile, slot) reduction whose capacity x
+    channels fp32 accumulators live in shared memory: all of them where
+    they fit in the device's opt-in limit per block, else the fewest
+    groups of near-equal width that fit."""
+    limit = lib.smirk_max_shared_optin(device.index)
+    if limit <= 0:
+        raise RuntimeError("could not read the device's shared memory limit")
+    if capacity * 4 > limit:
+        raise ValueError(f"capacity {capacity}: one channel of accumulators "
+                         f"exceeds the {limit} bytes of shared memory per block")
+    groups = -(-capacity * channels * 4 // limit)
+    return -(-channels // groups)
 
 
 def segment_moments_plain(slots, g, capacity: int, image_size: int):
@@ -702,10 +794,12 @@ def segment_moments(slots, g, capacity: int, image_size: int):
     Replaces `_segment_moments_kernel` (`segment_reduce_moments`,
     smirk_tpu/render/rasterizer.py). Bound on H100: bytes (slots + g read
     once, the rows written once; ~16 us at b32, 224 px). Design: one block
-    per (tile, image) with the tile's C x 3D accumulators in shared memory,
-    shared-memory atomics per pixel, one coalesced store; the atomics make
-    the float order vary, so it matches the plain version within a
-    tolerance, not bitwise. CPU tensors take the plain version.
+    per (tile, image) with the tile's C x 3D accumulators in shared memory
+    (dynamic, past 48 KB by opt-in; the 3D channels split into groups over
+    the grid where even the opt-in limit is too small), shared-memory
+    atomics per pixel, one coalesced store; the atomics make the float
+    order vary, so it matches the plain version within a tolerance, not
+    bitwise. CPU tensors take the plain version.
     """
     if g.device.type == "cpu":
         return segment_moments_plain(slots, g, capacity, image_size)
@@ -718,14 +812,12 @@ def segment_moments(slots, g, capacity: int, image_size: int):
     if tuple(slots.shape) != (B, Tp, P) or P != TILE_PIX:
         raise ValueError("segment_moments: inconsistent shapes "
                          f"slots {tuple(slots.shape)} g {tuple(g.shape)}")
-    if capacity * 3 * D * 4 > 48 * 1024:
-        raise ValueError(f"segment_moments: capacity {capacity} x 3D={3 * D} "
-                         "accumulators exceed 48 KB of shared memory")
     out = torch.empty((B, Tp, capacity, 3 * D), dtype=torch.float32, device=dev)
     lib = kernels.library("segment_moments")
+    group = _channel_group(lib, capacity, 3 * D, dev)
     rc = lib.smirk_segment_moments(
         slots.data_ptr(), g.data_ptr(), out.data_ptr(), B, Tp, capacity, D,
-        image_size, image_size, -(-image_size // TILE_COLS), dev.index,
+        group, image_size, image_size, -(-image_size // TILE_COLS), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "segment_moments")
     segment_moments.launches += 1
@@ -787,8 +879,215 @@ def fold_slots_to_faces(per_slot, bins, F: int):
 
 fold_slots_to_faces.launches = 0
 
+# ---------------------------------------------------------------------------
+# The coverage rasters (K6, K8) and the payload reduction (K7)
+# ---------------------------------------------------------------------------
+
+REC_LANES = 16  # [a0 b0 c0 a1 b1 c1 a2 b2 c2 zA zB zC fid pad pad pad]
+
+
+def raster_coverage_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
+    """Plain version of K6: `_plain_zbuffer` over records in the REC_LANES
+    layout. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf f32 (1e10 empty),
+    slot (B,Tp,1024) int32, the winner's per-tile slot (c - start)*32 +
+    best (-1 empty)."""
+    outs = [_winner_and_slot(starts, recs, *group[:3])[2:]
+            for group in _plain_zbuffer(starts, ends, recs, image_size, tiles_x)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def raster_coverage_windows(starts, ends, recs, image_size: int, tiles_x: int):
+    """K6: per-tile coverage z-buffer over chunk windows -> as
+    `raster_coverage_windows_plain`.
+
+    Replaces `_raster_kernel_v3` (via `_v3_impl`,
+    smirk_tpu/render/rasterizer.py). Bound on H100: fp32 operations (~16
+    per face-pixel test over the windows). Design: K3's without the
+    attribute planes, one block per (tile, image), 256 threads x 4 pixels,
+    each chunk's 32 records (2 KB) staged in shared memory and read as
+    broadcasts, the strict first-minimum rule and no FMAs, so it is
+    bitwise equal to its plain version and to K3's coverage outputs on the
+    same bins. CPU tensors take the plain version.
+    """
+    if recs.device.type == "cpu":
+        return raster_coverage_windows_plain(starts, ends, recs, image_size, tiles_x)
+    if recs.device.type != "cuda":
+        raise ValueError(f"raster_coverage_windows: unsupported device {recs.device}")
+    dev = recs.device
+    B, Tp = starts.shape
+    _check_cuda("starts", starts, torch.int32, 2, dev)
+    _check_cuda("ends", ends, torch.int32, 2, dev)
+    _check_cuda("recs", recs, torch.float32, 3, dev)
+    if (tuple(ends.shape) != (B, Tp) or recs.shape[0] != B
+            or recs.shape[2] != REC_LANES or recs.shape[1] % V3_CHUNK):
+        raise ValueError("raster_coverage_windows: inconsistent shapes "
+                         f"starts {tuple(starts.shape)} ends {tuple(ends.shape)} "
+                         f"recs {tuple(recs.shape)}")
+    if recs.data_ptr() % 16:
+        raise ValueError("raster_coverage_windows: recs must be 16-byte aligned")
+    p2f, slot = (torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
+                 for _ in range(2))
+    zbuf = torch.empty((B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
+    lib = kernels.library("raster_coverage")
+    rc = lib.smirk_raster_coverage_windows(
+        starts.data_ptr(), ends.data_ptr(), recs.data_ptr(), p2f.data_ptr(),
+        zbuf.data_ptr(), slot.data_ptr(), B, Tp, recs.shape[1] // V3_CHUNK,
+        image_size, image_size, tiles_x, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "raster_coverage_windows")
+    raster_coverage_windows.launches += 1
+    return p2f, zbuf, slot
+
+
+raster_coverage_windows.launches = 0
+
+
+def segment_reduce_tiles(slots, payload, capacity: int):
+    """K7: per-(tile, slot) sums of a per-pixel payload; slots (B,Tp,1024)
+    int32 (-1 = none; the tile grid's padding pixels hold slot 0 with a
+    zero payload), payload (B,Tp,1024,CHN) f32 tile-major -> (B,Tp,C,CHN)
+    f32, zeros for slots that won nothing.
+
+    Replaces `_segment_reduce_kernel` (`segment_reduce_tiles`,
+    smirk_tpu/render/rasterizer.py). Bound on H100: bytes (the payload and
+    the slots read once, the rows written once). Design: K4's, one block
+    per (tile, image) with the tile's C x CHN accumulators in dynamic
+    shared memory (past 48 KB by opt-in), CHN split into channel groups
+    over the grid where even the opt-in limit is too small; shared-memory
+    atomics per (pixel, channel), one coalesced store. The atomics make the
+    float order vary, so it matches its plain version, `segment_sum` (one
+    scatter_add_), within a tolerance. CPU tensors take the plain version.
+    """
+    if payload.device.type == "cpu":
+        return segment_sum(slots, payload, capacity)
+    if payload.device.type != "cuda":
+        raise ValueError(f"segment_reduce_tiles: unsupported device {payload.device}")
+    dev = payload.device
+    _check_cuda("slots", slots, torch.int32, 3, dev)
+    _check_cuda("payload", payload, torch.float32, 4, dev)
+    B, Tp, P, CHN = payload.shape
+    if tuple(slots.shape) != (B, Tp, P) or P != TILE_PIX or CHN < 1:
+        raise ValueError("segment_reduce_tiles: inconsistent shapes "
+                         f"slots {tuple(slots.shape)} payload {tuple(payload.shape)}")
+    out = torch.empty((B, Tp, capacity, CHN), dtype=torch.float32, device=dev)
+    lib = kernels.library("segment_reduce")
+    group = _channel_group(lib, capacity, CHN, dev)
+    rc = lib.smirk_segment_reduce_tiles(
+        slots.data_ptr(), payload.data_ptr(), out.data_ptr(), B, Tp, capacity,
+        CHN, group, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "segment_reduce_tiles")
+    segment_reduce_tiles.launches += 1
+    return out
+
+
+segment_reduce_tiles.launches = 0
+
+
+def raster_bins_coverage_plain(counts, bins, fv9, image_size: int):
+    """Plain version of K8: each tile walks the first `count` faces of its
+    bin in bin order, 32 at a time; within a block of 32 the first minimum
+    wins, and a later block only if strictly nearer, which equals the
+    sequential strict-< walk. The arithmetic is the kernel's: cross-product
+    edge terms, w = e / area (a tensor divisor, so IEEE on the card),
+    z = w0*z0 + w1*z1 + w2*z2. counts (B,Tp) int32, bins (B,Tp,C) int32,
+    fv9 (B,F,9) f32 -> p2f (B,Hp,Wp) int32 (-1 empty), zbuf f32 (1e10
+    empty), Hp and Wp the tile grid's."""
+    B = counts.shape[0]
+    dev = fv9.device
+    ty, tx = _tile_grid(image_size)
+    T = ty * tx
+    CH = V3_CHUNK
+    xs, ys = _tile_centers(T, image_size, tx, dev)
+    xs, ys = xs[None, :, None, :], ys[None, :, None, :]  # (1,T,1,P)
+    slot = torch.arange(CH, device=dev)
+    group = max(1, _PLAIN_BLOCK_ELEMS // (T * CH * TILE_PIX))
+    p2f_parts, z_parts = [], []
+    for b0 in range(0, B, group):
+        cnt = counts[b0:b0 + group, :T].long()
+        G = cnt.shape[0]
+        bidx = torch.arange(b0, b0 + G, device=dev)[:, None, None]
+        bz = torch.full((G, T, 1, TILE_PIX), BIG_Z, device=dev)
+        bf = torch.full((G, T, 1, TILE_PIX), -1, dtype=torch.int32, device=dev)
+        for i0 in range(0, int(cnt.max()) if G else 0, CH):
+            ids = bins[b0:b0 + G, :T, i0:i0 + CH]  # (G,T,n), n <= CH
+            sl = slot[:ids.shape[-1]]
+            active = (i0 + sl) < cnt[..., None]
+            v = fv9[bidx, ids.clamp_min(0).long()][..., None, :]  # (G,T,CH,1,9)
+            x0, y0, z0, x1, y1, z1, x2, y2, z2 = v.unbind(-1)
+            denom = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+            real = denom.abs() >= AREA_EPS
+            safe = torch.where(real, denom, 1.0)
+            w0 = ((x1 - xs) * (y2 - ys) - (y1 - ys) * (x2 - xs)) / safe
+            w1 = ((x2 - xs) * (y0 - ys) - (y2 - ys) * (x0 - xs)) / safe
+            w2 = ((x0 - xs) * (y1 - ys) - (y0 - ys) * (x1 - xs)) / safe
+            z = w0 * z0 + w1 * z1 + w2 * z2
+            inside = ((w0 >= 0) & (w1 >= 0) & (w2 >= 0) & real
+                      & active[..., None])
+            zm = torch.where(inside, z, BIG_Z)
+            cz = zm.amin(dim=2, keepdim=True)
+            best = torch.where(zm == cz, sl[:, None], CH).amin(dim=2)  # (G,T,P)
+            better = cz < bz
+            bz = torch.where(better, cz, bz)
+            fid = torch.gather(ids, 2, best.clamp(max=len(sl) - 1))
+            bf = torch.where(better, fid[:, :, None, :], bf)
+        p2f_parts.append(bf[:, :, 0])
+        z_parts.append(bz[:, :, 0])
+
+    def to_grid(x):
+        x = torch.cat(x).reshape(B, ty, tx, TILE_ROWS, TILE_COLS)
+        return x.permute(0, 1, 3, 2, 4).reshape(B, ty * TILE_ROWS, tx * TILE_COLS)
+
+    return to_grid(p2f_parts), to_grid(z_parts)
+
+
+def raster_bins_coverage(counts, bins, fv9, image_size: int):
+    """K8: per-tile z-buffer over the tile's bin, one face at a time ->
+    as `raster_bins_coverage_plain`.
+
+    Replaces `_raster_kernel` (via `rasterize_coverage_pallas`,
+    smirk_tpu/render/rasterizer.py). Bound on H100: fp32 operations (~29
+    per face-pixel test: 21 for the edge terms, 3 divisions, 5 for the
+    depth, over count x 1024 pairs per tile). Design: one block per (tile,
+    image), 256 threads x 4 pixels; 32 bin entries at a time are staged in
+    shared memory with each face's area, every operation an IEEE `__f*_rn`
+    intrinsic (`__fdiv_rn` for the barycentrics), so it is bitwise equal to
+    its plain version. CPU tensors take the plain version.
+    """
+    if fv9.device.type == "cpu":
+        return raster_bins_coverage_plain(counts, bins, fv9, image_size)
+    if fv9.device.type != "cuda":
+        raise ValueError(f"raster_bins_coverage: unsupported device {fv9.device}")
+    dev = fv9.device
+    _check_cuda("counts", counts, torch.int32, 2, dev)
+    _check_cuda("bins", bins, torch.int32, 3, dev)
+    _check_cuda("fv9", fv9, torch.float32, 3, dev)
+    B, Tp = counts.shape
+    C = bins.shape[2]
+    F = fv9.shape[1]
+    ty, tx = _tile_grid(image_size)
+    if (tuple(bins.shape[:2]) != (B, Tp) or fv9.shape[0] != B or fv9.shape[2] != 9
+            or Tp < ty * tx):
+        raise ValueError("raster_bins_coverage: inconsistent shapes "
+                         f"counts {tuple(counts.shape)} bins {tuple(bins.shape)} "
+                         f"fv9 {tuple(fv9.shape)} image_size {image_size}")
+    p2f = torch.empty((B, ty * TILE_ROWS, tx * TILE_COLS), dtype=torch.int32, device=dev)
+    zbuf = torch.empty((B, ty * TILE_ROWS, tx * TILE_COLS), dtype=torch.float32,
+                       device=dev)
+    lib = kernels.library("raster_bins")
+    rc = lib.smirk_raster_bins_coverage(
+        counts.data_ptr(), bins.data_ptr(), fv9.data_ptr(), p2f.data_ptr(),
+        zbuf.data_ptr(), B, Tp, ty * tx, C, F, image_size, image_size, tx,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "raster_bins_coverage")
+    raster_bins_coverage.launches += 1
+    return p2f, zbuf
+
+
+raster_bins_coverage.launches = 0
+
 KERNELS = (compact_faces, raster_fused_windows, raster_planes_windows,
-           segment_moments, fold_slots_to_faces)
+           segment_moments, fold_slots_to_faces, raster_coverage_windows,
+           segment_reduce_tiles, raster_bins_coverage)
 
 
 def _v5_impl(face_verts, attributes, image_size: int, capacity: int,
@@ -801,39 +1100,16 @@ def _v5_impl(face_verts, attributes, image_size: int, capacity: int,
     K2 and the record gather of the inference raster); None = padded
     layout. overflow counts compact chunks dropped past the budget.
     """
-    if capacity % V3_CHUNK:
-        raise ValueError(f"capacity {capacity} is not a multiple of {V3_CHUNK}")
-    B = face_verts.shape[0]
-    D = attributes.shape[-1]
-    H = W = image_size
-    ty = -(-H // TILE_ROWS)
-    tx = -(-W // TILE_COLS)
-    T = ty * tx
-    CH = V3_CHUNK
-    CPT = capacity // CH
-
+    _check_capacity(capacity)
     bins, counts = bin_faces_flat(face_verts, image_size, capacity)
-    Tp = bins.shape[1]
-    records = planes_records(face_verts, attributes)
-    if compact is not None:
-        compact = -(-compact // 8) * 8
-        starts, ends, tof, total, overflow = _compact_plan(counts, compact)
-        faces = compact_faces(tof, starts, total, bins.reshape(B, Tp * CPT, CH), CPT)
-        recs = _gather_recs(records, faces.reshape(B, compact * CH))
-    else:
-        overflow = torch.zeros((B,), dtype=torch.int32, device=face_verts.device)
-        starts, ends = padded_windows(counts, CPT)
-        recs = _gather_recs(records, bins.reshape(B, Tp * capacity))
-    p2f, zbuf, slots, vals = raster_planes_windows(
-        starts, ends, recs.contiguous(), image_size, tx, D)
-
-    def to_image(x):
-        x = x[:, :T].reshape(B, ty, tx, TILE_ROWS, TILE_COLS)
-        return x.permute(0, 1, 3, 2, 4).reshape(
-            B, ty * TILE_ROWS, tx * TILE_COLS)[:, :H, :W]
-
-    vals = torch.stack([to_image(v) for v in vals], dim=-1)
-    return vals, to_image(p2f), to_image(zbuf), slots, bins, overflow
+    starts, ends, recs, overflow = _layout(
+        planes_records(face_verts, attributes), bins, counts, capacity, compact)
+    D = attributes.shape[-1]
+    tx = -(-image_size // TILE_COLS)
+    p2f, zbuf, slots, vals = raster_planes_windows(starts, ends, recs, image_size, tx, D)
+    vals = torch.stack([_tiles_to_image(v, image_size) for v in vals], dim=-1)
+    return (vals, _tiles_to_image(p2f, image_size), _tiles_to_image(zbuf, image_size),
+            slots, bins, overflow)
 
 
 def _pixelwise_interp(fv_px, attr_px, mask, image_size: int):
@@ -862,8 +1138,8 @@ def interpolate_attributes(pix_to_face, face_verts, attributes):
     `interpolate_attributes`): pix_to_face (B,H,W) int, face_verts
     (B,F,3,3), attributes (B,F,3,D) -> (vals (B,H,W,D), mask (B,H,W,1)).
     Autograd differentiates it through per-pixel gathers; it is the dense
-    reference the planes raster's gradient is checked against, and runs on
-    no path of the port."""
+    reference the rasters' gradients are checked against, and the forward
+    of `interpolate_attributes_fast`."""
     B, H, W = pix_to_face.shape
     fid = pix_to_face.clamp_min(0).long()
     mask = (pix_to_face >= 0)[..., None]
@@ -872,8 +1148,9 @@ def interpolate_attributes(pix_to_face, face_verts, attributes):
     return vals, mask.to(vals.dtype)
 
 
-def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g):
-    """The planes raster's gradient by another road, with its rounding scale.
+def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g,
+                             weighted: bool = True):
+    """The rasters' gradient by another road, with its rounding scale.
 
     -> (d_fv, scale_fv, d_attr, scale_attr): d sum(vals * g) /
     d(face_verts, attributes) by autograd through per-pixel gathers of the
@@ -885,8 +1162,10 @@ def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g):
     attribute planes in absolute coordinates and its gradient
     differentiates 1/area, so fp32 rounding is amplified by kappa twice;
     two fp32 evaluations of the gradient that sum n pixel terms in
-    different orders agree to about n u times this scale. For checks only:
-    nothing on the port's paths calls it."""
+    different orders agree to about n u times this scale. weighted=False
+    drops kappa^2: the scale of a gradient that sums these same per-pixel
+    terms in another order (`interpolate_attributes_fast`'s). For checks
+    only: nothing on the port's paths calls it."""
     B, F = face_verts.shape[:2]
     S = pix_to_face.shape[1]
     dev = face_verts.device
@@ -910,7 +1189,8 @@ def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g):
                 (Y[..., j] * X[..., k]).abs()
         area2 = ((X[..., 1] - X[..., 0]) * (Y[..., 2] - Y[..., 0])
                  - (Y[..., 1] - Y[..., 0]) * (X[..., 2] - X[..., 0])).abs()
-        k2 = torch.where(mask[..., 0], (terms / area2.clamp_min(1e-30)) ** 2, 0.0)
+        kappa2 = (terms / area2.clamp_min(1e-30)) ** 2 if weighted else 1.0
+        k2 = torch.where(mask[..., 0], kappa2, 0.0)
         k2 = k2[..., None, None]
         idx = (b * F + fid).reshape(-1)
 
@@ -971,15 +1251,168 @@ def rasterize_planes_diff(face_verts, attributes, image_size: int,
                                       capacity, compact)
 
 
-def rasterize(face_verts, attributes, image_size: int, capacity: int = 512,
+# ---------------------------------------------------------------------------
+# Coverage entry points and the raster for any D (K6 forward, K7 + K5 backward)
+# ---------------------------------------------------------------------------
+
+
+def rasterize_coverage_jnp(face_verts: torch.Tensor, image_size: int,
+                           row_chunk: int = 16):
+    """All-pairs pixel/triangle z-buffer in plain PyTorch (the name is the
+    JAX package's, so that an import line carries over): every pixel tests
+    every face with the cross-product edge terms, w = e / area and z = w0*z0
+    + w1*z1 + w2*z2; the first minimum in face order wins ties. Chunked by
+    rows, at most `row_chunk` and fewer where the (B, rows, W, F)
+    intermediates would pass _PLAIN_BLOCK_ELEMS elements. face_verts
+    (B,F,3,3) -> (pix_to_face (B,H,W) int32 (-1 empty), zbuf (B,H,W) f32
+    (1e10 empty))."""
+    B, F = face_verts.shape[:2]
+    S = image_size
+    dev = face_verts.device
+    c = _ndc(torch.arange(S, device=dev), S)
+    fv = face_verts.detach()[:, None, None]  # (B,1,1,F,3,3)
+    x0, y0, z0 = fv[..., 0, 0], fv[..., 0, 1], fv[..., 0, 2]
+    x1, y1, z1 = fv[..., 1, 0], fv[..., 1, 1], fv[..., 1, 2]
+    x2, y2, z2 = fv[..., 2, 0], fv[..., 2, 1], fv[..., 2, 2]
+    denom = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
+    real = denom.abs() >= AREA_EPS
+    safe = torch.where(real, denom, 1.0)
+    xs = c[None, None, :, None]  # (1,1,W,1)
+    rows = max(1, min(row_chunk, _PLAIN_BLOCK_ELEMS // max(1, B * S * F)))
+    p2f, zbuf = [], []
+    for r0 in range(0, S, rows):
+        ys = c[r0:r0 + rows][None, :, None, None]  # (1,rc,1,1)
+        w0 = ((x1 - xs) * (y2 - ys) - (y1 - ys) * (x2 - xs)) / safe
+        w1 = ((x2 - xs) * (y0 - ys) - (y2 - ys) * (x0 - xs)) / safe
+        w2 = ((x0 - xs) * (y1 - ys) - (y0 - ys) * (x1 - xs)) / safe
+        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & real
+        z = torch.where(inside, w0 * z0 + w1 * z1 + w2 * z2, BIG_Z)  # (B,rc,W,F)
+        bz, best = z.min(dim=-1)  # first minimum on ties
+        p2f.append(torch.where(bz >= BIG_Z, -1, best).to(torch.int32))
+        zbuf.append(bz)
+    return torch.cat(p2f, dim=1), torch.cat(zbuf, dim=1)
+
+
+def rasterize_coverage_pallas(face_verts: torch.Tensor, image_size: int,
+                              capacity: int = 512):
+    """Tiled coverage, one face at a time (K8, `raster_bins_coverage`):
+    `bin_faces`, then each tile walks its first `count` faces in bin order.
+    The tile grid pads W to a multiple of 128; the result is cropped. ->
+    (pix_to_face (B,H,W) int32, zbuf (B,H,W))."""
+    B, F = face_verts.shape[:2]
+    bins, counts = bin_faces(face_verts.detach(), image_size, capacity)
+    fv9 = face_verts.detach().reshape(B, F, 9).contiguous()
+    p2f, zbuf = raster_bins_coverage(counts, bins, fv9, image_size)
+    return p2f[:, :image_size, :image_size], zbuf[:, :image_size, :image_size]
+
+
+def _v3_impl(face_verts: torch.Tensor, image_size: int, capacity: int):
+    """Tiled coverage on the padded layout (K6) -> (pix_to_face (B,H,W),
+    zbuf (B,H,W), pix_to_slot (B,H,W) int32, the winner's index into its
+    tile's bin (-1 empty), bins (B,Tp,C) with Tp the 8-padded tile count).
+    Empty slots gather a kill row."""
+    _check_capacity(capacity)
+    face_verts = face_verts.detach()
+    bins, counts = bin_faces(face_verts, image_size, capacity)
+    starts, ends, recs, _ = _layout(coverage_records(face_verts), bins, counts,
+                                    capacity, None)
+    p2f, zbuf, slot = raster_coverage_windows(
+        starts, ends, recs, image_size, -(-image_size // TILE_COLS))
+    return (_tiles_to_image(p2f, image_size), _tiles_to_image(zbuf, image_size),
+            _tiles_to_image(slot, image_size), bins)
+
+
+def rasterize_coverage_pallas_v3(face_verts: torch.Tensor, image_size: int,
+                                 capacity: int = 192):
+    """Tiled coverage on the padded layout (K6) -> (pix_to_face, zbuf)."""
+    return _v3_impl(face_verts, image_size, capacity)[:2]
+
+
+def rasterize_coverage_pallas_v3_full(face_verts: torch.Tensor, image_size: int,
+                                      capacity: int = 192):
+    """-> (pix_to_face, zbuf, pix_to_slot, bins), as `_v3_impl`."""
+    return _v3_impl(face_verts, image_size, capacity)
+
+
+def rasterize_coverage(face_verts: torch.Tensor, image_size: int,
+                       capacity: int = 512):
+    """Coverage dispatch on the tensors' device, as the JAX package's on
+    its backend: K6 (`rasterize_coverage_pallas_v3`) on the card, the
+    all-pairs `rasterize_coverage_jnp` on the CPU."""
+    if face_verts.device.type == "cuda":
+        return rasterize_coverage_pallas_v3(face_verts, image_size, capacity)
+    return rasterize_coverage_jnp(face_verts, image_size)
+
+
+class _InterpolateAttributesFast(torch.autograd.Function):
+    """Forward `interpolate_attributes`; backward: the per-pixel gathers and
+    the vector-Jacobian product of `_pixelwise_interp`, the per-pixel rows
+    [d face_verts (9) | d attributes (3D)] tile-major, K7 sums them per
+    (tile, slot) and K5 folds the slots into faces."""
+
+    @staticmethod
+    def forward(ctx, face_verts, attributes, pix_to_face, pix_to_slot, bins,
+                image_size, capacity):
+        vals, mask = interpolate_attributes(pix_to_face, face_verts, attributes)
+        ctx.mark_non_differentiable(mask)
+        ctx.save_for_backward(face_verts, attributes, pix_to_face, pix_to_slot, bins)
+        ctx.image_size = image_size
+        ctx.capacity = capacity
+        return vals, mask
+
+    @staticmethod
+    def backward(ctx, g_vals, _g_mask):
+        face_verts, attributes, p2f, p2slot, bins = ctx.saved_tensors
+        if g_vals is None:
+            return (None,) * 7
+        B, H, W = p2f.shape
+        F, D = face_verts.shape[1], attributes.shape[-1]
+        fid = p2f.clamp_min(0).long()
+        b = torch.arange(B, device=p2f.device)[:, None, None]
+        with torch.enable_grad():
+            fv_px = face_verts.detach()[b, fid].requires_grad_(True)
+            at_px = attributes.detach()[b, fid].requires_grad_(True)
+            vals = _pixelwise_interp(fv_px, at_px, (p2f >= 0)[..., None], H)
+            dfv_px, dat_px = torch.autograd.grad(vals, (fv_px, at_px), g_vals)
+        rows = torch.cat([dfv_px.reshape(B, H, W, 9),
+                          dat_px.reshape(B, H, W, 3 * D)], dim=-1)
+        per_slot = segment_reduce_tiles(
+            image_to_tiles(p2slot, ctx.image_size).contiguous(),
+            image_to_tiles(rows, ctx.image_size).contiguous(), ctx.capacity)
+        folded = fold_slots_to_faces(per_slot, bins, F)
+        return (folded[..., :9].reshape(B, F, 3, 3),
+                folded[..., 9:].reshape(B, F, 3, D), None, None, None, None, None)
+
+
+def interpolate_attributes_fast(face_verts, attributes, pix_to_face, pix_to_slot,
+                                bins, image_size: int, capacity: int):
+    """`interpolate_attributes` with the same values and gradients, whose
+    backward reduces the per-pixel gradients per (tile, bin slot) (K7) and
+    folds them into faces (K5) instead of scattering per pixel.
+    pix_to_slot (B,H,W) and bins (B,Tp,C) are K6's (`_v3_impl`) -> (vals
+    (B,H,W,D), mask (B,H,W,1))."""
+    return _InterpolateAttributesFast.apply(
+        face_verts, attributes, pix_to_face, pix_to_slot, bins, image_size, capacity)
+
+
+def rasterize(face_verts, attributes, image_size: int, capacity: int = 512, *,
               compact: Optional[int] = None):
     """Full differentiable raster (the JAX package's `rasterize` on its
-    Pallas path): the planes raster for D attribute channels with
-    13 + 3D <= 32, i.e. D <= 6. -> as `rasterize_planes_diff`."""
+    Pallas path) -> (vals (B,H,W,D), mask (B,H,W,1), pix_to_face (B,H,W)
+    int32, overflow (B,) int32). D attribute channels with 13 + 3D <= 32
+    (D <= 6) take the planes raster (`rasterize_planes_diff`, K3 + K4 + K5,
+    on the `compact` layout); wider attributes take the coverage raster
+    K6 and `interpolate_attributes_fast` (K7 + K5), which bins the padded
+    layout, so `compact` does not apply and overflow is 0. Coverage carries
+    no gradient."""
     D = attributes.shape[-1]
-    if 13 + 3 * D > REC5_LANES:
-        raise NotImplementedError(
-            f"rasterize with D={D} > 6 attribute channels needs the coverage "
-            "raster K6 (_raster_kernel_v3) and its segment reduction K7 "
-            "(_segment_reduce_kernel), which are not ported yet")
-    return rasterize_planes_diff(face_verts, attributes, image_size, capacity, compact)
+    if 13 + 3 * D <= REC5_LANES:
+        return rasterize_planes_diff(face_verts, attributes, image_size, capacity,
+                                     compact)
+    p2f, _, p2slot, bins = rasterize_coverage_pallas_v3_full(
+        face_verts, image_size, capacity)
+    vals, mask = interpolate_attributes_fast(
+        face_verts, attributes, p2f, p2slot, bins, image_size, capacity)
+    overflow = torch.zeros((face_verts.shape[0],), dtype=torch.int32,
+                           device=face_verts.device)
+    return vals, mask, p2f, overflow

@@ -107,7 +107,7 @@ def test_rasterize_planes_diff_matches_jax(bundles, full, size, B, seed, compact
 
     w = np.random.default_rng(seed).normal(size=vt.shape).astype(np.float32)
     fvt, fnt = fv.clone().requires_grad_(True), fn.clone().requires_grad_(True)
-    vals, mask, p2f, ovf = TR.rasterize(fvt, fnt, size, cap, compact)
+    vals, mask, p2f, ovf = TR.rasterize(fvt, fnt, size, cap, compact=compact)
     assert not mask.requires_grad and not p2f.requires_grad
     (vals * torch.from_numpy(w)).sum().backward()
 
@@ -163,7 +163,7 @@ def test_custom_backward_matches_dense_autograd(bundles, compact):
     r, _, _, fv, fn = make_scene(bundles[True], size, 1, 7)
     compact = r.raster_compact if compact == "auto" else compact
     fvt, fnt = fv.clone().requires_grad_(True), fn.clone().requires_grad_(True)
-    vals, _, p2f, ovf = TR.rasterize(fvt, fnt, size, r.bin_capacity, compact)
+    vals, _, p2f, ovf = TR.rasterize(fvt, fnt, size, r.bin_capacity, compact=compact)
     g = torch.from_numpy(np.random.default_rng(1).normal(size=vals.shape).astype(np.float32))
     (vals * g).sum().backward()
     d_fv, sc_fv, d_fn, sc_fn = TR.dense_gradient_and_scale(p2f, fv, fn, g)
@@ -176,9 +176,13 @@ def test_custom_backward_matches_dense_autograd(bundles, compact):
 
 
 def test_rasterize_rejects_wide_attributes():
+    """Wide attributes (D > 6) are no longer rejected: they take the
+    coverage raster (K6) and interpolate_attributes_fast (K7 + K5), with
+    zero overflow; the compact budget, keyword-only, does not apply."""
     fv = torch.zeros((1, 4, 3, 3))
-    with pytest.raises(NotImplementedError, match="_raster_kernel_v3"):
-        TR.rasterize(fv, torch.zeros((1, 4, 3, 7)), 32, 32)
+    vals, mask, p2f, ovf = TR.rasterize(fv, torch.zeros((1, 4, 3, 7)), 32, 32, compact=8)
+    assert vals.shape == (1, 32, 32, 7) and mask.shape == (1, 32, 32, 1)
+    assert int((p2f >= 0).sum()) == 0 and ovf.tolist() == [0]
 
 
 @pytest.mark.parametrize("full,size,B,seed", [(False, 64, 2, 0), (True, 224, 1, 1)])
