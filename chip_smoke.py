@@ -39,6 +39,17 @@ Phases (any failure exits non-zero):
     tie rule;
  4h. K4 segment_moments at D = 6, capacity 768 (55 KB of accumulators)
     against its plain version, within 1e-5 x the sum of magnitudes;
+ 4i. the scheduled inference rasters on the main path's faces (b64, the
+    face region through Renderer._face_geometry), capacity 384: K9
+    raster_fused_groups at tps 8 and 16 bitwise equal to its plain version
+    and to K1b; K10 raster_fused_groups_local (count-sorted, tile-local
+    records) bitwise equal to its plain version and to K1b by the tie rule,
+    normals within 2e-4 + 1e-3 x |n|; K11 raster_chunkskip at (chunk, cap)
+    = (8, 128), (16, 96), (32, 64) on the Morton-ordered face list with the
+    original ids, bitwise equal to its plain version and to K1 by the tie
+    rule, nothing dropped; at cap 4 chunks are dropped, the kept list is
+    the full list's nearest prefix, and where the full render's winner is
+    in that prefix it still wins;
  5. the main path through `Predictor` at full width (three full
     MobileNetV3-minimal encoders, FLAME with 300 shape / 50 expression
     components on the full-size procedural head, batch 64, 224 px), random
@@ -68,17 +79,26 @@ Phases (any failure exits non-zero):
     autograd reference on the card; one more pass at capacity 384; then
     the coverage entry points `ops.rasterize_coverage` (K6) and
     `ops.rasterize_coverage_pallas` (K8) on the same faces;
+ 5d. the scheduled rasters' path: `rasterize_normals_fused(merged=True)`,
+    `rasterize_normals_fused(sort_tiles=True)` and
+    `rasterize_normals_chunkskip` (chunk 8, cap 128, Morton order) on the
+    b64 faces of phase 4i: coverage > 5 %, every output finite, nothing
+    dropped, K9, K10 and K11 launched, and pix_to_face against the
+    default compact render by the tie rule;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events each kernel, its plain version, its library yardstick where
     there is one (K2: one advanced-index gather; K4 and K7: one
     scatter_add_ of prebuilt rows; K5: one index_add_), the op path's
-    forward and backward, the stages of infer and of
+    forward and backward, the whole calls of the five inference rasters
+    (compact, padded, merged, sort_tiles, chunk-skip), the stages of infer
+    and of
     one train step, a torch.profiler trace of one train step per parity
     (device time by kernel class, busy share) and its convolution FLOPs;
     on the host clock the median and spread of 5 windows of 50 infer calls
     (ms/batch, images/s), of 3 windows of 20 Predictor calls and of 3
     windows of 5 train steps per parity; occupied chunks vs the budget;
- 7. a `kernels` JSON line (10 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8);
+ 7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
+    K9, K10, K11);
  8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
@@ -281,9 +301,10 @@ def train_batch(B, S, seed):
 
 # kernel-name fragments -> class, first match wins (for the train profile)
 KERNEL_CLASSES = (
-    ("port kernels K1-K8", ("raster_fused", "compact_faces", "raster_planes",
-                            "segment_moments", "fold_faces", "raster_coverage",
-                            "segment_reduce", "raster_bins")),
+    ("port kernels K1-K11", ("raster_fused", "compact_faces", "raster_planes",
+                             "segment_moments", "fold_faces", "raster_coverage",
+                             "segment_reduce", "raster_bins", "raster_groups",
+                             "raster_chunkskip")),
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "winograd", "fft",
                      "wgrad", "dgrad", "nchw", "nhwc")),
     ("matmul", ("gemm", "cutlass", "ampere", "sm90")),
@@ -675,6 +696,88 @@ def main(argv=None) -> int:
         within(R.segment_moments(slots4, g4, 768, S), R.segment_moments_plain(slots4, g4, 768, S),
                R.segment_sum(slots4, R.moment_rows(g4, S).abs(), 768), "K4 vs plain at C=768, D=6")
 
+    # ---------------- 4i. K9 / K10 / K11 ----------------
+    log(f"[4i] K9 raster_fused_groups, K10 raster_fused_groups_local, K11 "
+        f"raster_chunkskip at B={B}, capacity {cap}")
+    k1_img = [R._tiles_to_image(x, S) for x in k1[:2]]  # the compact K1 render
+    with torch.inference_mode():
+        k9, k9_err = {}, 0.0
+        for tps in (8, 16):
+            b9, c9 = R._pad_tiles_to(bins, counts, tps)
+            r9 = R._gather_recs(records, b9.reshape(B, -1)).contiguous()
+            out9 = R.raster_fused_groups(c9, r9, S, TX, tps)
+            plain9 = R.raster_fused_groups_plain(c9, r9, S, TX, tps)
+            torch.cuda.synchronize()
+            # against phase 4's K1b render: the tiles past Tp pad the groups
+            for nm, a, b, c in zip(("p2f", "zbuf", "nx", "ny", "nz"), out9, plain9, k1b):
+                check(torch.equal(a, b), f"K9 {nm} == plain at tps {tps} (bitwise)")
+                check(torch.equal(a[:, :Tp], c), f"K9 {nm} == K1b at tps {tps} (bitwise, "
+                      f"{c9.shape[1] - Tp} padding tiles)")
+                k9_err = max(k9_err, float((a.double() - b.double()).abs().max()))
+            k9[tps] = (c9, r9, R.group_windows(c9, CPT, tps))
+        c10, r10, inv10 = R.sorted_tiles(records, *R._pad_tiles_to(bins, counts, 8), S)
+        out10 = R.raster_fused_groups_local(c10, r10, S, 8)
+        plain10 = R.raster_fused_groups_plain(c10, r10, S, TX, 8, local=True)
+        torch.cuda.synchronize()
+        k10_err = 0.0
+        for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), out10, plain10):
+            check(torch.equal(a, b), f"K10 {nm} == plain (bitwise)")
+            k10_err = max(k10_err, float((a.double() - b.double()).abs().max()))
+        img10 = [R._tiles_to_image(torch.gather(o, 1, inv10[..., None].expand_as(o)), S)
+                 for o in out10]
+        img1b = [R._tiles_to_image(o, S) for o in k1b]
+        k10_bad = tie_mismatches(img10[0], img1b[0], img10[1], img1b[1], face_verts, S)
+        agree10 = img10[0] == img1b[0]
+        dn10 = max(float(((a - b).abs() - 1e-3 * b.abs())[agree10].max())
+                   for a, b in zip(img10[2:], img1b[2:]))
+        check(dn10 <= 2e-4, f"K10 normals within 2e-4 + 1e-3 x |n| of K1b where "
+              f"pix_to_face agrees (worst excess {dn10:.3g}); {k10_bad} tie pixels")
+        # K11 on the Morton-ordered face region, the original ids in lane 12
+        tmpl = np.asarray(bundle["v_template"])[renderer.kept_vertices]
+        perm = R.spatial_face_order(tmpl, renderer.faces.cpu().numpy())
+        perm_t = torch.as_tensor(perm, device=dev)
+        fv_perm, fn_perm = face_verts[:, perm_t], face_normals[:, perm_t]
+        k11, k11_err = {}, 0.0
+        for ch, cap11 in ((8, 128), (16, 96), (32, 64)):
+            while True:
+                c11, l11, r11, d11 = R.chunkskip_inputs(fv_perm, fn_perm, S, ch, cap11, perm_t)
+                if int(d11.max()) == 0:
+                    break
+                log(f"    chunk {ch}: {int(d11.sum())} chunks dropped at cap {cap11}; "
+                    f"raising the cap to {cap11 * 2}")
+                cap11 *= 2
+            out11 = R.raster_chunkskip(c11, l11, r11, S, TX, ch)
+            plain11 = R.raster_chunkskip_plain(c11, l11, r11, S, TX, ch)
+            torch.cuda.synchronize()
+            for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), out11, plain11):
+                check(torch.equal(a, b), f"K11 {nm} == plain at chunk {ch}, cap {cap11} "
+                      "(bitwise)")
+                k11_err = max(k11_err, float((a.double() - b.double()).abs().max()))
+            img11 = [R._tiles_to_image(o, S) for o in out11[:2]]
+            bad11 = tie_mismatches(img11[0], k1_img[0], img11[1], k1_img[1], face_verts, S)
+            log(f"    K11 chunk {ch}, cap {cap11}: {int(c11.sum())} binned chunks "
+                f"(max {int(c11.max())} per tile), {bad11} tie pixels against K1")
+            k11[ch] = (c11, l11, r11, out11)
+        # a truncated cap drops the farthest chunks; the nearest still wins
+        c8, l8, _, out8 = k11[8]
+        ct, lt, rt, dt = R.chunkskip_inputs(fv_perm, fn_perm, S, 8, 4, perm_t)
+        outt = R.raster_chunkskip(ct, lt, rt, S, TX, 8)
+        check(int(dt.min()) > 0, f"cap 4 drops chunks (min {int(dt.min())}, max "
+              f"{int(dt.max())} per image)")
+        pos = torch.arange(4, device=dev)
+        valid = pos < c8[..., None]
+        check(torch.equal(ct, c8.clamp(max=4))
+              and torch.equal(lt[..., :4], torch.where(valid, l8[..., :4], 0)),
+              "the cap-4 list is the nearest prefix of the full list")
+        check(bool((outt[1] >= out8[1]).all()), "the cap-4 depth is never nearer")
+        inv_perm = torch.argsort(perm_t)
+        wchunk = inv_perm[out8[0].clamp_min(0).long()] // 8  # (B,Tp,P)
+        in_prefix = ((wchunk[..., None] == l8[:, :, None, :4]) & valid[:, :, None, :]).any(-1)
+        in_prefix &= out8[0] >= 0
+        check(torch.equal(outt[0][in_prefix], out8[0][in_prefix]) and bool(in_prefix.any()),
+              f"the full render's winner still wins at the {int(in_prefix.sum())} pixels "
+              "whose winning chunk the cap-4 list kept")
+
     if args.quick:
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                "count": count}}))
@@ -872,6 +975,33 @@ def main(argv=None) -> int:
     log(f"    K8 vs K6 on the op path's faces: "
         f"{tie_mismatches(p2f_k8, p2f_cov, z_k8, z_cov, fv_op, S)} tie pixels")
 
+    # ---------------- 5d. the scheduled rasters' path ----------------
+    log(f"[5d] scheduled rasters: rasterize_normals_fused(merged / sort_tiles) and "
+        f"rasterize_normals_chunkskip (8, 128) at b{B}, {S} px, capacity {cap}")
+    with torch.inference_mode():
+        R.reset_launch_counts()
+        sched = {
+            "merged": R.rasterize_normals_fused(face_verts, face_normals, S, cap,
+                                                merged=True, return_overflow=True),
+            "sort_tiles": R.rasterize_normals_fused(face_verts, face_normals, S, cap,
+                                                    sort_tiles=True, return_overflow=True),
+            "chunkskip": R.rasterize_normals_chunkskip(fv_perm, fn_perm, S, 8, 128,
+                                                       return_overflow=True, face_ids=perm_t),
+        }
+        torch.cuda.synchronize()
+        sched_launches = {k.__name__: k.launches for k in R.KERNELS}
+    log(f"    launches on the scheduled rasters' path: {sched_launches}")
+    check(all(sched_launches[k.__name__] > 0 for k in (
+        R.raster_fused_groups, R.raster_fused_groups_local, R.raster_chunkskip)),
+        "the path went through K9, K10 and K11")
+    for nm, (n5, p5, z5, o5) in sched.items():
+        cov5 = float((p5 >= 0).float().mean())
+        check(cov5 > 0.05, f"{nm}: coverage {cov5:.4f} > 0.05")
+        check(all(bool(torch.isfinite(t).all()) for t in (n5, z5)), f"{nm}: outputs finite")
+        check(int(o5.max()) == 0, f"{nm}: nothing dropped")
+        log(f"    {nm} vs the compact K1 render: "
+            f"{tie_mismatches(p5, k1_img[0], z5, k1_img[1], face_verts, S)} tie pixels")
+
     # ---------------- 6. timings ----------------
     log(f"[6] timings {card}")
     res = {}
@@ -942,6 +1072,37 @@ def main(argv=None) -> int:
         res["k8_ms"] = cuda_ms(lambda: R.raster_bins_coverage(counts_t, bins_t, fv9, S), 20)
         res["k8_plain_ms"] = cuda_ms(
             lambda: R.raster_bins_coverage_plain(counts_t, bins_t, fv9, S), 3, 1)
+        for tps in (8, 16):
+            c9, r9, _ = k9[tps]
+            res[f"k9_tps{tps}_ms"] = cuda_ms(
+                lambda c9=c9, r9=r9, tps=tps: R.raster_fused_groups(c9, r9, S, TX, tps), 50)
+        res["k9_plain_ms"] = cuda_ms(
+            lambda: R.raster_fused_groups_plain(k9[8][0], k9[8][1], S, TX, 8), 5, 1)
+        res["k10_ms"] = cuda_ms(lambda: R.raster_fused_groups_local(c10, r10, S, 8), 50)
+        res["k10_plain_ms"] = cuda_ms(
+            lambda: R.raster_fused_groups_plain(c10, r10, S, TX, 8, local=True), 5, 1)
+        for ch, (c11, l11, r11, _) in k11.items():
+            res[f"k11_ch{ch}_ms"] = cuda_ms(
+                lambda c11=c11, l11=l11, r11=r11, ch=ch: R.raster_chunkskip(
+                    c11, l11, r11, S, TX, ch), 50)
+        res["k11_plain_ms"] = cuda_ms(
+            lambda: R.raster_chunkskip_plain(*k11[8][:3], S, TX, 8), 5, 1)
+        # the whole inference raster calls, binning and records included
+        whole = {
+            "compact": lambda: R.rasterize_normals_fused(face_verts, face_normals, S, cap,
+                                                         compact=budget),
+            "padded": lambda: R.rasterize_normals_fused(face_verts, face_normals, S, cap),
+            "merged": lambda: R.rasterize_normals_fused(face_verts, face_normals, S, cap,
+                                                        merged=True),
+            "sort_tiles": lambda: R.rasterize_normals_fused(face_verts, face_normals, S, cap,
+                                                            sort_tiles=True),
+            "chunkskip": lambda: R.rasterize_normals_chunkskip(fv_perm, fn_perm, S, 8, 128,
+                                                               face_ids=perm_t),
+        }
+        for k, fn in whole.items():
+            res[f"call_{k}_ms"] = cuda_ms(fn, 20)
+        res["bin_chunks_8_128_ms"] = cuda_ms(lambda: R.bin_chunks(
+            R._pad_faces_offscreen(fv_perm, 8)[0], S, 8, 128), 20)
     # the op path at b32, capacity 512: forward (FLAME -> loss) and backward
     # to the expression, CUDA events, median of 5 warm passes
     expr_t = op_params["expression_params"].clone().requires_grad_(True)
@@ -1032,6 +1193,11 @@ def main(argv=None) -> int:
                           + 2 * BT * T_real * R.TILE_PIX * 4)
     k2_bytes = (B * budget * 4 + B * Tp * 4 + B * 4 + int(total.sum()) * 32 * 4
                 + B * budget * 32 * 4)
+    # K9-K11 compute K1b's and K1's function on the same faces, so their
+    # bounds are those; what their schedules walk past it is printed below
+    s9, e9 = k9[8][2]
+    s10, e10 = R.group_windows(c10, CPT, 8)
+    k11_faces = int(k11[8][0].sum()) * 8
     src = "smirk_tpu_torch/csrc/"
     line = {"kernels": [
         {"name": "compact_faces", "route": "cuda", "source": src + "compact_faces.cu",
@@ -1091,6 +1257,22 @@ def main(argv=None) -> int:
          "launches": k8_launches["raster_bins_coverage"], "max_abs_err": k8_err,
          "ms": res["k8_ms"], "plain_ms": res["k8_plain_ms"],
          "bound_ms": k8_bms, "bound_by": k8_by, "library_ms": None},
+        {"name": "raster_fused_groups", "route": "cuda", "source": src + "raster_groups.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:1505",
+         "launches": sched_launches["raster_fused_groups"], "max_abs_err": k9_err,
+         "ms": res["k9_tps8_ms"], "plain_ms": res["k9_plain_ms"],
+         "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
+        {"name": "raster_fused_groups_local", "route": "cuda",
+         "source": src + "raster_groups.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:1442",
+         "launches": sched_launches["raster_fused_groups_local"], "max_abs_err": k10_err,
+         "ms": res["k10_ms"], "plain_ms": res["k10_plain_ms"],
+         "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
+        {"name": "raster_chunkskip", "route": "cuda", "source": src + "raster_chunkskip.cu",
+         "replaces": "smirk_tpu/render/rasterizer.py:1863",
+         "launches": sched_launches["raster_chunkskip"], "max_abs_err": k11_err,
+         "ms": res["k11_ch8_ms"], "plain_ms": res["k11_plain_ms"],
+         "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None},
     ]}
     for k in line["kernels"]:
         assert all(isinstance(k[f], (int, float)) and math.isfinite(k[f])
@@ -1102,6 +1284,10 @@ def main(argv=None) -> int:
         f"face-pixel test), K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
         f"{k7_bytes / 1e6:.1f} MB), K8 {k8_bms:.4f} ms ({k8_by}, {OPS_PER_FACE_PIXEL_K8} "
         f"operations per face-pixel test over {k8_pairs} pairs)")
+    log(f"    schedules past the function's work: K9 walks {int((e9 - s9).sum())} chunk "
+        f"steps at tps 8 and K10 {int((e10 - s10).sum())}, against K1b's {win_p} (bound "
+        f"{k1b_bms:.4f} ms); K11 {k11_faces} face-tile tests at chunk 8, against K1's "
+        f"{win_c * 32} (bound {k1_bms:.4f} ms)")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

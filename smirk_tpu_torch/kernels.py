@@ -64,6 +64,17 @@ LIBRARIES = {
         # counts, bins, fv, p2f, zbuf, B, Tp, T, C, F, H, W, TX, device, stream
         "smirk_raster_bins_coverage": [_P] * 5 + [_I] * 9 + [_P],
     }),
+    "raster_groups": ("raster_groups.cu", {
+        # counts, recs, p2f, zbuf, nx, ny, nz,
+        # B, Tp, C, tps, per_pass, local, H, W, TX, device, stream
+        "smirk_raster_fused_groups": [_P] * 7 + [_I] * 10 + [_P],
+        "smirk_max_shared_optin": [_I],  # device
+    }),
+    "raster_chunkskip": ("raster_chunkskip.cu", {
+        # counts, clist, recs, p2f, zbuf, nx, ny, nz,
+        # B, Tp, cap, F, CH, H, W, TX, device, stream
+        "smirk_raster_chunkskip": [_P] * 8 + [_I] * 9 + [_P],
+    }),
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

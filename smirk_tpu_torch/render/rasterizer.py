@@ -26,6 +26,15 @@ Pipeline (`rasterize_normals_fused`):
 4. `raster_fused_windows` (kernel K1): per tile, walk the chunk window,
    keep the nearest covering face (first in slot order on ties), and
    evaluate its normal planes at the pixel.
+The padded layout has two scheduled variants: `merged` (K9,
+`raster_fused_groups`: every tile of a group of `tps` walks to the group's
+largest bin) and `sort_tiles` (K10, `raster_fused_groups_local`: tiles
+count-sorted, records rebased to tile-local coordinates, outputs
+un-permuted). `rasterize_normals_chunkskip` bins fixed chunks of a
+(Morton-ordered, `spatial_face_order`) face list instead of faces
+(`bin_chunks`) and walks each tile's chunk list over the image's full
+record table (K11, `raster_chunkskip`): no record gather, no plan, no K2.
+`set_backface_cull` drops one winding at the binning stage.
 
 The coverage rasters: `rasterize_coverage_jnp` (all pairs, plain
 PyTorch), `rasterize_coverage_pallas_v3[_full]` (`face_records` on the
@@ -48,7 +57,7 @@ vertices and attributes. For D > 6, K6 gives the coverage and
 backward reduces the per-pixel gradients per (tile, slot) with
 `segment_reduce_tiles` (K7) and folds them into faces with K5.
 
-K1-K8 are CUDA kernels (csrc/). Each wrapper checks its arguments,
+K1-K11 are CUDA kernels (csrc/). Each wrapper checks its arguments,
 launches on PyTorch's current stream and counts its launches; for tensors
 on the CPU it runs the plain PyTorch version beside it.
 """
@@ -56,6 +65,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from smirk_tpu_torch import kernels
@@ -81,15 +91,38 @@ def _ndc(idx: torch.Tensor, size: int) -> torch.Tensor:
     return num / torch.full_like(num, float(size))
 
 
+# Backface culling at the binning stage (the JAX package's switch). None =
+# off: both windings rasterize. +1/-1 = keep only faces whose screen-space
+# signed area has that sign; `bin_faces_flat` and `bin_chunks` drop the
+# others.
+_CULL_SIGN: Optional[int] = None
+
+
+def set_backface_cull(sign: Optional[int]) -> None:
+    global _CULL_SIGN
+    if sign not in (None, 1, -1):
+        raise ValueError(f"backface cull sign must be None, 1 or -1, got {sign!r}")
+    _CULL_SIGN = sign
+
+
 def _bbox_and_priority(face_verts: torch.Tensor, image_size: int):
-    """Pixel-space bboxes + unique near-to-far priority per face.
+    """Pixel-space bboxes + unique near-to-far priority per face + keep mask.
 
     Priority = 255-bucket quantized mean z, then face id, so that ties keep
-    first-face-wins order within a bucket."""
+    first-face-wins order within a bucket. keep (B,F) bool is the backface
+    cull's (None when culling is off)."""
     H = W = image_size
     F = face_verts.shape[1]
     x = face_verts[..., 0]
     y = face_verts[..., 1]
+    keep = None
+    if _CULL_SIGN is not None:
+        # 2x the signed NDC area; the pixel mapping scales positively, so
+        # its sign is the screen-space winding
+        area2 = (x[..., 0] * (y[..., 1] - y[..., 2])
+                 + x[..., 1] * (y[..., 2] - y[..., 0])
+                 + x[..., 2] * (y[..., 0] - y[..., 1]))
+        keep = (area2 * _CULL_SIGN) > 0  # (B,F)
     # NDC -> continuous pixel coords (pixel r centre at r + 0.5)
     px = (x * W + W - 1.0) / 2.0
     py = (y * H + H - 1.0) / 2.0
@@ -106,7 +139,28 @@ def _bbox_and_priority(face_verts: torch.Tensor, image_size: int):
         (zmean - zlo) / (zhi - zlo).clamp_min(1e-12) * NB
     ).clamp(0, NB).to(torch.int32)  # (B,F), 0 = closest
     prio = zbucket * F + torch.arange(F, dtype=torch.int32, device=face_verts.device)[None]
-    return xmin, xmax, ymin, ymax, prio, (NB + 2) * F
+    return xmin, xmax, ymin, ymax, prio, (NB + 2) * F, keep
+
+
+def _tile_overlap(face_verts: torch.Tensor, image_size: int):
+    """-> (overlap (B,T,F) bool: the face's bbox meets the tile's pixel-centre
+    range and the face survives the backface cull, prio (B,F), prio_span),
+    tiles row-major over the ceil(H/8) x ceil(W/128) grid."""
+    B, F = face_verts.shape[:2]
+    ty, tx = _tile_grid(image_size)
+    xmin, xmax, ymin, ymax, prio, prio_span, keep = _bbox_and_priority(
+        face_verts, image_size)
+    dev = face_verts.device
+    tile_r0 = (torch.arange(ty, device=dev) * TILE_ROWS).to(torch.float32)
+    tile_c0 = (torch.arange(tx, device=dev) * TILE_COLS).to(torch.float32)
+    ov_r = (ymax[:, None, :] >= tile_r0[None, :, None]) & (
+        ymin[:, None, :] <= tile_r0[None, :, None] + TILE_ROWS - 1)  # (B,ty,F)
+    ov_c = (xmax[:, None, :] >= tile_c0[None, :, None]) & (
+        xmin[:, None, :] <= tile_c0[None, :, None] + TILE_COLS - 1)  # (B,tx,F)
+    overlap = (ov_r[:, :, None, :] & ov_c[:, None, :, :]).reshape(B, ty * tx, F)
+    if keep is not None:
+        overlap = overlap & keep[:, None, :]
+    return overlap, prio, prio_span
 
 
 def _pad_bins(bins, counts, capacity, k, T):
@@ -132,24 +186,12 @@ def bin_faces_flat(
     Each tile keeps its `capacity` nearest overlapping faces, nearest
     first: an exact top-k over the integer key overlap * prio_span - prio,
     so a tile's count is min(overlapping faces, capacity) and no face is
-    missed (the JAX package's approximate top-k needs a miss count).
+    missed (the JAX package's approximate top-k needs a miss count). Faces
+    the backface cull drops (`set_backface_cull`) bin nowhere.
     """
-    B, F = face_verts.shape[:2]
-    H = W = image_size
-    ty = -(-H // TILE_ROWS)
-    tx = -(-W // TILE_COLS)
-    T = ty * tx
-    xmin, xmax, ymin, ymax, prio, prio_span = _bbox_and_priority(
-        face_verts, image_size)
-    dev = face_verts.device
-    tile_r0 = (torch.arange(ty, device=dev) * TILE_ROWS).to(torch.float32)
-    tile_c0 = (torch.arange(tx, device=dev) * TILE_COLS).to(torch.float32)
-    # overlap iff bbox intersects the tile's pixel-centre range
-    ov_r = (ymax[:, None, :] >= tile_r0[None, :, None]) & (
-        ymin[:, None, :] <= tile_r0[None, :, None] + TILE_ROWS - 1)  # (B,ty,F)
-    ov_c = (xmax[:, None, :] >= tile_c0[None, :, None]) & (
-        xmin[:, None, :] <= tile_c0[None, :, None] + TILE_COLS - 1)  # (B,tx,F)
-    overlap = (ov_r[:, :, None, :] & ov_c[:, None, :, :]).reshape(B, T, F)
+    F = face_verts.shape[1]
+    overlap, prio, prio_span = _tile_overlap(face_verts, image_size)
+    T = overlap.shape[1]
 
     k = min(capacity, F)
     key = overlap.to(torch.int32) * prio_span - prio[:, None, :]
@@ -162,7 +204,7 @@ def bin_faces_flat(
 
 _OTHER_BINNING = ("the port bins exactly with bin_faces_flat; the JAX package's "
                   "approximate, hierarchical and sorted binning are not ported "
-                  "(ROADMAP.md, Queue 2)")
+                  "(ROADMAP.md, Queue 1)")
 
 
 def set_bin_mode(hier: bool, approx: Optional[float] = None,
@@ -400,11 +442,14 @@ compact_faces.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _tile_centers(Tp: int, image_size: int, tiles_x: int, device):
+def _tile_centers(Tp: int, image_size: int, tiles_x: int, device, local: bool = False):
     """(Tp, 1024) NDC x and y of every pixel of every tile, row-major in
-    the 8x128 tile."""
+    the 8x128 tile. local: every tile takes the centres of the image's
+    first tile, ndc(p % 128) and ndc(p / 128) (tile-local records)."""
     pix = torch.arange(TILE_PIX, device=device)
     t = torch.arange(Tp, device=device)
+    if local:
+        t = torch.zeros_like(t)
     col = pix[None] % TILE_COLS + (t % tiles_x)[:, None] * TILE_COLS
     row = pix[None] // TILE_COLS + (t // tiles_x)[:, None] * TILE_ROWS
     return _ndc(col, image_size), _ndc(row, image_size)
@@ -414,23 +459,26 @@ def _affine(rec, ia, ib, ic, xs, ys):
     return rec[..., ia] * xs + rec[..., ib] * ys + rec[..., ic]
 
 
-def _plain_zbuffer(starts, ends, recs, image_size: int, tiles_x: int):
-    """The chunk walk shared by the plain versions of K1 and K3.
+def _plain_zbuffer(starts, ends, recs, image_size: int, tiles_x: int, *,
+                   local: bool = False, clist=None, chunk: int = V3_CHUNK):
+    """The chunk walk shared by the plain versions of the window rasters.
 
     starts/ends (B,Tp) int32: tile t walks chunks [starts, ends) of its
-    image's record list recs (B, N*32, L) f32. Within a chunk the nearest
-    inside face wins, first slot on ties; a later chunk replaces the winner
-    only if strictly nearer. Yields, per group of images (bounded so that
-    no intermediate exceeds _PLAIN_BLOCK_ELEMS elements): (bidx (G,1)
-    image ids, bz (G,Tp,P) nearest depth (1e10 empty), win (G,Tp,P) the
-    winner's index in its image's record list, x, y (1,Tp,P) pixel
+    image's record list recs (B, N*chunk, L) f32; with clist (B,Tp,cap)
+    int32 it walks the chunk ids clist[b, t, starts:ends] instead. Within
+    a chunk the nearest inside face wins, first slot on ties; a later
+    chunk replaces the winner only if strictly nearer. local: tile-local
+    pixel centres (`_tile_centers`). Yields, per group of images (bounded
+    so that no intermediate exceeds _PLAIN_BLOCK_ELEMS elements): (bidx
+    (G,1) image ids, bz (G,Tp,P) nearest depth (1e10 empty), win (G,Tp,P)
+    the winner's index in its image's record list, x, y (1,Tp,P) pixel
     centres).
     """
     B, Tp = starts.shape
     dev = recs.device
-    CH, L = V3_CHUNK, recs.shape[-1]
+    CH, L = chunk, recs.shape[-1]
     chunks = recs.reshape(B, -1, CH, L)
-    xs, ys = _tile_centers(Tp, image_size, tiles_x, dev)
+    xs, ys = _tile_centers(Tp, image_size, tiles_x, dev, local)
     xs, ys = xs[None, :, None, :], ys[None, :, None, :]  # (1,Tp,1,P)
     slot = torch.arange(CH, device=dev)[None, None, :, None]
     group = max(1, _PLAIN_BLOCK_ELEMS // (Tp * CH * TILE_PIX))
@@ -442,9 +490,11 @@ def _plain_zbuffer(starts, ends, recs, image_size: int, tiles_x: int):
         win = torch.zeros((G, Tp, 1, TILE_PIX), dtype=torch.long, device=dev)
         n_steps = int((e - s).max()) if G else 0
         for j in range(max(n_steps, 0)):
-            c = s + j
-            active = c < e
-            rec = chunks[bidx, torch.where(active, c, 0)]  # (G,Tp,CH,L)
+            active = s + j < e
+            c = torch.where(active, s + j, 0)
+            if clist is not None:
+                c = torch.gather(clist[b0:b0 + G].long(), 2, c[..., None])[..., 0]
+            rec = chunks[bidx, c]  # (G,Tp,CH,L)
             rec = rec[..., None, :]  # (G,Tp,CH,1,L)
             e0 = _affine(rec, 0, 1, 2, xs, ys)
             e1 = _affine(rec, 3, 4, 5, xs, ys)
@@ -461,13 +511,13 @@ def _plain_zbuffer(starts, ends, recs, image_size: int, tiles_x: int):
         yield bidx, bz[:, :, 0], win[:, :, 0], xs[:, :, 0], ys[:, :, 0]
 
 
-def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
-    """Plain version of K1: `_plain_zbuffer` over records in the
-    RECF_LANES layout. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf (1e10
-    empty), nx, ny, nz (0 empty), all f32 but p2f.
-    """
+def _fused_plain(starts, ends, recs, image_size: int, tiles_x: int, **walk):
+    """`_plain_zbuffer` over records in the RECF_LANES layout + the
+    winner's normal planes. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf (1e10
+    empty), nx, ny, nz (0 empty), all f32 but p2f."""
     outs = []
-    for bidx, bz, win, x, y in _plain_zbuffer(starts, ends, recs, image_size, tiles_x):
+    for bidx, bz, win, x, y in _plain_zbuffer(starts, ends, recs, image_size,
+                                              tiles_x, **walk):
         covered = bz < BIG_Z
         wrec = recs[bidx[:, :, None], win]  # (G,Tp,P,L)
         planes = [_affine(wrec, 16 + d, 19 + d, 22 + d, x, y) for d in range(3)]
@@ -477,6 +527,21 @@ def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int
             *[torch.where(covered, n, 0.0) for n in planes],
         ))
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
+
+
+def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
+    """Plain version of K1: `_fused_plain` over chunk windows. -> p2f
+    (B,Tp,1024) int32 (-1 empty), zbuf (1e10 empty), nx, ny, nz (0 empty),
+    all f32 but p2f.
+    """
+    return _fused_plain(starts, ends, recs, image_size, tiles_x)
+
+
+def _fused_outputs(B: int, Tp: int, dev):
+    """Empty (p2f int32, zbuf, nx, ny, nz f32), each (B,Tp,1024)."""
+    return (torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev),
+            *(torch.empty((B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
+              for _ in range(4)))
 
 
 def raster_fused_windows(starts, ends, recs, image_size: int, tiles_x: int):
@@ -507,9 +572,7 @@ def raster_fused_windows(starts, ends, recs, image_size: int, tiles_x: int):
     if recs.data_ptr() % 16:
         raise ValueError("raster_fused_windows: recs must be 16-byte aligned")
     n_chunks = recs.shape[1] // V3_CHUNK
-    p2f = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
-    zbuf, nx, ny, nz = (torch.empty((B, Tp, TILE_PIX), dtype=torch.float32,
-                                    device=dev) for _ in range(4))
+    p2f, zbuf, nx, ny, nz = _fused_outputs(B, Tp, dev)
     lib = kernels.library("raster_fused")
     rc = lib.smirk_raster_fused_windows(
         starts.data_ptr(), ends.data_ptr(), recs.data_ptr(), p2f.data_ptr(),
@@ -585,6 +648,176 @@ def _layout(records, bins, counts, capacity: int, compact: Optional[int]):
 
 
 # ---------------------------------------------------------------------------
+# K9 / K10: the merged loop over groups of tiles
+# ---------------------------------------------------------------------------
+
+
+# Tiles per group of the merged rasters when the caller gives none: the JAX
+# package's `_pick_tps` at its defaults (its TPU sweep found 8, 16 and 24
+# equal and capped the choice at 8).
+MERGED_TPS = 8
+
+
+def _pad_tiles_to(bins, counts, tps: int):
+    """Pad the tile axis of bins (B,Tp,C) and counts (B,Tp) with empty tiles
+    to a multiple of `tps`."""
+    B, Tp, C = bins.shape
+    Tq = -(-Tp // tps) * tps
+    if Tq != Tp:
+        bins = torch.cat([bins, bins.new_full((B, Tq - Tp, C), -1)], dim=1)
+        counts = torch.cat([counts, counts.new_zeros((B, Tq - Tp))], dim=1)
+    return bins, counts
+
+
+def group_windows(counts: torch.Tensor, cpt: int, tps: int):
+    """Chunk windows of the merged schedule on the padded layout: tile t
+    walks chunks [t*cpt, t*cpt + n) where n = ceil(max count of its group
+    of `tps` tiles / 32); its chunks past its own count hold kill records.
+    counts (B,Tp), Tp a multiple of tps -> (starts, ends) (B,Tp) int32."""
+    B, Tp = counts.shape
+    gmax = counts.reshape(B, Tp // tps, tps).amax(-1, keepdim=True)
+    n = ((gmax + (V3_CHUNK - 1)) // V3_CHUNK).expand(B, Tp // tps, tps).reshape(B, Tp)
+    starts, _ = padded_windows(counts, cpt)
+    return starts, (starts + n).to(torch.int32)
+
+
+def raster_fused_groups_plain(counts, recs, image_size: int, tiles_x: int, tps: int,
+                              local: bool = False):
+    """Plain version of K9 (local=False) and K10 (local=True): every tile
+    of a group of `tps` walks chunk k = 0 .. ceil(group max count / 32) - 1
+    of its padded bin (`group_windows`), then `_fused_plain`. counts (B,Tp)
+    int32, Tp a multiple of tps; recs (B, Tp*C, 32) f32 -> as
+    `raster_fused_windows_plain`."""
+    starts, ends = group_windows(counts, recs.shape[1] // counts.shape[1] // V3_CHUNK, tps)
+    return _fused_plain(starts, ends, recs, image_size, tiles_x, local=local)
+
+
+def _launch_groups(name: str, counts, recs, image_size: int, tiles_x: int, tps: int,
+                   local: bool):
+    """Check the arguments of K9/K10 and launch the kernel -> (p2f, zbuf,
+    nx, ny, nz) (B,Tp,1024)."""
+    dev = recs.device
+    _check_cuda("counts", counts, torch.int32, 2, dev)
+    _check_cuda("recs", recs, torch.float32, 3, dev)
+    B, Tp = counts.shape
+    if (tps < 1 or Tp % tps or recs.shape[0] != B or recs.shape[2] != RECF_LANES
+            or recs.shape[1] % (Tp * V3_CHUNK)):
+        raise ValueError(f"{name}: inconsistent shapes counts {tuple(counts.shape)} "
+                         f"recs {tuple(recs.shape)} tps {tps}")
+    if recs.data_ptr() % 16:
+        raise ValueError(f"{name}: recs must be 16-byte aligned")
+    capacity = recs.shape[1] // Tp
+    outs = _fused_outputs(B, Tp, dev)
+    lib = kernels.library("raster_groups")
+    limit = lib.smirk_max_shared_optin(dev.index)
+    if limit <= 0:
+        raise RuntimeError("could not read the device's shared memory limit")
+    # tiles staged at once: each takes 4 KB of records + 8 KB of per-pixel
+    # state; a group larger than that runs in passes
+    per_pass = min(tps, limit // (V3_CHUNK * RECF_LANES * 4 + TILE_PIX * 8))
+    rc = lib.smirk_raster_fused_groups(
+        counts.data_ptr(), recs.data_ptr(), *(o.data_ptr() for o in outs),
+        B, Tp, capacity, tps, per_pass, int(local), image_size, image_size, tiles_x,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, name)
+    return outs
+
+
+def raster_fused_groups(counts, recs, image_size: int, tiles_x: int, tps: int):
+    """K9: the merged z-buffer over groups of `tps` tiles on the padded
+    layout + the winner's normals; counts (B,Tp) int32 (Tp a multiple of
+    tps), recs (B, Tp*C, 32) f32 each tile's padded bin of records (kill
+    rows past its count) -> as `raster_fused_windows_plain`, bitwise equal
+    to K1 on the padded windows.
+
+    Replaces `_raster_kernel_v6` (smirk_tpu/render/rasterizer.py). Bound on
+    H100: K1b's fp32 operations, the same z-buffer; the schedule tests tps
+    x the group's chunk count per group, more than that. Design: one block
+    per (group, image); every tile of the group steps through the same
+    chunk index up to the group's maximum, each step staging the group's
+    tps x 4 KB of records in shared memory (past 48 KB by opt-in) with the
+    per-pixel nearest depth and winner beside them. CPU tensors take the
+    plain version.
+    """
+    if recs.device.type == "cpu":
+        return raster_fused_groups_plain(counts, recs, image_size, tiles_x, tps)
+    if recs.device.type != "cuda":
+        raise ValueError(f"raster_fused_groups: unsupported device {recs.device}")
+    outs = _launch_groups("raster_fused_groups", counts, recs, image_size, tiles_x,
+                          tps, False)
+    raster_fused_groups.launches += 1
+    return outs
+
+
+raster_fused_groups.launches = 0
+
+
+def raster_fused_groups_local(counts, recs, image_size: int, tps: int):
+    """K10: K9 over tile-local records (`_tilelocal_adjust`), whose tiles
+    may come in any order (count-sorted by `rasterize_normals_fused`):
+    every tile takes the first tile's pixel centres, so the kernel never
+    needs a tile's position. -> as `raster_fused_windows_plain`, in the
+    tiles' given order.
+
+    Replaces `_raster_kernel_v6tl` (smirk_tpu/render/rasterizer.py). Bound
+    and design: K9's, the same CUDA source with the tile-local flag. CPU
+    tensors take the plain version.
+    """
+    if recs.device.type == "cpu":
+        return raster_fused_groups_plain(counts, recs, image_size, 1, tps, local=True)
+    if recs.device.type != "cuda":
+        raise ValueError(f"raster_fused_groups_local: unsupported device {recs.device}")
+    outs = _launch_groups("raster_fused_groups_local", counts, recs, image_size, 1,
+                          tps, True)
+    raster_fused_groups_local.launches += 1
+    return outs
+
+
+raster_fused_groups_local.launches = 0
+
+# RECF record lanes of the affine forms [3 edges | zplane | 9 normal-plane
+# components]: x-coefficients (a), y-coefficients (b) and constants (c)
+_RECF_A = (0, 3, 6, 9, 16, 17, 18)
+_RECF_B = (1, 4, 7, 10, 19, 20, 21)
+_RECF_C = (2, 5, 8, 11, 22, 23, 24)
+
+
+def _tilelocal_adjust(recs, tids, image_size: int, tx_tiles: int):
+    """Rebase records into tile-local pixel coordinates: every affine form
+    a*x + b*y + c becomes a*xl + b*yl + c' with c' = c + (a*dx + b*dy),
+    (dx, dy) = (2*tx*128/W, 2*ty*8/H) the NDC offset of tile t's origin.
+    Every product and sum is rounded on its own (no fused multiply-add),
+    and the divisor is a tensor (`_ndc`'s note), so that the card and the
+    CPU rebase alike. recs (B,Tp,C,32), tids (B,Tp) the tiles' positions ->
+    (B,Tp,C,32)."""
+    tyv = (tids // tx_tiles).to(recs.dtype)
+    txv = (tids % tx_tiles).to(recs.dtype)
+    size = torch.full_like(txv, float(image_size))
+    dx = (2.0 * txv * TILE_COLS / size)[:, :, None, None]  # (B,Tp,1,1)
+    dy = (2.0 * tyv * TILE_ROWS / size)[:, :, None, None]
+    ia, ib, ic = (list(g) for g in (_RECF_A, _RECF_B, _RECF_C))
+    out = recs.clone()
+    out[..., ic] = recs[..., ic] + (recs[..., ia] * dx + recs[..., ib] * dy)
+    return out
+
+
+def sorted_tiles(records, bins, counts, image_size: int):
+    """K10's inputs: the tiles ordered by descending count (stable), so that
+    each group of tps tiles is count-homogeneous and padding tiles (count
+    0) come last, and their padded bins' records rebased to tile-local
+    coordinates. records (B,F,32), bins (B,Tp,C), counts (B,Tp) -> (sorted
+    counts (B,Tp) int32, recs (B, Tp*C, 32) contiguous, inverse order
+    (B,Tp): output row inv[b, t] of the sorted raster is tile t)."""
+    B, Tp, C = bins.shape
+    order = torch.argsort(-counts, dim=1, stable=True)
+    bins = torch.gather(bins, 1, order[..., None].expand_as(bins))
+    recs = _gather_recs(records, bins.reshape(B, Tp * C)).reshape(B, Tp, C, RECF_LANES)
+    recs = _tilelocal_adjust(recs, order, image_size, -(-image_size // TILE_COLS))
+    return (torch.gather(counts, 1, order), recs.reshape(B, Tp * C, RECF_LANES).contiguous(),
+            torch.argsort(order, dim=1))
+
+
+# ---------------------------------------------------------------------------
 # Fused inference raster
 # ---------------------------------------------------------------------------
 
@@ -594,27 +827,243 @@ def rasterize_normals_fused(
     face_normals: torch.Tensor,
     image_size: int,
     capacity: int = 640,
+    *,
+    merged: bool = False,
+    tps: Optional[int] = None,
+    sort_tiles: bool = False,
     compact: Optional[int] = None,
     return_overflow: bool = False,
 ):
     """Fused inference raster -> (normal image (B,H,W,3), pix_to_face
     (B,H,W) int32, zbuf (B,H,W)[, overflow (B,) int32]).
 
-    compact: chunk budget of the compact layout (rounded up to 8); None =
-    padded layout, each tile walking its own bin. overflow counts compact
-    chunks dropped past the budget (0 on the padded layout).
+    compact: chunk budget of the compact layout (rounded up to 8; K2 + K1);
+    None = the padded layout, where each tile walks its own bin: K1 on its
+    own window, or with `merged` K9 (every tile of a group of `tps` walks
+    to the group's maximum), or with `sort_tiles` K10 (tiles count-sorted,
+    tile-local records, outputs un-permuted). compact wins over merged;
+    sort_tiles with compact raises ValueError. tps (default `MERGED_TPS`,
+    8) pads the tile axis of the merged and sorted rasters to a multiple;
+    the other layouts ignore it. overflow counts compact chunks
+    dropped past the budget (0 on the padded layout).
     """
     _check_capacity(capacity)
+    if sort_tiles and compact is not None:
+        raise ValueError(
+            "sort_tiles is incompatible with compact: the compact raster derives "
+            "each tile's pixel coordinates from its row index, so sorted bins "
+            "would be tested against the wrong pixels")
     bins, counts = bin_faces_flat(face_verts, image_size, capacity)
-    starts, ends, recs, overflow = _layout(
-        fused_records(face_verts, face_normals), bins, counts, capacity, compact)
-    outs = raster_fused_windows(starts, ends, recs, image_size,
-                                -(-image_size // TILE_COLS))
+    tx = -(-image_size // TILE_COLS)
+    records = fused_records(face_verts, face_normals)
+    tps = MERGED_TPS if tps is None else tps
+    if sort_tiles:
+        bins, counts = _pad_tiles_to(bins, counts, tps)
+        counts, recs, inv_order = sorted_tiles(records, bins, counts, image_size)
+        outs = raster_fused_groups_local(counts, recs, image_size, tps)
+        outs = [torch.gather(o, 1, inv_order[..., None].expand_as(o)) for o in outs]
+        overflow = torch.zeros((counts.shape[0],), dtype=torch.int32, device=counts.device)
+    elif merged and compact is None:
+        bins, counts = _pad_tiles_to(bins, counts, tps)
+        B, Tp = counts.shape
+        recs = _gather_recs(records, bins.reshape(B, Tp * capacity)).contiguous()
+        outs = raster_fused_groups(counts, recs, image_size, tx, tps)
+        overflow = torch.zeros((B,), dtype=torch.int32, device=counts.device)
+    else:
+        starts, ends, recs, overflow = _layout(records, bins, counts, capacity, compact)
+        outs = raster_fused_windows(starts, ends, recs, image_size, tx)
     p2f = _tiles_to_image(outs[0], image_size)
     zbuf = _tiles_to_image(outs[1], image_size)
     normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
     if return_overflow:
         return normals, p2f, zbuf, overflow
+    return normals, p2f, zbuf
+
+
+# ---------------------------------------------------------------------------
+# K11: the chunk-skip raster
+#
+# Bins fixed CH-face chunks of a spatially ordered face list instead of
+# faces: the per-tile top-k is over NC = F/CH keys, and the kernel reads
+# each binned chunk from the image's full record table, so there is no
+# record gather, no compact plan and no K2. The price is face tests: every
+# face of a binned chunk is tested even if one member overlaps the tile.
+# ---------------------------------------------------------------------------
+
+
+def spatial_face_order(vertices, faces, bits: int = 10):
+    """Static Morton (z-order) permutation of faces by template centroid
+    (numpy, host side, once per mesh), so that consecutive faces are close
+    on screen: x and y dominate, z is scaled by 0.01. -> (F,) int64
+    permutation."""
+    cent = np.asarray(vertices)[np.asarray(faces)].mean(1)
+    cent = cent - cent.min(0)
+    cent[:, 2] *= 0.01  # screen-space locality dominates
+    q = np.clip(cent / (cent.max(0) + 1e-9) * (2 ** bits - 1),
+                0, 2 ** bits - 1).astype(np.uint64)
+    key = np.zeros(len(cent), np.uint64)
+    for b in range(bits):
+        for d in range(3):
+            key |= ((q[:, d] >> np.uint64(b)) & np.uint64(1)) << np.uint64(3 * b + d)
+    return np.argsort(key, kind="stable")
+
+
+def _pad_faces_offscreen(face_verts: torch.Tensor, chunk: int):
+    """Pad F to a multiple of `chunk` with faces at NDC 4.0 (pixel ~2.5 W):
+    their bboxes miss every tile, so they bin nowhere. -> (face_verts, pad)."""
+    B, F = face_verts.shape[:2]
+    pad = (-F) % chunk
+    if pad:
+        far = face_verts.new_full((B, pad, 3, 3), 4.0)
+        face_verts = torch.cat([face_verts, far], dim=1)
+    return face_verts, pad
+
+
+def bin_chunks(face_verts: torch.Tensor, image_size: int, chunk: int, cap: int):
+    """Assign fixed `chunk`-face chunks to pixel tiles by any-member bbox
+    overlap (after the backface cull).
+
+    face_verts (B,F,3,3), F a multiple of chunk -> (clist (B,Tp,cap) int32
+    chunk ids, near-to-far, 0 past each count; counts (B,Tp) int32;
+    dropped (B,) int32 overlapping chunks past `cap`, summed over tiles).
+    An exact top-k over NC = F/chunk keys with chunk priority the least
+    priority of its members; the keys are unique, so the order is the JAX
+    package's."""
+    B, F = face_verts.shape[:2]
+    if F % chunk:
+        raise ValueError(f"{F} faces are not a multiple of the chunk {chunk}: "
+                         "pad them first (_pad_faces_offscreen)")
+    NC = F // chunk
+    overlap, prio, prio_span = _tile_overlap(face_verts, image_size)
+    T = overlap.shape[1]
+    occ = overlap.reshape(B, T, NC, chunk).any(-1)  # (B,T,NC)
+    cprio = prio.reshape(B, NC, chunk).amin(-1)  # (B,NC) near-to-far
+    k = min(cap, NC)
+    key = occ.to(torch.int32) * (prio_span + 1) - cprio[:, None, :]
+    vals, idx = torch.topk(key, k, dim=-1, largest=True, sorted=True)
+    valid = vals > 0
+    clist = torch.where(valid, idx.to(torch.int32), 0)
+    counts = valid.sum(-1, dtype=torch.int32)
+    dropped = (occ.sum(-1) - k).clamp_min(0).sum(-1).to(torch.int32)
+    if k < cap:
+        clist = torch.cat([clist, clist.new_zeros((B, T, cap - k))], dim=-1)
+    Tp = -(-T // 8) * 8
+    if Tp != T:
+        clist = torch.cat([clist, clist.new_zeros((B, Tp - T, cap))], dim=1)
+        counts = torch.cat([counts, counts.new_zeros((B, Tp - T))], dim=1)
+    return clist, counts, dropped
+
+
+CHUNKSKIP_CHUNKS = (4, 8, 16, 32)  # the chunk sizes K11 takes
+
+
+def raster_chunkskip_plain(counts, clist, recs, image_size: int, tiles_x: int,
+                           chunk: int):
+    """Plain version of K11: tile t walks the chunk ids clist[b, t,
+    :counts[b, t]] in order, each the `chunk` consecutive records at row
+    cid*chunk of its image's table recs (B,F,32); `_fused_plain`'s rule and
+    outputs. -> as `raster_fused_windows_plain`."""
+    zeros = torch.zeros_like(counts)
+    return _fused_plain(zeros, counts, recs, image_size, tiles_x, clist=clist,
+                        chunk=chunk)
+
+
+def raster_chunkskip(counts, clist, recs, image_size: int, tiles_x: int, chunk: int):
+    """K11: per-tile z-buffer over a list of chunk ids into the image's full
+    record table + the winner's normals; counts (B,Tp) int32, clist
+    (B,Tp,cap) int32, recs (B,F,32) f32 with F a multiple of chunk ->
+    as `raster_fused_windows_plain`.
+
+    Replaces `_raster_kernel_v8` (smirk_tpu/render/rasterizer.py). Bound on
+    H100: K1's fp32 operations, the same z-buffer; the schedule tests count
+    x chunk faces per tile, more than that. Design: K1's, one block per
+    (tile, image), 256 threads x 4 pixels, the records read straight from
+    the full table (~436 KB per image at F = 3408, held in L2 across the
+    image's tiles), 32 faces of consecutive chunks staged in shared memory
+    per step. CPU tensors take the plain version.
+    """
+    if recs.device.type == "cpu":
+        return raster_chunkskip_plain(counts, clist, recs, image_size, tiles_x, chunk)
+    if recs.device.type != "cuda":
+        raise ValueError(f"raster_chunkskip: unsupported device {recs.device}")
+    dev = recs.device
+    _check_cuda("counts", counts, torch.int32, 2, dev)
+    _check_cuda("clist", clist, torch.int32, 3, dev)
+    _check_cuda("recs", recs, torch.float32, 3, dev)
+    B, Tp = counts.shape
+    if (chunk not in CHUNKSKIP_CHUNKS or tuple(clist.shape[:2]) != (B, Tp)
+            or recs.shape[0] != B or recs.shape[2] != RECF_LANES
+            or recs.shape[1] % chunk):
+        raise ValueError("raster_chunkskip: inconsistent shapes "
+                         f"counts {tuple(counts.shape)} clist {tuple(clist.shape)} "
+                         f"recs {tuple(recs.shape)} chunk {chunk} (one of "
+                         f"{CHUNKSKIP_CHUNKS})")
+    if recs.data_ptr() % 16:
+        raise ValueError("raster_chunkskip: recs must be 16-byte aligned")
+    outs = _fused_outputs(B, Tp, dev)
+    lib = kernels.library("raster_chunkskip")
+    rc = lib.smirk_raster_chunkskip(
+        counts.data_ptr(), clist.data_ptr(), recs.data_ptr(),
+        *(o.data_ptr() for o in outs), B, Tp, clist.shape[2], recs.shape[1], chunk,
+        image_size, image_size, tiles_x, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "raster_chunkskip")
+    raster_chunkskip.launches += 1
+    return outs
+
+
+raster_chunkskip.launches = 0
+
+
+def chunkskip_inputs(face_verts, face_normals, image_size: int, chunk: int, cap: int,
+                     face_ids=None):
+    """K11's inputs: F padded to a multiple of `chunk` with off-screen faces
+    of id -1 (zero normals), the records with lane 12 the face ids
+    (default the face index), and `bin_chunks`. -> (counts (B,Tp), clist
+    (B,Tp,cap), records (B,F_pad,32) contiguous, dropped (B,))."""
+    B, F0 = face_verts.shape[:2]
+    fv, pad = _pad_faces_offscreen(face_verts, chunk)
+    fn = face_normals
+    if pad:
+        fn = torch.cat([fn, fn.new_zeros((B, pad, 3, 3))], dim=1)
+    if face_ids is None:
+        ids = torch.arange(F0, dtype=fv.dtype, device=fv.device)
+    else:
+        ids = torch.as_tensor(face_ids, device=fv.device).to(fv.dtype)
+    records = face_records_shaded(fv, fn)
+    records[..., 12] = torch.cat([ids, ids.new_full((pad,), -1.0)])[None]
+    clist, counts, dropped = bin_chunks(fv, image_size, chunk, cap)
+    return counts, clist, records.contiguous(), dropped
+
+
+def rasterize_normals_chunkskip(
+    face_verts: torch.Tensor,
+    face_normals: torch.Tensor,
+    image_size: int,
+    chunk: int = 8,
+    cap: int = 128,
+    *,
+    return_overflow: bool = False,
+    face_ids: Optional[torch.Tensor] = None,
+):
+    """Chunk-skip fused inference raster -> (normals (B,H,W,3), pix_to_face
+    (B,H,W) int32, zbuf (B,H,W)[, dropped (B,) int32]), the output contract
+    of `rasterize_normals_fused`: `bin_chunks`, then K11 over the full
+    record table. F is padded to a multiple of `chunk` with off-screen
+    faces of id -1. face_ids (F,) are the ids written to pix_to_face (the
+    original ids of a `spatial_face_order`-permuted input); default the
+    face index. dropped counts overlapping chunks past `cap`. Ties between
+    chunks go to the nearer chunk, so they may resolve to another (equally
+    near) face than the face-binned rasters."""
+    counts, clist, records, dropped = chunkskip_inputs(
+        face_verts, face_normals, image_size, chunk, cap, face_ids)
+    outs = raster_chunkskip(counts, clist, records, image_size,
+                            -(-image_size // TILE_COLS), chunk)
+    p2f = _tiles_to_image(outs[0], image_size)
+    zbuf = _tiles_to_image(outs[1], image_size)
+    normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
+    if return_overflow:
+        return normals, p2f, zbuf, dropped
     return normals, p2f, zbuf
 
 
@@ -1087,7 +1536,8 @@ raster_bins_coverage.launches = 0
 
 KERNELS = (compact_faces, raster_fused_windows, raster_planes_windows,
            segment_moments, fold_slots_to_faces, raster_coverage_windows,
-           segment_reduce_tiles, raster_bins_coverage)
+           segment_reduce_tiles, raster_bins_coverage, raster_fused_groups,
+           raster_fused_groups_local, raster_chunkskip)
 
 
 def _v5_impl(face_verts, attributes, image_size: int, capacity: int,

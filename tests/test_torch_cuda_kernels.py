@@ -251,3 +251,69 @@ def test_rasterize_wide_attributes_on_the_card(card):
     _, kc_fv, _, kc_at = R.dense_gradient_and_scale(pc, fv.cpu(), attrs.cpu(), w.cpu())
     for a, b, sc in ((d_fv, dc_fv, kc_fv), (d_at, dc_at, kc_at)):
         assert ((a.cpu().double() - b.double()).abs() <= 1e-4 * sc + 1e-30).all()
+
+
+@pytest.mark.parametrize("size,B,cap,tps", [(64, 2, 96, 8), (224, 3, 384, 8),
+                                            (224, 2, 384, 16), (224, 1, 384, 24)])
+def test_group_kernels_match_plain(card, size, B, cap, tps):
+    """K9 bitwise equal to its plain version and to K1 on the padded
+    windows (tps 16 takes 192 KB of shared memory by opt-in, tps 24 runs
+    in passes); K10 bitwise equal to its plain version on count-sorted
+    tile-local records."""
+    fv, fn = _face_region(card, B, size, 5)
+    TX = -(-size // R.TILE_COLS)
+    bins, counts = R.bin_faces_flat(fv, size, cap)
+    bins, counts = R._pad_tiles_to(bins, counts, tps)
+    recs = R._gather_recs(R.fused_records(fv, fn), bins.reshape(B, -1)).contiguous()
+    R.reset_launch_counts()
+    k9 = R.raster_fused_groups(counts, recs, size, TX, tps)
+    ps, pe = R.padded_windows(counts, cap // R.V3_CHUNK)
+    k1b = R.raster_fused_windows(ps, pe, recs, size, TX)
+    for a, b, c in zip(k9, R.raster_fused_groups_plain(counts, recs, size, TX, tps), k1b):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    sc, srecs, _ = R.sorted_tiles(R.fused_records(fv, fn), bins, counts, size)
+    k10 = R.raster_fused_groups_local(sc, srecs, size, tps)
+    for a, b in zip(k10, R.raster_fused_groups_plain(sc, srecs, size, TX, tps, local=True)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert (R.raster_fused_groups.launches, R.raster_fused_groups_local.launches) == (1, 1)
+    assert float((k9[0] >= 0).float().mean()) > 0.02
+
+
+@pytest.mark.parametrize("size,B,chunk,cap", [(64, 2, 4, 64), (224, 3, 8, 128),
+                                              (224, 2, 16, 96), (224, 2, 32, 64),
+                                              (224, 1, 8, 4)])
+def test_chunkskip_kernel_matches_plain(card, size, B, chunk, cap):
+    """K11 bitwise equal to its plain version on a Morton-permuted face
+    list with the original ids, at each chunk size and a truncated cap."""
+    fv, fn = _face_region(card, B, size, 6)
+    bundle = procedural_bundle(seed=2, full_size=True)
+    r = Renderer(bundle, image_size=size, device="cpu")
+    perm = R.spatial_face_order(np.asarray(bundle["v_template"])[r.kept_vertices],
+                                r.faces.numpy())
+    counts, clist, recs, dropped = R.chunkskip_inputs(fv[:, perm], fn[:, perm], size,
+                                                      chunk, cap, perm)
+    TX = -(-size // R.TILE_COLS)
+    R.reset_launch_counts()
+    got = R.raster_chunkskip(counts, clist, recs, size, TX, chunk)
+    for a, b in zip(got, R.raster_chunkskip_plain(counts, clist, recs, size, TX, chunk)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert R.raster_chunkskip.launches == 1
+    assert int(got[0].max()) < fv.shape[1]
+    if cap == 4:
+        assert int(dropped.min()) > 0
+
+
+def test_schedule_wrappers_reject_bad_arguments(card):
+    counts = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    recs = torch.zeros((1, 8 * 32, 32), device=card)
+    with pytest.raises(ValueError):
+        R.raster_fused_groups(counts, recs, 64, 1, 3)  # 8 tiles not a multiple of 3
+    with pytest.raises(TypeError):
+        R.raster_fused_groups_local(counts.float(), recs, 64, 8)
+    clist = torch.zeros((1, 8, 4), dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        R.raster_chunkskip(counts, clist, recs, 64, 1, 6)  # chunk not in 4, 8, 16, 32
+    with pytest.raises(ValueError):
+        R.raster_chunkskip(counts, clist, recs[:, :250].contiguous(), 64, 1, 8)
