@@ -10,17 +10,22 @@ Phases (any failure exits non-zero):
  1. the device: name, count, and `nvidia-smi` name + power limit;
  2. build the CUDA kernels from csrc/ with nvcc (one process per source,
     all at once) and print ptxas's registers / shared memory / spills;
- 3. K2 compact_faces vs its plain PyTorch version at the main path's
-    shapes: bitwise equal;
- 4. K1 raster_fused_windows on the compact layout and on the padded layout
-    (K1b) vs the plain version: pix_to_face, zbuf and normals bitwise
-    equal; compact == padded when nothing overflows; a truncated budget
-    (24 chunks) overflows and renders its trailing tiles empty;
- 4b. K3 raster_planes_windows (the differentiable raster's forward) on the
-    compact and padded (K3b) layouts vs its plain version at the training
-    shapes (b32): pix_to_face, zbuf, slot and the 3 value planes bitwise
-    equal; a truncated budget (24 chunks) gives the plan's overflow and
-    renders the clipped tiles empty with slot -1;
+ 3. K2's contract through the read-through path: K1 (b64) and K3 (b32)
+    take each tile's kept chunk count, the bins and the record table
+    (`_windows`), and at the default budget and at a budget of 8 chunks
+    their renders equal, bitwise, the plain renders over the packed route
+    the TPU takes (`_compact_plan` + `compact_faces_plain` + a record
+    gather, `packed_layout_plain`), with equal overflow;
+ 4. K1 raster_fused_windows on the compact and padded (K1b) layouts vs its
+    plain version: pix_to_face, zbuf and normals bitwise equal; compact ==
+    padded when nothing overflows; a truncated budget (24 chunks) overflows
+    and renders its trailing tiles empty;
+ 4b. K3 raster_planes_windows (the differentiable raster's forward, with
+    the warp bounding-box cull) on the compact and padded (K3b) layouts vs
+    its plain version, which tests every face, at the training shapes
+    (b32): pix_to_face, zbuf, slot and the 3 value planes bitwise equal; a
+    truncated budget (24 chunks) gives the plan's overflow and renders the
+    clipped tiles empty with slot -1;
  4c. K4 segment_moments and K5 fold_slots_to_faces vs their plain versions:
     every element within 1e-5 x the sum of the magnitudes of its terms;
  4d. the raster gradient (K3 -> K4 -> K5 -> attr_planes) at b4 against a
@@ -54,8 +59,8 @@ Phases (any failure exits non-zero):
     MobileNetV3-minimal encoders, FLAME with 300 shape / 50 expression
     components on the full-size procedural head, batch 64, 224 px), random
     init, with the face recentred as bench.py's cam_fix does: coverage
-    > 5 %, raster_overflow == 0, every output finite, the kernels'
-    launch counters rose; then the padded layout's path
+    > 5 %, raster_overflow == 0, every output finite, K1's launch counter
+    rose (K2 has no kernel left); then the padded layout's path
     (raster_compact=0); then the card's outputs against the port's plain
     CPU path on a small input;
  5b. the training path through `SmirkSystem.train_step` at full width (the
@@ -63,9 +68,9 @@ Phases (any failure exits non-zero):
     mask ratio 0.01, dilation 10, Ke 1; teachers absent), b32, 224 px,
     fp32, bench.py's synthetic batch: 3 steps of each parity with finite
     metrics, zero raster overflow on both paths, the expression encoder
-    and the generator moved, the pose and shape encoders not, and K1-K5's
-    launch counters rose; then one step of each parity on the padded layout
-    (K3b);
+    and the generator moved, the pose and shape encoders not, and every
+    step of each parity launched K1 (the cycle path's render), K3, K4 and
+    K5; then one step of each parity on the padded layout (K1b, K3b);
  5c. the op path through `smirk_tpu_torch.ops` at full width: FLAME from
     seeded parameters (300 shape / 50 expression components) on the
     recentred procedural head, its face region at b32, 224 px;
@@ -87,18 +92,24 @@ Phases (any failure exits non-zero):
     default compact render by the tie rule;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events each kernel, its plain version, its library yardstick where
-    there is one (K2: one advanced-index gather; K4 and K7: one
-    scatter_add_ of prebuilt rows; K5: one index_add_), the op path's
-    forward and backward, the whole calls of the five inference rasters
-    (compact, padded, merged, sort_tiles, chunk-skip), the stages of infer
-    and of
+    there is one (K2's function: one advanced-index gather; K4 and K7: one
+    scatter_add_ of prebuilt rows; K5: one index_add_), the kept counts
+    that stand where K2 stood, K1 at b32 on the cycle path's faces, the op
+    path's forward and backward, the whole calls of the five inference
+    rasters (compact, padded, merged, sort_tiles, chunk-skip), the stages
+    of infer (and K3 with its inputs, the training raster's forward) and of
     one train step, a torch.profiler trace of one train step per parity
     (device time by kernel class, busy share) and its convolution FLOPs;
     on the host clock the median and spread of 5 windows of 50 infer calls
     (ms/batch, images/s), of 3 windows of 20 Predictor calls and of 3
     windows of 5 train steps per parity; occupied chunks vs the budget;
  7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
-    K9, K10, K11);
+    K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches),
+    with K1's and K3's bounds (K9-K11 take K1's) counted from this run's
+    inputs as the work their function needs (the face-pixel pairs in the
+    faces' boxes, the binned records read once), the count of every slot
+    against every pixel and the face-warp tests K3's cull keeps printed
+    beside them;
  8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
@@ -234,6 +245,62 @@ def raster_bound(win, n_tiles, n_out, n_planes, B, Tp, lanes=32):
     return bound(ops, nbytes)
 
 
+def culled_work(kept, bins, raw, image_size, boxes=None):
+    """The work of a read-through raster (K1, K3) on these inputs, counted
+    on the host from the inputs (no device counter) -> dict: chunk_steps
+    (sum of kept), box_pairs ((face, pixel) pairs of a walked face and a
+    pixel of its tile whose centre lies in the face's bounding box `raw`),
+    binned_faces (distinct faces in the walked chunks, summed over images)
+    and, given K3's cull boxes `boxes`, warp_tests_all (32 x chunk steps x
+    8 warps: every face slot for every warp, the unculled walk) and
+    warp_tests_kept (face-warp tests the cull keeps: a real face whose cull
+    box widened by one pixel meets the warp's 16x8 rectangle)."""
+    import torch
+    from smirk_tpu_torch.render import rasterizer as R
+
+    B, Tp, C = bins.shape
+    F = raw.shape[1]
+    dev = bins.device
+    _, tx = R._tile_grid(image_size)
+    real = (torch.arange(C, device=dev) < kept[..., None] * R.V3_CHUNK) & (bins >= 0)
+    ids = bins.clamp_min(0).long()
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    t = torch.arange(Tp, device=dev)
+    c0 = ((t % tx) * R.TILE_COLS).float()[None, :, None]  # (1,Tp,1)
+    r0 = ((t // tx) * R.TILE_ROWS).float()[None, :, None]
+    rb = raw[bidx, ids]  # (B,Tp,C,4)
+    ncol = (torch.minimum(rb[..., 1].floor(), c0 + R.TILE_COLS - 1)
+            - torch.maximum(rb[..., 0].ceil(), c0) + 1).clamp_min(0)
+    nrow = (torch.minimum(rb[..., 3].floor(), r0 + R.TILE_ROWS - 1)
+            - torch.maximum(rb[..., 2].ceil(), r0) + 1).clamp_min(0)
+    seen = torch.zeros((B, F + 1), device=dev)
+    seen.scatter_(1, torch.where(real, ids, F).reshape(B, -1), 1.0)
+    steps = int(kept.sum())
+    work = {"chunk_steps": steps, "box_pairs": int((ncol * nrow)[real].sum()),
+            "binned_faces": int(seen[:, :F].sum())}
+    if boxes is not None:
+        wc0 = c0[..., None] + 16.0 * torch.arange(8, device=dev)  # (1,Tp,1,8)
+        bb = boxes[bidx, ids][..., None]  # (B,Tp,C,4,1)
+        meet = ~((bb[..., 1, :] + 1 < wc0) | (bb[..., 0, :] - 1 > wc0 + 15)
+                 | (bb[..., 3, :] + 1 < r0[..., None]) | (bb[..., 2, :] - 1 > r0[..., None] + 7))
+        work["warp_tests_all"] = steps * R.V3_CHUNK * 8
+        work["warp_tests_kept"] = int((meet & real[..., None]).sum())
+    return work
+
+
+def culled_bound(work, n_tiles, n_out, n_planes, rec_bytes=128,
+                 ops_per_pair=OPS_PER_FACE_PIXEL):
+    """(bound ms, bound_by) of a binned raster's function on these inputs:
+    ops_per_pair operations per (face, pixel) pair whose pixel centre lies
+    in the face's bounding box, + 4 per value plane per pixel, against the
+    bytes read once (the rec_bytes of each binned face, the walked chunks'
+    bin ids, one count per tile) and the n_out outputs written once."""
+    ops = work["box_pairs"] * ops_per_pair + n_tiles * 1024 * 4 * n_planes
+    nbytes = (work["binned_faces"] * rec_bytes + work["chunk_steps"] * 32 * 4
+              + n_tiles * 4 + n_out * n_tiles * 1024 * 4)
+    return bound(ops, nbytes)
+
+
 def tie_mismatches(p2f_a, p2f_b, zb_a, zb_b, fv, size):
     """tests/test_torch_raster.py's check_p2f_zbuf on the card: pix_to_face
     equal except at pixels where an edge of one of the two candidate faces
@@ -301,7 +368,7 @@ def train_batch(B, S, seed):
 
 # kernel-name fragments -> class, first match wins (for the train profile)
 KERNEL_CLASSES = (
-    ("port kernels K1-K11", ("raster_fused", "compact_faces", "raster_planes",
+    ("port kernels K1, K3-K11", ("raster_fused", "raster_planes",
                              "segment_moments", "fold_faces", "raster_coverage",
                              "segment_reduce", "raster_bins", "raster_groups",
                              "raster_chunkskip")),
@@ -414,8 +481,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    TRAIN_KERNELS = (R.compact_faces, R.raster_fused_windows, R.raster_planes_windows,
-                     R.segment_moments, R.fold_slots_to_faces)
+    TRAIN_KERNELS = (R.raster_fused_windows, R.raster_planes_windows, R.segment_moments,
+                     R.fold_slots_to_faces)
 
     # ---------------- 1. device ----------------
     torch.backends.cudnn.allow_tf32 = False
@@ -471,49 +538,69 @@ def main(argv=None) -> int:
         Tp = bins.shape[1]
         records = R.fused_records(face_verts, face_normals)
         budget = -(-renderer.raster_compact // 8) * 8
-        starts, ends, tof, total, dropped = R._compact_plan(counts, budget)
-        bins3 = bins.reshape(B, Tp * CPT, R.V3_CHUNK)
+        kept, dropped = R._windows(counts, budget)
+        kept_p, _ = R._windows(counts, None)
+        # K3 at the training shapes: the first TRAIN_B images
+        BT = min(B, TRAIN_B)
+        D = 3
+        fvt, fnt = face_verts[:BT], face_normals[:BT]
+        bins_t, counts_t = R.bin_faces_flat(fvt, S, cap)
+        prec = R.planes_records(fvt, fnt)
+        boxes_t = R.cull_boxes(fvt, S)  # as K3 computes them in its staging
+        raw_t = torch.stack(R._bbox_and_priority(fvt, S)[:4], -1)
+        FIVE = ("p2f", "zbuf", "nx", "ny", "nz")
+        K3_OUT = ("p2f", "zbuf", "slot", "vals")
 
-        # ---------------- 3. K2 ----------------
-        log(f"[3] K2 compact_faces at B={B} Tp={Tp} cpt={CPT} budget={budget}")
-        k2 = R.compact_faces(tof, starts, total, bins3, CPT)
-        k2_plain = R.compact_faces_plain(tof, starts, total, bins3, CPT)
-        torch.cuda.synchronize()
-        check(torch.equal(k2, k2_plain), "K2 == plain (bitwise)")
-        k2_err = int((k2 - k2_plain).abs().max())
+        # ---------------- 3. K2's contract through the read-through path ----------------
+        log(f"[3] K2's contract: K1 at B={B} and K3 at B={BT} reading the bins through, "
+            f"against the packed route (plan + compact_faces_plain + gather), budgets "
+            f"{budget} and 8")
+        k2_err = 0.0
+        for bud in (budget, 8):
+            kb, ob = R._windows(counts, bud)
+            s_, e_, recs_, ovf_ = R.packed_layout_plain(records, bins, counts, bud)
+            check(torch.equal(ob, ovf_), f"overflow at budget {bud} == the plan's "
+                  f"(max {int(ob.max())})")
+            got = R.raster_fused_windows(kb, bins, records, S, TX)
+            want = R._fused_plain(s_, e_, recs_, S, TX)
+            kb3, ob3 = R._windows(counts_t, bud)
+            s3_, e3_, recs3_, ovf3_ = R.packed_layout_plain(prec, bins_t, counts_t, bud)
+            check(torch.equal(ob3, ovf3_), f"K3 inputs: overflow at budget {bud} == the plan's")
+            got3 = R.raster_planes_windows(kb3, bins_t, prec, fvt, S, TX, D)
+            want3 = R._planes_plain(s3_, e3_, recs3_, S, TX, D)
+            torch.cuda.synchronize()
+            for nm, a, b in (*zip(FIVE, got, want), *zip(K3_OUT, got3, want3)):
+                check(torch.equal(a, b), f"budget {bud}: read-through {nm} == the packed "
+                      "route's (bitwise)")
+                k2_err = max(k2_err, float((a.double() - b.double()).abs().max()))
+        check(int(ob.min()) > 0 and int(ob3.min()) > 0, "budget 8 drops chunks in every image")
 
         # ---------------- 4. K1 / K1b ----------------
         log("[4] K1 raster_fused_windows, compact and padded layouts")
-        recs_c = R._gather_recs(records, k2.reshape(B, budget * R.V3_CHUNK)).contiguous()
-        k1 = R.raster_fused_windows(starts, ends, recs_c, S, TX)
-        k1_plain = R.raster_fused_windows_plain(starts, ends, recs_c, S, TX)
+        k1 = R.raster_fused_windows(kept, bins, records, S, TX)
+        k1_plain = R.raster_fused_windows_plain(kept, bins, records, S, TX)
         torch.cuda.synchronize()
         k1_err = 0.0
-        for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), k1, k1_plain):
+        for nm, a, b in zip(FIVE, k1, k1_plain):
             check(torch.equal(a, b), f"K1 {nm} == plain (bitwise)")
             k1_err = max(k1_err, float((a.double() - b.double()).abs().max()))
-        ps, pe = R.padded_windows(counts, CPT)
-        recs_p = R._gather_recs(records, bins.reshape(B, Tp * cap)).contiguous()
-        k1b = R.raster_fused_windows(ps, pe, recs_p, S, TX)
-        k1b_plain = R.raster_fused_windows_plain(ps, pe, recs_p, S, TX)
+        k1b = R.raster_fused_windows(kept_p, bins, records, S, TX)
+        k1b_plain = R.raster_fused_windows_plain(kept_p, bins, records, S, TX)
         torch.cuda.synchronize()
         k1b_err = 0.0
-        for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), k1b, k1b_plain):
+        for nm, a, b in zip(FIVE, k1b, k1b_plain):
             check(torch.equal(a, b), f"K1b (padded) {nm} == plain (bitwise)")
             k1b_err = max(k1b_err, float((a.double() - b.double()).abs().max()))
         check(int(dropped.max()) == 0, f"no overflow at the budget {budget}")
-        for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), k1, k1b):
+        check(torch.equal(kept, kept_p), "compact and padded layouts keep the same chunks")
+        for nm, a, b in zip(FIVE, k1, k1b):
             check(torch.equal(a, b), f"compact {nm} == padded {nm}")
         # truncated budget: overflow from the plan, trailing tiles empty
         tb = 24
-        ts, te, ttof, ttot, tdrop = R._compact_plan(counts, tb)
-        tk2 = R.compact_faces(ttof, ts, ttot, bins3, CPT)
-        check(torch.equal(tk2, R.compact_faces_plain(ttof, ts, ttot, bins3, CPT)),
-              f"K2 == plain at budget {tb}")
-        trecs = R._gather_recs(records, tk2.reshape(B, tb * R.V3_CHUNK)).contiguous()
-        tk1 = R.raster_fused_windows(ts, te, trecs, S, TX)
-        tk1_plain = R.raster_fused_windows_plain(ts, te, trecs, S, TX)
-        for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), tk1, tk1_plain):
+        tkept, tdrop = R._windows(counts, tb)
+        tk1 = R.raster_fused_windows(tkept, bins, records, S, TX)
+        tk1_plain = R.raster_fused_windows_plain(tkept, bins, records, S, TX)
+        for nm, a, b in zip(FIVE, tk1, tk1_plain):
             check(torch.equal(a, b), f"K1 {nm} == plain at budget {tb}")
         occupied = ((counts + 31) // 32).sum(1)
         check(torch.equal(tdrop, (occupied - tb).clamp_min(0).to(torch.int32))
@@ -523,61 +610,53 @@ def main(argv=None) -> int:
             face_verts, face_normals, S, capacity=cap, compact=tb,
             return_overflow=True)
         check(torch.equal(ovf, tdrop), "rasterize_normals_fused overflow == plan's")
-        empty = (te - ts) == 0  # tiles clipped past the budget
+        empty = tkept == 0  # tiles clipped past the budget
         check(bool((tk1[0][empty] == -1).all()) and bool(empty.any()),
               f"{int(empty.sum())} clipped tiles render empty")
-        keep = ~empty
-        check(torch.equal(tk1[0][keep & (te == ends)], k1[0][keep & (te == ends)]),
+        intact = tkept == kept
+        check(torch.equal(tk1[0][intact], k1[0][intact]),
               "tiles inside the truncated budget equal the full render")
 
     # ---------------- 4b. K3 / K3b at the training shapes ----------------
-    BT = min(B, TRAIN_B)
-    D = 3
     dev = face_verts.device
     F_render = int(renderer.faces.shape[0])
-    log(f"[4b] K3 raster_planes_windows at B={BT}, compact and padded layouts")
+    log(f"[4b] K3 raster_planes_windows (bins read through, warp cull) at B={BT}, "
+        "compact and padded layouts")
     with torch.inference_mode():
-        fvt, fnt = face_verts[:BT], face_normals[:BT]
-        bins_t, counts_t = R.bin_faces_flat(fvt, S, cap)
-        prec = R.planes_records(fvt, fnt)
-        bins3_t = bins_t.reshape(BT, Tp * CPT, R.V3_CHUNK)
-        s3, e3, tof3, tot3, drop3 = R._compact_plan(counts_t, budget)
-        f3 = R.compact_faces(tof3, s3, tot3, bins3_t, CPT)
-        recs3 = R._gather_recs(prec, f3.reshape(BT, budget * R.V3_CHUNK)).contiguous()
-        k3 = R.raster_planes_windows(s3, e3, recs3, S, TX, D)
-        k3_plain = R.raster_planes_windows_plain(s3, e3, recs3, S, TX, D)
+        kept3, drop3 = R._windows(counts_t, budget)
+        kept3p, _ = R._windows(counts_t, None)
+        k3 = R.raster_planes_windows(kept3, bins_t, prec, fvt, S, TX, D)
+        k3_plain = R.raster_planes_windows_plain(kept3, bins_t, prec, S, TX, D)
         torch.cuda.synchronize()
-        K3_OUT = ("p2f", "zbuf", "slot", "vals")
         k3_err = 0.0
         for nm, a, b in zip(K3_OUT, k3, k3_plain):
-            check(torch.equal(a, b), f"K3 {nm} == plain (bitwise)")
+            check(torch.equal(a, b), f"culled K3 {nm} == plain, every face tested (bitwise)")
             k3_err = max(k3_err, float((a.double() - b.double()).abs().max()))
-        ps3, pe3 = R.padded_windows(counts_t, CPT)
-        recs3p = R._gather_recs(prec, bins_t.reshape(BT, Tp * cap)).contiguous()
-        k3b = R.raster_planes_windows(ps3, pe3, recs3p, S, TX, D)
-        k3b_plain = R.raster_planes_windows_plain(ps3, pe3, recs3p, S, TX, D)
+        k3b = R.raster_planes_windows(kept3p, bins_t, prec, fvt, S, TX, D)
+        k3b_plain = R.raster_planes_windows_plain(kept3p, bins_t, prec, S, TX, D)
         torch.cuda.synchronize()
         k3b_err = 0.0
         for nm, a, b in zip(K3_OUT, k3b, k3b_plain):
-            check(torch.equal(a, b), f"K3b (padded) {nm} == plain (bitwise)")
+            check(torch.equal(a, b), f"culled K3b (padded) {nm} == plain (bitwise)")
             k3b_err = max(k3b_err, float((a.double() - b.double()).abs().max()))
         check(int(drop3.max()) == 0, f"no overflow at the budget {budget}")
         for nm, a, b in zip(K3_OUT, k3, k3b):
             check(torch.equal(a, b), f"K3 compact {nm} == padded {nm}")
         check(bool((k3[2] < cap).all()) and int(k3[2].max()) >= 0,
               "slots are per-tile indices into the bins")
-        ts3, te3, ttof3, ttot3, tdrop3 = R._compact_plan(counts_t, tb)
-        tf3 = R.compact_faces(ttof3, ts3, ttot3, bins3_t, CPT)
-        trecs3 = R._gather_recs(prec, tf3.reshape(BT, tb * R.V3_CHUNK)).contiguous()
-        tk3 = R.raster_planes_windows(ts3, te3, trecs3, S, TX, D)
-        tk3_plain = R.raster_planes_windows_plain(ts3, te3, trecs3, S, TX, D)
+        unbounded = int(torch.isinf(boxes_t[..., 0]).sum())
+        log(f"    cull boxes: {unbounded} of {boxes_t.shape[0] * boxes_t.shape[1]} faces too "
+            "thin to cull (unbounded)")
+        tkept3, tdrop3 = R._windows(counts_t, tb)
+        tk3 = R.raster_planes_windows(tkept3, bins_t, prec, fvt, S, TX, D)
+        tk3_plain = R.raster_planes_windows_plain(tkept3, bins_t, prec, S, TX, D)
         for nm, a, b in zip(K3_OUT, tk3, tk3_plain):
             check(torch.equal(a, b), f"K3 {nm} == plain at budget {tb}")
         _, _, _, ovf3 = R.rasterize_planes_diff(fvt, fnt, S, cap, tb)
         check(torch.equal(ovf3, tdrop3) and int(tdrop3.min()) > 0,
               f"rasterize_planes_diff overflow at budget {tb} == the plan's "
               f"(min {int(tdrop3.min())}, max {int(tdrop3.max())})")
-        empty3 = (te3 - ts3) == 0
+        empty3 = tkept3 == 0
         check(bool(empty3.any()) and bool((tk3[0][empty3] == -1).all())
               and bool((tk3[2][empty3] == -1).all()),
               f"{int(empty3.sum())} clipped tiles render empty with slot -1")
@@ -611,9 +690,9 @@ def main(argv=None) -> int:
                      generator=torch.Generator(device=dev).manual_seed(1))
     d_fv, d_fn = torch.autograd.grad((vals4 * w4).sum(), (fv4, fn4))
     torch.cuda.synchronize()
-    check(all(k.launches == 1 for k in (R.compact_faces, R.raster_planes_windows,
-                                        R.segment_moments, R.fold_slots_to_faces)),
-          "one forward + backward launched K2, K3, K4 and K5 once each")
+    check(all(k.launches == 1 for k in (R.raster_planes_windows, R.segment_moments,
+                                        R.fold_slots_to_faces)),
+          "one forward + backward launched K3, K4 and K5 once each")
     ref_fv, sc_fv, ref_fn, sc_fn = R.dense_gradient_and_scale(
         p2f4, fv4.detach(), fn4.detach(), w4)
     grad_ratio = max(within(d_fv, ref_fv, sc_fv, "d face_verts vs dense", GRAD_RTOL)[0],
@@ -634,16 +713,17 @@ def main(argv=None) -> int:
         crec = R.coverage_records(fvt)
         k6, k6_err = {}, 0.0
         for c6 in (512, cap):
-            b6, n6 = R.bin_faces(fvt, S, c6)
-            s6, e6, r6, _ = R._layout(crec, b6, n6, c6, None)
+            b6, n6 = R.bin_faces_flat(fvt, S, c6)
+            s6, e6 = R.padded_windows(n6, c6 // R.V3_CHUNK)
+            r6 = R._gather_recs(crec, b6.reshape(BT, -1)).contiguous()
             out6 = R.raster_coverage_windows(s6, e6, r6, S, TX)
             plain6 = R.raster_coverage_windows_plain(s6, e6, r6, S, TX)
             torch.cuda.synchronize()
             for nm, a, b in zip(("p2f", "zbuf", "slot"), out6, plain6):
                 check(torch.equal(a, b), f"K6 {nm} == plain at capacity {c6} (bitwise)")
                 k6_err = max(k6_err, float((a.double() - b.double()).abs().max()))
-            _, _, r63, _ = R._layout(prec, b6, n6, c6, None)
-            k3c = R.raster_planes_windows(s6, e6, r63, S, TX, D)
+            k3c = R.raster_planes_windows(R._windows(n6, None)[0], b6, prec, fvt, S, TX,
+                                          D)
             for nm, a, b in zip(("p2f", "zbuf", "slot"), out6, k3c):
                 check(torch.equal(a, b), f"K6 {nm} == K3's on the same bins at capacity {c6}")
             k6[c6] = (b6, n6, s6, e6, r6, out6)
@@ -787,11 +867,10 @@ def main(argv=None) -> int:
     log(f"[5] main path: Predictor -> SmirkSystem.infer at b{B}, {S} px, fp32")
     R.reset_launch_counts()
     out = pred(images)
-    launches = {"compact_faces": R.compact_faces.launches,
-                "raster_fused_windows": R.raster_fused_windows.launches}
+    launches = {k.__name__: k.launches for k in R.KERNELS}
     log(f"    launches on the main path: {launches}")
-    check(launches["compact_faces"] > 0 and launches["raster_fused_windows"] > 0,
-          "the main path went through K1 and K2")
+    check(launches["raster_fused_windows"] > 0 and not hasattr(R, "compact_faces"),
+          "the main path went through K1, K2's packing folded into its staging")
     coverage = float(out["rendered_mask"].mean())
     check(coverage > 0.05, f"coverage {coverage:.4f} > 0.05")
     check(int(out["raster_overflow"].max()) == 0, "raster_overflow == 0")
@@ -805,11 +884,9 @@ def main(argv=None) -> int:
     pred_pad.system.encoder.load_state_dict(system.encoder.state_dict())
     R.reset_launch_counts()
     out_pad = pred_pad(images)
-    launches_pad = {"compact_faces": R.compact_faces.launches,
-                    "raster_fused_windows": R.raster_fused_windows.launches}
+    launches_pad = {k.__name__: k.launches for k in R.KERNELS}
     log(f"    launches on the padded path: {launches_pad}")
-    check(launches_pad["raster_fused_windows"] > 0 and launches_pad["compact_faces"] == 0,
-          "the padded path went through K1 only")
+    check(launches_pad["raster_fused_windows"] > 0, "the padded path went through K1")
     check(np.array_equal(out_pad["pix_to_face"], out["pix_to_face"])
           and np.array_equal(out_pad["rendered_img"], out["rendered_img"]),
           "padded path == compact path")
@@ -839,16 +916,36 @@ def main(argv=None) -> int:
     gen_t = torch.Generator(device=dev).manual_seed(0)
     enc0 = {n: p.detach().clone() for n, p in tsys.encoder.named_parameters()}
     gen0 = [p.detach().clone() for p in tsys.generator.parameters()]
-    R.reset_launch_counts()
-    train_metrics = []
-    for parity in (0, 1) * 3:
-        m, taux = tsys.train_step(tbatch, parity, gen_t)
-        train_metrics.append(m)
+    # every step of each parity goes through K1 (the cycle path's inference
+    # render) and K3; the cycle path's faces of the last step are kept for
+    # K1's b32 time
+    fused_call, k1_cycle = R.rasterize_normals_fused, {}
+
+    def fused_capture(fv, fn, *a, **kw):
+        k1_cycle["faces"] = (fv, fn)
+        return fused_call(fv, fn, *a, **kw)
+
+    R.rasterize_normals_fused = fused_capture
+    train_metrics, train_launches = [], {}
+    try:
+        for parity in (0, 1) * 3:
+            R.reset_launch_counts()
+            m, taux = tsys.train_step(tbatch, parity, gen_t)
+            train_metrics.append(m)
+            step = {k.__name__: k.launches for k in R.KERNELS}
+            check(all(step[k.__name__] > 0 for k in TRAIN_KERNELS),
+                  f"parity {parity} step: K1, K3, K4 and K5 launched ({step})")
+            for k, v in step.items():
+                train_launches[k] = train_launches.get(k, 0) + v
+    finally:
+        R.rasterize_normals_fused = fused_call
+    with torch.inference_mode():  # K1's inputs on the cycle path's faces
+        fv_c, fn_c = k1_cycle["faces"]
+        bins_c, counts_c = R.bin_faces_flat(fv_c, S, cap)
+        k1_cycle["args"] = (R._windows(counts_c, budget)[0], bins_c,
+                            R.fused_records(fv_c, fn_c), S, TX)
     torch.cuda.synchronize()
-    train_launches = {k.__name__: k.launches for k in R.KERNELS}
     log(f"    launches over 6 train steps: {train_launches}")
-    check(all(train_launches[k.__name__] > 0 for k in TRAIN_KERNELS),
-          "the training path went through K1, K2, K3, K4 and K5")
     for i, m in enumerate(train_metrics):
         check(all(math.isfinite(v) for v in m.values()), f"step {i} metrics finite")
         check(m["raster_overflow"] == 0 and m["raster_overflow_2nd"] == 0,
@@ -869,16 +966,18 @@ def main(argv=None) -> int:
     check(cov_t > 0.05, f"training render coverage {cov_t:.4f} > 0.05")
     log("    padded layout: one train step of each parity with raster_compact=0")
     tsys.renderer.raster_compact = 0
-    R.reset_launch_counts()
+    train_launches_pad = {}
     for parity in (0, 1):
+        R.reset_launch_counts()
         m, _ = tsys.train_step(tbatch, parity, gen_t)
         check(all(math.isfinite(v) for v in m.values()), f"padded parity {parity} finite")
-    train_launches_pad = {k.__name__: k.launches for k in R.KERNELS}
+        step = {k.__name__: k.launches for k in R.KERNELS}
+        check(step["raster_fused_windows"] > 0 and step["raster_planes_windows"] > 0,
+              f"padded parity {parity} step: K1 and K3 launched")
+        for k, v in step.items():
+            train_launches_pad[k] = train_launches_pad.get(k, 0) + v
     tsys.renderer.raster_compact = renderer.raster_compact
     log(f"    launches on the padded training path: {train_launches_pad}")
-    check(train_launches_pad["raster_planes_windows"] > 0
-          and train_launches_pad["compact_faces"] == 0,
-          "the padded training path went through K3 and no K2")
 
     # ---------------- 5c. the op path ----------------
     from smirk_tpu_torch import ops
@@ -903,14 +1002,14 @@ def main(argv=None) -> int:
     light_int = torch.full((OP_B, 2, 3), 1.5, device=dev)
     sh_coeff = seeded(OP_B, 9, 3, scale=0.3)
     op_target = torch.tensor(rng.random((OP_B, S, S, 3)), dtype=torch.float32, device=dev)
-    faces, kept = renderer.faces, renderer.kept
+    faces, kept_v = renderer.faces, renderer.kept
 
     def op_path(expr, capacity):
         """-> (loss, face_verts, attributes, vals, mask, p2f, overflow)."""
         verts = op_flame({**op_params, "expression_params": expr})["vertices"]
-        tv = ops.orth_proj_ndc(verts, op_cam)[:, kept]
+        tv = ops.orth_proj_ndc(verts, op_cam)[:, kept_v]
         tv = torch.cat([tv[..., :2], tv[..., 2:] + 10.0], -1)  # the renderer's z offset
-        sub_v = verts[:, kept]
+        sub_v = verts[:, kept_v]
         normals = ops.vertex_normals_gather(sub_v, faces, renderer.inc_face,
                                             renderer.inc_corner)
         fv = ops.face_vertices(tv, faces)
@@ -1006,25 +1105,32 @@ def main(argv=None) -> int:
     log(f"[6] timings {card}")
     res = {}
     with torch.inference_mode():
-        res["k2_ms"] = cuda_ms(lambda: R.compact_faces(tof, starts, total, bins3, CPT), 200)
+        # K2's packing is folded into K1's and K3's staging: what the compact
+        # layout still computes in its place is the kept counts (`_windows`)
+        res["windows_ms"] = cuda_ms(lambda: R._windows(counts, budget), 200)
+        starts, _, tof, total, _ = R._compact_plan(counts, budget)
+        bins3 = bins.reshape(B, Tp * CPT, R.V3_CHUNK)
         res["k2_plain_ms"] = cuda_ms(
             lambda: R.compact_faces_plain(tof, starts, total, bins3, CPT), 50)
         rows = (tof * CPT + torch.arange(budget, device=tof.device)[None]
                 - torch.gather(starts, 1, tof.long())).clamp(0, Tp * CPT - 1).long()
         bidx = torch.arange(B, device=tof.device)[:, None]
-        # yardstick: one advanced-index gather of the same source rows
+        # yardstick of K2's function: one advanced-index gather of the same rows
         res["k2_library_ms"] = cuda_ms(lambda: bins3[bidx, rows], 200)
-        res["k1_ms"] = cuda_ms(lambda: R.raster_fused_windows(starts, ends, recs_c, S, TX), 50)
+        res["k1_ms"] = cuda_ms(lambda: R.raster_fused_windows(kept, bins, records, S, TX), 50)
         res["k1_plain_ms"] = cuda_ms(
-            lambda: R.raster_fused_windows_plain(starts, ends, recs_c, S, TX), 5, 1)
-        res["k1b_ms"] = cuda_ms(lambda: R.raster_fused_windows(ps, pe, recs_p, S, TX), 50)
+            lambda: R.raster_fused_windows_plain(kept, bins, records, S, TX), 5, 1)
+        res["k1b_ms"] = cuda_ms(
+            lambda: R.raster_fused_windows(kept_p, bins, records, S, TX), 50)
         res["k1b_plain_ms"] = cuda_ms(
-            lambda: R.raster_fused_windows_plain(ps, pe, recs_p, S, TX), 5, 1)
-        def records_plan_k2_gather():
-            s, e, tf, tt, _ = R._compact_plan(counts, budget)
-            f = R.compact_faces(tf, s, tt, bins3, CPT)
-            return R._gather_recs(R.fused_records(face_verts, face_normals),
-                                  f.reshape(B, budget * R.V3_CHUNK))
+            lambda: R.raster_fused_windows_plain(kept_p, bins, records, S, TX), 5, 1)
+        # K1 on the cycle path's faces of the last train step (b32)
+        res["k1_b32_cycle_ms"] = cuda_ms(
+            lambda: R.raster_fused_windows(*k1_cycle["args"]), 50)
+
+        def records_plan():
+            R.fused_records(face_verts, face_normals)
+            return R._windows(counts, budget)
 
         # stage breakdown of one infer call (K1 itself is k1_ms above)
         stages = {
@@ -1033,16 +1139,20 @@ def main(argv=None) -> int:
             "render_inference": lambda: renderer.render_inference(fl["vertices"], tv),
             "face_geometry": lambda: renderer._face_geometry(fl["vertices"], tv),
             "bin_faces_flat": lambda: R.bin_faces_flat(face_verts, S, cap),
-            "records_plan_k2_gather": records_plan_k2_gather,
+            "records_plan": records_plan,
+            # K3 with its inputs, as a train step runs it once (b32)
+            "planes_forward_b32": lambda: R._v5_impl(fvt, fnt, S, cap, budget),
         }
         for k, fn in stages.items():
             res[f"stage_{k}_ms"] = cuda_ms(fn, 10)
-        res["k3_ms"] = cuda_ms(lambda: R.raster_planes_windows(s3, e3, recs3, S, TX, D), 50)
+        res["k3_ms"] = cuda_ms(
+            lambda: R.raster_planes_windows(kept3, bins_t, prec, fvt, S, TX, D), 50)
         res["k3_plain_ms"] = cuda_ms(
-            lambda: R.raster_planes_windows_plain(s3, e3, recs3, S, TX, D), 3, 1)
-        res["k3b_ms"] = cuda_ms(lambda: R.raster_planes_windows(ps3, pe3, recs3p, S, TX, D), 50)
+            lambda: R.raster_planes_windows_plain(kept3, bins_t, prec, S, TX, D), 3, 1)
+        res["k3b_ms"] = cuda_ms(
+            lambda: R.raster_planes_windows(kept3p, bins_t, prec, fvt, S, TX, D), 50)
         res["k3b_plain_ms"] = cuda_ms(
-            lambda: R.raster_planes_windows_plain(ps3, pe3, recs3p, S, TX, D), 3, 1)
+            lambda: R.raster_planes_windows_plain(kept3p, bins_t, prec, S, TX, D), 3, 1)
         res["k4_ms"] = cuda_ms(lambda: R.segment_moments(slots3, g_t, cap, S), 200)
         res["k4_plain_ms"] = cuda_ms(lambda: R.segment_moments_plain(slots3, g_t, cap, S), 20)
         # yardstick: the one scatter_add_ of prebuilt moment rows
@@ -1174,25 +1284,45 @@ def main(argv=None) -> int:
         f"{float(occupied.float().mean()):.1f}")
 
     # ---------------- 7. kernels line ----------------
-    win_c = int((ends - starts).sum())
-    win_p = int((pe - ps).sum())
-
+    win_c = int(kept.sum())
+    win_p = int(kept_p.sum())
     n_tiles = B * Tp
-    k1_bms, k1_by = raster_bound(win_c, n_tiles, 5, 3, B, Tp)
-    k1b_bms, k1b_by = raster_bound(win_p, n_tiles, 5, 3, B, Tp)
-    k3_bms, k3_by = raster_bound(int((e3 - s3).sum()), BT * Tp, 3 + D, D, BT, Tp)
-    k3b_bms, k3b_by = raster_bound(int((pe3 - ps3).sum()), BT * Tp, 3 + D, D, BT, Tp)
+    # K1's and K3's bounds count what their function needs on these inputs
+    # (the pairs in the faces' boxes, the binned records read once); the
+    # count of every slot against every pixel is printed beside them
+    raw = torch.stack(R._bbox_and_priority(face_verts, S)[:4], -1)
+    work1 = culled_work(kept, bins, raw, S)
+    work1p = culled_work(kept_p, bins, raw, S)
+    k1_bms, k1_by = culled_bound(work1, n_tiles, 5, 3)
+    k1b_bms, k1b_by = culled_bound(work1p, n_tiles, 5, 3)
+    k1_old_bms, _ = raster_bound(win_c, n_tiles, 5, 3, B, Tp)
+    k1b_old_bms, _ = raster_bound(win_p, n_tiles, 5, 3, B, Tp)
+    work3 = culled_work(kept3, bins_t, raw_t, S, boxes_t)
+    work3p = culled_work(kept3p, bins_t, raw_t, S, boxes_t)
+    k3_bms, k3_by = culled_bound(work3, BT * Tp, 3 + D, D)
+    k3b_bms, k3b_by = culled_bound(work3p, BT * Tp, 3 + D, D)
+    k3_old_bms, _ = raster_bound(work3["chunk_steps"], BT * Tp, 3 + D, D, BT, Tp)
+    k3b_old_bms, _ = raster_bound(work3p["chunk_steps"], BT * Tp, 3 + D, D, BT, Tp)
     k4_bytes = BT * Tp * R.TILE_PIX * 4 * (1 + D) + BT * Tp * cap * 3 * D * 4
     k5_bytes = BT * Tp * cap * (3 * D + 1) * 4 + BT * F_render * 3 * D * 4
-    k6_bms, k6_by = raster_bound(int((e6 - s6).sum()), BT * Tp, 3, 0, BT, Tp, lanes=16)
+    # K6 and K8 compute coverage on binned faces: their bounds count the
+    # same way (K6's 64-byte records; K8's 36-byte vertices, 29 operations
+    # a pair), with every binned slot against every pixel printed beside
+    work6 = culled_work(e6 - s6, k6[512][0], raw_t, S)
+    k6_bms, k6_by = culled_bound(work6, BT * Tp, 3, 0, rec_bytes=64)
+    k6_old_bms, _ = raster_bound(int((e6 - s6).sum()), BT * Tp, 3, 0, BT, Tp, lanes=16)
     k7_bytes = BT * Tp * R.TILE_PIX * (36 + 1) * 4 + BT * Tp * 512 * 36 * 4
     T_real = -(-S // R.TILE_ROWS) * TX
     k8_pairs = int(counts_t[:, :T_real].sum()) * R.TILE_PIX
-    k8_bms, k8_by = bound(k8_pairs * OPS_PER_FACE_PIXEL_K8,
+    work8 = culled_work(kept3p, bins_t, raw_t, S)
+    k8_bms, k8_by = culled_bound(work8, BT * Tp, 2, 0, rec_bytes=36,
+                                 ops_per_pair=OPS_PER_FACE_PIXEL_K8)
+    k8_old_bms, _ = bound(k8_pairs * OPS_PER_FACE_PIXEL_K8,
                           BT * Tp * 4 + int(counts_t.sum()) * 4 + BT * F_render * 9 * 4
                           + 2 * BT * T_real * R.TILE_PIX * 4)
-    k2_bytes = (B * budget * 4 + B * Tp * 4 + B * 4 + int(total.sum()) * 32 * 4
-                + B * budget * 32 * 4)
+    # the kept counts that stand where K2 stood: counts read, kept and
+    # overflow written
+    windows_bytes = B * Tp * 4 * 2 + B * 4
     # K9-K11 compute K1b's and K1's function on the same faces, so their
     # bounds are those; what their schedules walk past it is printed below
     s9, e9 = k9[8][2]
@@ -1200,11 +1330,12 @@ def main(argv=None) -> int:
     k11_faces = int(k11[8][0].sum()) * 8
     src = "smirk_tpu_torch/csrc/"
     line = {"kernels": [
-        {"name": "compact_faces", "route": "cuda", "source": src + "compact_faces.cu",
+        {"name": "compact_faces", "route": "folded into K1/K3 staging",
+         "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1257",
-         "launches": launches["compact_faces"], "max_abs_err": k2_err,
-         "ms": res["k2_ms"], "plain_ms": res["k2_plain_ms"],
-         "bound_ms": k2_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
+         "launches": 0, "max_abs_err": k2_err,
+         "ms": res["windows_ms"], "plain_ms": res["k2_plain_ms"],
+         "bound_ms": windows_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
          "library_ms": res["k2_library_ms"]},
         {"name": "raster_fused_windows", "route": "cuda", "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1331",
@@ -1280,10 +1411,38 @@ def main(argv=None) -> int:
     log(f"    worst tolerance ratios: K4 {k4_ratio:.4g}, K5 {k5_ratio:.4g}, "
         f"gradient {grad_ratio:.4g}, K7 {k7_ratio:.4g}, op-path gradient "
         f"{op_grad_ratio:.4g} (of 1e-5, 1e-5, 1e-4, 1e-5, 1e-5 x scale; <= 1 passes)")
-    log(f"    bounds: K6 {k6_bms:.4f} ms ({k6_by}, {OPS_PER_FACE_PIXEL} operations per "
-        f"face-pixel test), K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
-        f"{k7_bytes / 1e6:.1f} MB), K8 {k8_bms:.4f} ms ({k8_by}, {OPS_PER_FACE_PIXEL_K8} "
-        f"operations per face-pixel test over {k8_pairs} pairs)")
+    k1c_kept, k1c_bins = k1_cycle["args"][:2]
+    k1c_work = culled_work(k1c_kept, k1c_bins,
+                           torch.stack(R._bbox_and_priority(k1_cycle["faces"][0], S)[:4], -1),
+                           S)
+    k1c_bms, k1c_by = culled_bound(k1c_work, k1c_kept.numel(), 5, 3)
+    k1c_old_bms, _ = raster_bound(int(k1c_kept.sum()), k1c_kept.numel(), 5, 3,
+                                  *k1c_kept.shape)
+    log(f"    K1 at b{k1c_kept.shape[0]} on the cycle path's faces: "
+        f"{res['k1_b32_cycle_ms']:.4f} ms, bound {k1c_bms:.4f} ms ({k1c_by}, "
+        f"{k1c_work['box_pairs']} face-pixel pairs in the faces' boxes, "
+        f"{k1c_work['binned_faces']} binned faces); every slot against every pixel "
+        f"{k1c_old_bms:.4f} ms ({int(k1c_kept.sum())} chunk steps) {card}")
+    for nm, w, bms, by, old_bms in (("K1", work1, k1_bms, k1_by, k1_old_bms),
+                                    ("K1b", work1p, k1b_bms, k1b_by, k1b_old_bms)):
+        log(f"    {nm} bound {bms:.4f} ms ({by}: {w['box_pairs']} face-pixel pairs in the "
+            f"faces' boxes x {OPS_PER_FACE_PIXEL}, {w['binned_faces']} binned faces); "
+            f"every slot against every pixel {old_bms:.4f} ms ({w['chunk_steps']} chunk "
+            "steps x 32 x 1024 pixels); K9 and K10 take K1b's bound, K11 K1's")
+    log(f"    bounds: K6 {k6_bms:.4f} ms ({k6_by}, {work6['box_pairs']} face-pixel pairs "
+        f"in the faces' boxes x {OPS_PER_FACE_PIXEL}; every slot against every pixel "
+        f"{k6_old_bms:.4f} ms), K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
+        f"{k7_bytes / 1e6:.1f} MB), K8 {k8_bms:.4f} ms ({k8_by}, {work8['box_pairs']} "
+        f"face-pixel pairs in the faces' boxes x {OPS_PER_FACE_PIXEL_K8}; every binned "
+        f"face against every pixel {k8_old_bms:.4f} ms, {k8_pairs} pairs)")
+    for nm, w, bms, by, old_bms in (("K3", work3, k3_bms, k3_by, k3_old_bms),
+                                    ("K3b", work3p, k3b_bms, k3b_by, k3b_old_bms)):
+        log(f"    {nm} bound {bms:.4f} ms ({by}: {w['box_pairs']} face-pixel pairs "
+            f"in the faces' boxes x {OPS_PER_FACE_PIXEL}, {w['binned_faces']} binned faces); "
+            f"the unculled count's bound {old_bms:.4f} ms ({w['chunk_steps']} chunk steps x "
+            f"32 x 1024 pixels); face-warp tests the cull keeps {w['warp_tests_kept']} of "
+            f"{w['warp_tests_all']} (32 x chunk steps x 8 warps, "
+            f"{w['warp_tests_kept'] / max(1, w['warp_tests_all']) * 100:.1f} %)")
     log(f"    schedules past the function's work: K9 walks {int((e9 - s9).sum())} chunk "
         f"steps at tps 8 and K10 {int((e10 - s10).sum())}, against K1b's {win_p} (bound "
         f"{k1b_bms:.4f} ms); K11 {k11_faces} face-tile tests at chunk 8, against K1's "

@@ -24,22 +24,18 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> (source file, {C function: argtypes})
 LIBRARIES = {
-    "compact_faces": ("compact_faces.cu", {
-        # tof, starts, total, bins, out, B, Tp, cpt, cmax, device, stream
-        "smirk_compact_faces": [_P] * 5 + [_I] * 5 + [_P],
-    }),
     "raster_fused": ("raster_fused.cu", {
-        # starts, ends, recs, p2f, zbuf, nx, ny, nz,
-        # B, Tp, n_chunks, H, W, TX, device, stream
-        "smirk_raster_fused_windows": [_P] * 8 + [_I] * 7 + [_P],
+        # kept, bins, records, p2f, zbuf, nx, ny, nz,
+        # B, Tp, C, F, H, W, TX, device, stream
+        "smirk_raster_fused_windows": [_P] * 8 + [_I] * 8 + [_P],
     }),
     "raster_planes": ("raster_planes.cu", {
-        # starts, ends, recs, p2f, zbuf, slot, vals,
-        # B, Tp, n_chunks, H, W, TX, D, device, stream
-        "smirk_raster_planes_windows": [_P] * 7 + [_I] * 8 + [_P],
+        # kept, bins, records, face_verts, p2f, zbuf, slot, vals,
+        # B, Tp, C, F, H, W, TX, D, grid radius, device, stream
+        "smirk_raster_planes_windows": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     }),
     "segment_moments": ("segment_moments.cu", {
         # slots, g, out, B, Tp, C, D, group, H, W, TX, device, stream

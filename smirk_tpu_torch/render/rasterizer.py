@@ -19,13 +19,17 @@ Pipeline (`rasterize_normals_fused`):
 2. `face_records_shaded`: one 32-lane record per face with its three
    sign-normalized edge functions, its depth plane and its three normal
    planes, all affine in the pixel centre.
-3. Compact layout (`compact` set): `_compact_plan` turns per-tile counts
-   into chunk windows over one list of occupied 32-face chunks per image,
-   clipped to the budget; `compact_faces` (kernel K2) packs the chunks.
-   Padded layout (`compact=None`): each tile walks its own padded bin.
-4. `raster_fused_windows` (kernel K1): per tile, walk the chunk window,
-   keep the nearest covering face (first in slot order on ties), and
-   evaluate its normal planes at the pixel.
+3. `_windows`: each tile's kept chunk count. Compact layout (`compact`
+   set): the plan's windows over one list of occupied 32-face chunks per
+   image, clipped to the budget (`_compact_windows`; the chunks past it
+   are the `overflow`). Padded layout (`compact=None`): ceil(count / 32).
+   The two layouts differ only in these counts.
+4. `raster_fused_windows` (kernel K1): per tile, walk chunks 0 .. kept - 1
+   of the tile's bin, reading each face's record from the image's record
+   table through its bin id (the TPU's packing kernel K2 and the record
+   gather are folded into this staging), keep the nearest covering face
+   (first in slot order on ties), and evaluate its normal planes at the
+   pixel. `compact_faces_plain` states K2's contract for the checks.
 The padded layout has two scheduled variants: `merged` (K9,
 `raster_fused_groups`: every tile of a group of `tps` walks to the group's
 largest bin) and `sort_tiles` (K10, `raster_fused_groups_local`: tiles
@@ -33,7 +37,7 @@ count-sorted, records rebased to tile-local coordinates, outputs
 un-permuted). `rasterize_normals_chunkskip` bins fixed chunks of a
 (Morton-ordered, `spatial_face_order`) face list instead of faces
 (`bin_chunks`) and walks each tile's chunk list over the image's full
-record table (K11, `raster_chunkskip`): no record gather, no plan, no K2.
+record table (K11, `raster_chunkskip`): no plan.
 `set_backface_cull` drops one winding at the binning stage.
 
 The coverage rasters: `rasterize_coverage_jnp` (all pairs, plain
@@ -45,10 +49,13 @@ kernel K8: one face at a time per tile, division barycentrics).
 CPU.
 
 The differentiable raster (`rasterize`). For D <= 6 attribute channels,
-`rasterize_planes_diff`, a torch.autograd.Function, bins, plans and packs
-the same way, with a training record per face (edge and depth planes, the
-face id, D attribute planes). Forward: `raster_planes_windows` (K3) keeps
-the nearest face, its per-tile slot and its D interpolated planes.
+`rasterize_planes_diff`, a torch.autograd.Function, bins and plans the
+same way, with a training record per face (edge and depth planes, the
+face id, D attribute planes). Forward: `raster_planes_windows` (K3) reads
+the records through the bins as K1 does, skips per warp the faces whose
+bounding box (`cull_boxes`, computed in the kernel from the vertices)
+misses the warp's pixels, and keeps the nearest face, its per-tile slot
+and its D interpolated planes.
 Backward: the value cotangent goes tile-major, `segment_moments` (K4)
 sums [g*x | g*y | g] per (tile, slot), `fold_slots_to_faces` (K5) folds
 the slots into faces, and autograd of `attr_planes` takes it to the
@@ -57,7 +64,8 @@ vertices and attributes. For D > 6, K6 gives the coverage and
 backward reduces the per-pixel gradients per (tile, slot) with
 `segment_reduce_tiles` (K7) and folds them into faces with K5.
 
-K1-K11 are CUDA kernels (csrc/). Each wrapper checks its arguments,
+K1 and K3-K11 are CUDA kernels (csrc/; K2 has none, its packing being
+folded into K1's and K3's staging). Each wrapper checks its arguments,
 launches on PyTorch's current stream and counts its launches; for tensors
 on the CPU it runs the plain PyTorch version beside it.
 """
@@ -335,44 +343,48 @@ def _gather_recs(records: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return ext[b, idx]
 
 
+def _compact_windows(counts: torch.Tensor, cmax: int):
+    """The compact layout's chunk windows: tile t's occupied chunks take
+    positions [starts, ends) of one list per image, in tile order; those at
+    or past cmax are dropped. counts (B,Tp) -> (starts, ends (B,Tp) int32
+    clipped to cmax, dropped (B,) int32 occupied chunks past cmax)."""
+    cc = (counts + (V3_CHUNK - 1)) // V3_CHUNK
+    ends = torch.cumsum(cc, dim=1, dtype=torch.int32)
+    dropped = (ends[:, -1] - cmax).clamp_min(0).to(torch.int32)
+    return ((ends - cc).clamp(max=cmax).to(torch.int32),
+            ends.clamp(max=cmax).to(torch.int32), dropped)
+
+
 def _compact_plan(counts: torch.Tensor, cmax: int):
     """Chunk windows + chunk->tile map for the compact layout.
 
     counts (B,Tp) -> (starts, ends, tof, total, dropped): starts/ends
-    (B,Tp) int32 chunk windows clipped to cmax; tof (B,cmax) tile of each
-    compact chunk; total (B,) int32 occupied chunks kept; dropped (B,)
-    int32 occupied chunks beyond the budget. dropped > 0 means trailing
-    tiles were clipped to EMPTY windows; the renderer reports it as
-    `raster_overflow`.
+    (B,Tp) int32 chunk windows clipped to cmax (`_compact_windows`); tof
+    (B,cmax) tile of each compact chunk; total (B,) int32 occupied chunks
+    kept; dropped (B,) int32 occupied chunks beyond the budget. dropped > 0
+    means trailing tiles were clipped to EMPTY windows; the renderer
+    reports it as `raster_overflow`.
     """
     B, Tp = counts.shape
-    CH = V3_CHUNK
-    cc = (counts + (CH - 1)) // CH
-    ends = torch.cumsum(cc, dim=1, dtype=torch.int32)
-    starts = ends - cc
-    dropped = (ends[:, -1] - cmax).clamp_min(0).to(torch.int32)
-    total = ends[:, -1].clamp(max=cmax).to(torch.int32)
+    starts, ends, dropped = _compact_windows(counts, cmax)
     c_ids = torch.arange(cmax, dtype=torch.int32, device=counts.device)
+    # for c < cmax the clipped ends pass c exactly where the unclipped do
     tof = torch.searchsorted(ends, c_ids[None].expand(B, cmax).contiguous(),
                              right=True)
     tof = tof.clamp(max=Tp - 1).to(torch.int32)
-    return (
-        starts.clamp(max=cmax).to(torch.int32),
-        ends.clamp(max=cmax).to(torch.int32),
-        tof,
-        total,
-        dropped,
-    )
+    return starts, ends, tof, ends[:, -1].contiguous(), dropped
 
 
 # ---------------------------------------------------------------------------
-# K2: chunk compaction
+# K2's contract: chunk compaction (folded into K1's and K3's staging)
 # ---------------------------------------------------------------------------
 
 
 def compact_faces_plain(tof, starts, total, bins, cpt: int) -> torch.Tensor:
-    """Plain version of K2. bins (B, Tp*cpt, 32) int32: tile t's chunk k is
-    row t*cpt + k. -> (B, cmax, 32) int32: row c < total[b] is the chunk
+    """Plain statement of K2's contract (`_compact_faces_kernel`, which the
+    TPU needs because its kernels cannot gather; K1 and K3 read the bins
+    through instead). bins (B, Tp*cpt, 32) int32: tile t's chunk k is row
+    t*cpt + k. -> (B, cmax, 32) int32: row c < total[b] is the chunk
     k = c - starts[b, tof[b, c]] of tile tof[b, c]; rows past total are -1."""
     B, cmax = tof.shape
     c = torch.arange(cmax, device=tof.device)[None]
@@ -399,46 +411,8 @@ def _raise_on(rc: int, what: str):
                            f"({kernels.error_string(rc)})")
 
 
-def compact_faces(tof, starts, total, bins, cpt: int) -> torch.Tensor:
-    """K2: pack each image's occupied 32-face chunks into one list.
-
-    Replaces `_compact_faces_kernel` (smirk_tpu/render/rasterizer.py).
-    Bound on H100: bytes; a few MB, so launch latency dominates. Design:
-    one block per image, consecutive threads copy consecutive ids of a
-    row, so loads and stores coalesce. CPU tensors take the plain version.
-    """
-    if bins.device.type == "cpu":
-        return compact_faces_plain(tof, starts, total, bins, cpt)
-    if bins.device.type != "cuda":
-        raise ValueError(f"compact_faces: unsupported device {bins.device}")
-    dev = bins.device
-    B, cmax = tof.shape
-    Tp = starts.shape[1]
-    _check_cuda("tof", tof, torch.int32, 2, dev)
-    _check_cuda("starts", starts, torch.int32, 2, dev)
-    _check_cuda("total", total, torch.int32, 1, dev)
-    _check_cuda("bins", bins, torch.int32, 3, dev)
-    if (starts.shape[0] != B or total.shape[0] != B
-            or tuple(bins.shape) != (B, Tp * cpt, V3_CHUNK)):
-        raise ValueError("compact_faces: inconsistent shapes "
-                         f"tof {tuple(tof.shape)} starts {tuple(starts.shape)} "
-                         f"total {tuple(total.shape)} bins {tuple(bins.shape)}")
-    out = torch.empty((B, cmax, V3_CHUNK), dtype=torch.int32, device=dev)
-    lib = kernels.library("compact_faces")
-    rc = lib.smirk_compact_faces(
-        tof.data_ptr(), starts.data_ptr(), total.data_ptr(), bins.data_ptr(),
-        out.data_ptr(), B, Tp, cpt, cmax, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, "compact_faces")
-    compact_faces.launches += 1
-    return out
-
-
-compact_faces.launches = 0
-
-
 # ---------------------------------------------------------------------------
-# K1: fused z-buffer + normal planes over per-tile chunk windows
+# K1: fused z-buffer + normal planes over each tile's kept chunks
 # ---------------------------------------------------------------------------
 
 
@@ -529,12 +503,25 @@ def _fused_plain(starts, ends, recs, image_size: int, tiles_x: int, **walk):
     return tuple(torch.cat(parts, dim=0) for parts in zip(*outs))
 
 
-def raster_fused_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
-    """Plain version of K1: `_fused_plain` over chunk windows. -> p2f
-    (B,Tp,1024) int32 (-1 empty), zbuf (1e10 empty), nx, ny, nz (0 empty),
-    all f32 but p2f.
+def _bin_walk(kept, bins, records):
+    """The plain versions' form of the read-through inputs: each tile's bin
+    of records gathered (empty slots a kill row), tile t walking chunks
+    [t*cpt, t*cpt + kept) of it, kept clamped to [0, cpt] as the kernels
+    clamp it (cpt = C/32). kept (B,Tp) int32, bins (B,Tp,C) int32, records
+    (B,F,L) -> (starts, ends (B,Tp), recs (B, Tp*C, L))."""
+    B, Tp, C = bins.shape
+    cpt = C // V3_CHUNK
+    starts = (torch.arange(Tp, dtype=torch.int32, device=bins.device) * cpt)[None].expand(B, Tp)
+    return (starts, starts + kept.clamp(0, cpt),
+            _gather_recs(records, bins.reshape(B, Tp * C)))
+
+
+def raster_fused_windows_plain(kept, bins, records, image_size: int, tiles_x: int):
+    """Plain version of K1: `_fused_plain` over chunks 0 .. kept - 1 of each
+    tile's gathered bin (`_bin_walk`). -> p2f (B,Tp,1024) int32 (-1
+    empty), zbuf (1e10 empty), nx, ny, nz (0 empty), all f32 but p2f.
     """
-    return _fused_plain(starts, ends, recs, image_size, tiles_x)
+    return _fused_plain(*_bin_walk(kept, bins, records), image_size, tiles_x)
 
 
 def _fused_outputs(B: int, Tp: int, dev):
@@ -544,40 +531,55 @@ def _fused_outputs(B: int, Tp: int, dev):
               for _ in range(4)))
 
 
-def raster_fused_windows(starts, ends, recs, image_size: int, tiles_x: int):
-    """K1: per-tile z-buffer over chunk windows + the winner's normals.
+def _check_read_through(name, kept, bins, records, lanes: int):
+    """Check the read-through rasters' inputs on the card, without reading
+    them -> (B, Tp, C, F)."""
+    dev = records.device
+    _check_cuda("kept", kept, torch.int32, 2, dev)
+    _check_cuda("bins", bins, torch.int32, 3, dev)
+    _check_cuda("records", records, torch.float32, 3, dev)
+    B, Tp, C = bins.shape
+    if (tuple(kept.shape) != (B, Tp) or C % V3_CHUNK or records.shape[0] != B
+            or records.shape[2] != lanes):
+        raise ValueError(f"{name}: inconsistent shapes kept {tuple(kept.shape)} "
+                         f"bins {tuple(bins.shape)} records {tuple(records.shape)} "
+                         f"({lanes} lanes)")
+    if records.data_ptr() % 16:
+        raise ValueError(f"{name}: records must be 16-byte aligned")
+    return B, Tp, C, records.shape[1]
 
-    Replaces `_raster_kernel_v7` (compact record list) and, fed the padded
-    layout, `_raster_kernel_v4` (smirk_tpu/render/rasterizer.py). Bound on
-    H100: fp32 operations (~16 per face-pixel test; the records are 4 KB
-    per chunk and stay in L2/shared memory). Design: one block per (tile,
-    image), 256 threads x 4 pixels; each chunk's 32 records are staged in
-    shared memory and read as broadcasts, so every record value loaded
-    feeds four pixels. CPU tensors take the plain version.
+
+def raster_fused_windows(kept, bins, records, image_size: int, tiles_x: int):
+    """K1: per-tile z-buffer over chunks 0 .. kept - 1 of the tile's bin +
+    the winner's normals. kept (B,Tp) int32 (`_windows`), bins (B,Tp,C)
+    int32 as `bin_faces_flat` gives them, records (B,F,32) f32 as
+    `fused_records` gives them -> as `raster_fused_windows_plain`.
+
+    Replaces `_raster_kernel_v7` (compact record list, packed by
+    `_compact_faces_kernel`) and `_raster_kernel_v4` (padded layout)
+    (smirk_tpu/render/rasterizer.py): the layouts differ only in kept.
+    Bound on H100: fp32 operations (~16 per face-pixel test; the record
+    table, 28 MB at b64, stays in L2). Design: one block per (tile,
+    image), 256 threads x 4 pixels; each chunk's 32 face ids are read from
+    the bins and their records staged in shared memory (the packing and
+    the gather folded into the staging, one chunk ahead of the tests),
+    then read as broadcasts, so every record value loaded feeds four
+    pixels. A kept count is clamped to [0, C/32], in the kernel and in the
+    plain version. CPU tensors take the plain version.
     """
-    if recs.device.type == "cpu":
-        return raster_fused_windows_plain(starts, ends, recs, image_size, tiles_x)
-    if recs.device.type != "cuda":
-        raise ValueError(f"raster_fused_windows: unsupported device {recs.device}")
-    dev = recs.device
-    B, Tp = starts.shape
-    _check_cuda("starts", starts, torch.int32, 2, dev)
-    _check_cuda("ends", ends, torch.int32, 2, dev)
-    _check_cuda("recs", recs, torch.float32, 3, dev)
-    if (tuple(ends.shape) != (B, Tp) or recs.shape[0] != B
-            or recs.shape[2] != RECF_LANES or recs.shape[1] % V3_CHUNK):
-        raise ValueError("raster_fused_windows: inconsistent shapes "
-                         f"starts {tuple(starts.shape)} ends {tuple(ends.shape)} "
-                         f"recs {tuple(recs.shape)}")
-    if recs.data_ptr() % 16:
-        raise ValueError("raster_fused_windows: recs must be 16-byte aligned")
-    n_chunks = recs.shape[1] // V3_CHUNK
+    if records.device.type == "cpu":
+        return raster_fused_windows_plain(kept, bins, records, image_size, tiles_x)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_fused_windows: unsupported device {records.device}")
+    dev = records.device
+    B, Tp, C, F = _check_read_through("raster_fused_windows", kept, bins, records,
+                                      RECF_LANES)
     p2f, zbuf, nx, ny, nz = _fused_outputs(B, Tp, dev)
     lib = kernels.library("raster_fused")
     rc = lib.smirk_raster_fused_windows(
-        starts.data_ptr(), ends.data_ptr(), recs.data_ptr(), p2f.data_ptr(),
+        kept.data_ptr(), bins.data_ptr(), records.data_ptr(), p2f.data_ptr(),
         zbuf.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-        B, Tp, n_chunks, image_size, image_size, tiles_x, dev.index,
+        B, Tp, C, F, image_size, image_size, tiles_x, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "raster_fused_windows")
     raster_fused_windows.launches += 1
@@ -624,27 +626,34 @@ def _check_capacity(capacity: int) -> None:
         raise ValueError(f"capacity {capacity} is not a multiple of {V3_CHUNK}")
 
 
-def _layout(records, bins, counts, capacity: int, compact: Optional[int]):
-    """Chunk windows and the record list the window rasters walk -> (starts,
-    ends (B,Tp) int32, recs (B, N*32, L) contiguous, overflow (B,) int32).
-
-    compact: chunk budget of the compact layout (rounded up to 8: the plan,
-    K2 and a gather of the packed chunks); None = the padded layout, tile t
-    walking its own bin. Empty slots gather a kill row; overflow counts the
-    compact chunks dropped past the budget (0 on the padded layout)."""
-    B, Tp = counts.shape
-    CPT = capacity // V3_CHUNK
+def _windows(counts: torch.Tensor, compact: Optional[int]):
+    """How many chunks of its bin each tile walks -> (kept (B,Tp) int32,
+    overflow (B,) int32). compact: chunk budget of the compact layout
+    (rounded up to 8): a tile keeps its window of the plan clipped to the
+    budget (`_compact_windows`), and overflow counts the occupied chunks
+    dropped past it. None = the padded layout: ceil(count / 32), overflow
+    0."""
     if compact is None:
-        starts, ends = padded_windows(counts, CPT)
-        faces = bins.reshape(B, Tp * capacity)
-        overflow = torch.zeros((B,), dtype=torch.int32, device=counts.device)
-    else:
-        compact = -(-compact // 8) * 8
-        starts, ends, tof, total, overflow = _compact_plan(counts, compact)
-        faces = compact_faces(tof, starts, total,
-                              bins.reshape(B, Tp * CPT, V3_CHUNK), CPT)
-        faces = faces.reshape(B, compact * V3_CHUNK)
-    return starts, ends, _gather_recs(records, faces).contiguous(), overflow
+        return ((counts + (V3_CHUNK - 1)) // V3_CHUNK,
+                torch.zeros((counts.shape[0],), dtype=torch.int32, device=counts.device))
+    starts, ends, dropped = _compact_windows(counts, -(-compact // 8) * 8)
+    return ends - starts, dropped
+
+
+def packed_layout_plain(records, bins, counts, compact: int):
+    """The compact layout as the TPU builds it, for checks: `_compact_plan`,
+    K2's contract (`compact_faces_plain`) and a gather of the packed
+    chunks' records (empty slots a kill row) -> (starts, ends (B,Tp)
+    int32, recs (B, cmax*32, L), overflow (B,) int32), cmax the budget
+    rounded up to 8. `_fused_plain` / `_planes_plain` over these windows
+    equal K1 / K3 over `_windows(counts, compact)`, bins and records,
+    bitwise."""
+    B, Tp, C = bins.shape
+    cpt = C // V3_CHUNK
+    starts, ends, tof, total, overflow = _compact_plan(counts, -(-compact // 8) * 8)
+    faces = compact_faces_plain(tof, starts, total, bins.reshape(B, Tp * cpt, V3_CHUNK),
+                                cpt)
+    return starts, ends, _gather_recs(records, faces.reshape(B, -1)), overflow
 
 
 # ---------------------------------------------------------------------------
@@ -837,7 +846,7 @@ def rasterize_normals_fused(
     """Fused inference raster -> (normal image (B,H,W,3), pix_to_face
     (B,H,W) int32, zbuf (B,H,W)[, overflow (B,) int32]).
 
-    compact: chunk budget of the compact layout (rounded up to 8; K2 + K1);
+    compact: chunk budget of the compact layout (rounded up to 8; K1);
     None = the padded layout, where each tile walks its own bin: K1 on its
     own window, or with `merged` K9 (every tile of a group of `tps` walks
     to the group's maximum), or with `sort_tiles` K10 (tiles count-sorted,
@@ -870,8 +879,8 @@ def rasterize_normals_fused(
         outs = raster_fused_groups(counts, recs, image_size, tx, tps)
         overflow = torch.zeros((B,), dtype=torch.int32, device=counts.device)
     else:
-        starts, ends, recs, overflow = _layout(records, bins, counts, capacity, compact)
-        outs = raster_fused_windows(starts, ends, recs, image_size, tx)
+        kept, overflow = _windows(counts, compact)
+        outs = raster_fused_windows(kept, bins, records, image_size, tx)
     p2f = _tiles_to_image(outs[0], image_size)
     zbuf = _tiles_to_image(outs[1], image_size)
     normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
@@ -886,7 +895,7 @@ def rasterize_normals_fused(
 # Bins fixed CH-face chunks of a spatially ordered face list instead of
 # faces: the per-tile top-k is over NC = F/CH keys, and the kernel reads
 # each binned chunk from the image's full record table, so there is no
-# record gather, no compact plan and no K2. The price is face tests: every
+# record gather and no compact plan. The price is face tests: every
 # face of a binned chunk is tested even if one member overlaps the tile.
 # ---------------------------------------------------------------------------
 
@@ -1118,11 +1127,10 @@ def _winner_and_slot(starts, recs, bidx, bz, win):
             torch.where(covered, win - first, -1).to(torch.int32))
 
 
-def raster_planes_windows_plain(starts, ends, recs, image_size: int,
-                                tiles_x: int, D: int):
-    """Plain version of K3: `_plain_zbuffer` over records in the
-    REC5_LANES layout. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf f32 (1e10
-    empty), slot (B,Tp,1024) int32, the winner's per-tile slot
+def _planes_plain(starts, ends, recs, image_size: int, tiles_x: int, D: int):
+    """`_plain_zbuffer` over records in the REC5_LANES layout + the winner's
+    per-tile slot and D planes. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf
+    f32 (1e10 empty), slot (B,Tp,1024) int32, the winner's per-tile slot
     (c - start)*32 + best (-1 empty), vals (D,B,Tp,1024) f32 (0 empty)."""
     outs = []
     for group in _plain_zbuffer(starts, ends, recs, image_size, tiles_x):
@@ -1137,47 +1145,115 @@ def raster_planes_windows_plain(starts, ends, recs, image_size: int,
     return (torch.cat(p2f), torch.cat(zbuf), torch.cat(slot), torch.cat(vals, dim=1))
 
 
-def raster_planes_windows(starts, ends, recs, image_size: int, tiles_x: int, D: int):
-    """K3: per-tile z-buffer over chunk windows + the winner's per-tile slot
-    and D attribute planes (the differentiable raster's forward).
+def raster_planes_windows_plain(kept, bins, records, image_size: int, tiles_x: int,
+                                D: int):
+    """Plain version of K3: `_planes_plain` over chunks 0 .. kept - 1 of
+    each tile's gathered bin (`_bin_walk`), every face tested (no cull), so
+    the slot is the winner's index k*32 + slot in its tile's bin. -> p2f,
+    zbuf, slot (B,Tp,1024), vals (D,B,Tp,1024), as `_planes_plain`."""
+    return _planes_plain(*_bin_walk(kept, bins, records), image_size, tiles_x, D)
 
-    Replaces `_raster_kernel_v5c` (compact record list) and, fed the padded
-    layout, `_raster_kernel_v5` (smirk_tpu/render/rasterizer.py). Bound on
-    H100: fp32 operations (~16 per face-pixel test), with FMAs forbidden so
-    that it stays bitwise equal to the plain version. Design: K1's, one
-    block per (tile, image), 256 threads x 4 pixels, each chunk's 32
-    records staged in shared memory and read as broadcasts; the slot and
-    the D planes of the winner are evaluated once, at the end. CPU tensors
-    take the plain version. -> as `raster_planes_windows_plain`.
+
+# u = 2^-24 times the roundings allowed in one fp32 edge test (cull_boxes)
+_CULL_ROUNDING = 32 * 2.0 ** -24
+
+
+def _cull_grid_radius(image_size: int) -> float:
+    """The largest |NDC coordinate| of a pixel centre of the tile grid,
+    padding included, at least 1: cull_boxes' R before the vertices."""
+    ty, tx = _tile_grid(image_size)
+    S = float(image_size)
+    return max(1.0, (2 * tx * TILE_COLS - 1 - S) / S, (2 * ty * TILE_ROWS - 1 - S) / S)
+
+
+def cull_boxes(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
+    """K3's per-face cull boxes -> (B,F,4) f32 [xmin, xmax, ymin, ymax] in
+    pixel coordinates (pixel centre c at coordinate c): the faces' bounding
+    boxes as the binning computes them (`_bbox_and_priority`), except that
+    a face too thin for the cull to be exact gets an unbounded box and is
+    never culled. K3 computes the same boxes, with the same fp32
+    operations, as it stages each chunk (csrc/raster_planes.cu); this is
+    their plain statement, for the checks and the work counts.
+
+    K3 skips a face for a warp when its box widened by one pixel misses
+    the warp's pixels. At a pixel at least one pixel outside the box (half
+    a pixel left for the box's own rounding) the face's most negative
+    sign-normalised edge function is at most -|denom| / (4 ext), ext the
+    box's longer side in pixels (the barycentric coordinates there sum to
+    1 with a negative part of at least 1 / (2 ext)). Its fp32 evaluation,
+    coefficients included, errs by at most ~5u M, M the largest sum over
+    an edge of the magnitudes rounded, (|a| + |b|) R + |x_j y_k| +
+    |y_j x_k| with R bounding every coordinate (the tile grid's pixel
+    centres and the vertices). A face keeps its box where |denom| > 32u M
+    (4 ext + 1); there no pixel outside the widened box passes the edge
+    tests in fp32, so the cull changes no output. Slivers and
+    near-degenerate faces fail the condition and are tested everywhere."""
+    S = image_size
+    x, y = face_verts[..., 0], face_verts[..., 1]  # (B,F,3)
+    px = (x * S + S - 1.0) / 2.0
+    py = (y * S + S - 1.0) / 2.0
+    xmin, xmax = px.amin(-1), px.amax(-1)
+    ymin, ymax = py.amin(-1), py.amax(-1)
+    r = torch.cat([x, y], -1).abs().amax(-1, keepdim=True).clamp_min(
+        _cull_grid_radius(S))
+    xj, yj, xk, yk = x.roll(-1, -1), y.roll(-1, -1), x.roll(-2, -1), y.roll(-2, -1)
+    m = (((yj - yk).abs() + (xk - xj).abs()) * r + (xj * yk).abs()
+         + (yj * xk).abs()).amax(-1)
+    x0, y0 = x[..., 0], y[..., 0]
+    x1, y1, x2, y2 = x[..., 1], y[..., 1], x[..., 2], y[..., 2]
+    denom = (y1 - y2) * x0 + (x2 - x1) * y0 + (x1 * y2 - y1 * x2)  # face_records'
+    ext = torch.maximum(xmax - xmin, ymax - ymin)
+    exact = denom.abs() > _CULL_ROUNDING * m * (4.0 * ext + 1.0)
+    inf = float("inf")
+    return torch.stack([torch.where(exact, xmin, -inf), torch.where(exact, xmax, inf),
+                        torch.where(exact, ymin, -inf), torch.where(exact, ymax, inf)],
+                       -1).contiguous()
+
+
+def raster_planes_windows(kept, bins, records, face_verts, image_size: int, tiles_x: int,
+                          D: int):
+    """K3: per-tile z-buffer over chunks 0 .. kept - 1 of the tile's bin +
+    the winner's per-tile slot and D attribute planes (the differentiable
+    raster's forward). kept (B,Tp) int32 (`_windows`), bins (B,Tp,C)
+    int32, records (B,F,32) f32 (`planes_records`), face_verts (B,F,3,3)
+    f32 (the faces the records were built from; the kernel culls with
+    them) -> as `raster_planes_windows_plain`.
+
+    Replaces `_raster_kernel_v5c` (compact record list) and
+    `_raster_kernel_v5` (padded layout) (smirk_tpu/render/rasterizer.py).
+    Bound on H100: fp32 operations (~16 per face-pixel test), with FMAs
+    forbidden so that it stays bitwise equal to the plain version. Design:
+    K1's read-through staging; as a chunk is staged, each face's cull box
+    (`cull_boxes`) is computed from its vertices beside its record. The 8
+    warps of a block each own a 16x8 pixel rectangle of the tile, and a
+    warp skips a face whose box widened by one pixel misses its rectangle
+    (a warp-uniform test that `cull_boxes` makes exact), so the number of
+    face-pixel tests, not their cost, is what falls. The slot and the D
+    planes of the winner are evaluated once, at the end. A kept count is
+    clamped to [0, C/32]. CPU tensors take the plain version, which tests
+    every face.
     """
-    if recs.device.type == "cpu":
-        return raster_planes_windows_plain(starts, ends, recs, image_size, tiles_x, D)
-    if recs.device.type != "cuda":
-        raise ValueError(f"raster_planes_windows: unsupported device {recs.device}")
-    dev = recs.device
-    B, Tp = starts.shape
-    _check_cuda("starts", starts, torch.int32, 2, dev)
-    _check_cuda("ends", ends, torch.int32, 2, dev)
-    _check_cuda("recs", recs, torch.float32, 3, dev)
-    if (tuple(ends.shape) != (B, Tp) or recs.shape[0] != B
-            or recs.shape[2] != REC5_LANES or recs.shape[1] % V3_CHUNK
-            or not 1 <= D <= (REC5_LANES - 13) // 3):
-        raise ValueError("raster_planes_windows: inconsistent shapes "
-                         f"starts {tuple(starts.shape)} ends {tuple(ends.shape)} "
-                         f"recs {tuple(recs.shape)} D {D}")
-    if recs.data_ptr() % 16:
-        raise ValueError("raster_planes_windows: recs must be 16-byte aligned")
-    n_chunks = recs.shape[1] // V3_CHUNK
+    if records.device.type == "cpu":
+        return raster_planes_windows_plain(kept, bins, records, image_size, tiles_x, D)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_planes_windows: unsupported device {records.device}")
+    dev = records.device
+    B, Tp, C, F = _check_read_through("raster_planes_windows", kept, bins, records,
+                                      REC5_LANES)
+    _check_cuda("face_verts", face_verts, torch.float32, 4, dev)
+    if tuple(face_verts.shape) != (B, F, 3, 3) or not 1 <= D <= (REC5_LANES - 13) // 3:
+        raise ValueError(f"raster_planes_windows: face_verts {tuple(face_verts.shape)} "
+                         f"for records {tuple(records.shape)}, D {D}")
     p2f = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
     zbuf = torch.empty((B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
     slot = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
     vals = torch.empty((D, B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
     lib = kernels.library("raster_planes")
     rc = lib.smirk_raster_planes_windows(
-        starts.data_ptr(), ends.data_ptr(), recs.data_ptr(), p2f.data_ptr(),
-        zbuf.data_ptr(), slot.data_ptr(), vals.data_ptr(), B, Tp, n_chunks,
-        image_size, image_size, tiles_x, D, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        kept.data_ptr(), bins.data_ptr(), records.data_ptr(), face_verts.data_ptr(),
+        p2f.data_ptr(), zbuf.data_ptr(), slot.data_ptr(), vals.data_ptr(),
+        B, Tp, C, F, image_size, image_size, tiles_x, D, _cull_grid_radius(image_size),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "raster_planes_windows")
     raster_planes_windows.launches += 1
     return p2f, zbuf, slot, vals
@@ -1534,7 +1610,7 @@ def raster_bins_coverage(counts, bins, fv9, image_size: int):
 
 raster_bins_coverage.launches = 0
 
-KERNELS = (compact_faces, raster_fused_windows, raster_planes_windows,
+KERNELS = (raster_fused_windows, raster_planes_windows,
            segment_moments, fold_slots_to_faces, raster_coverage_windows,
            segment_reduce_tiles, raster_bins_coverage, raster_fused_groups,
            raster_fused_groups_local, raster_chunkskip)
@@ -1546,17 +1622,18 @@ def _v5_impl(face_verts, attributes, image_size: int, capacity: int,
     (B,H,W,D), pix_to_face (B,H,W), zbuf (B,H,W), slots (B,Tp,1024)
     tile-major per-tile slots, bins (B,Tp,C), overflow (B,) int32).
 
-    compact: chunk budget of the compact layout (rounded up to 8; the plan,
-    K2 and the record gather of the inference raster); None = padded
-    layout. overflow counts compact chunks dropped past the budget.
+    compact: chunk budget of the compact layout (rounded up to 8, as the
+    inference raster's); None = padded layout. overflow counts compact
+    chunks dropped past the budget.
     """
     _check_capacity(capacity)
     bins, counts = bin_faces_flat(face_verts, image_size, capacity)
-    starts, ends, recs, overflow = _layout(
-        planes_records(face_verts, attributes), bins, counts, capacity, compact)
+    kept, overflow = _windows(counts, compact)
     D = attributes.shape[-1]
     tx = -(-image_size // TILE_COLS)
-    p2f, zbuf, slots, vals = raster_planes_windows(starts, ends, recs, image_size, tx, D)
+    p2f, zbuf, slots, vals = raster_planes_windows(
+        kept, bins, planes_records(face_verts, attributes), face_verts.contiguous(),
+        image_size, tx, D)
     vals = torch.stack([_tiles_to_image(v, image_size) for v in vals], dim=-1)
     return (vals, _tiles_to_image(p2f, image_size), _tiles_to_image(zbuf, image_size),
             slots, bins, overflow)
@@ -1764,8 +1841,9 @@ def _v3_impl(face_verts: torch.Tensor, image_size: int, capacity: int):
     _check_capacity(capacity)
     face_verts = face_verts.detach()
     bins, counts = bin_faces(face_verts, image_size, capacity)
-    starts, ends, recs, _ = _layout(coverage_records(face_verts), bins, counts,
-                                    capacity, None)
+    starts, ends = padded_windows(counts, capacity // V3_CHUNK)
+    recs = _gather_recs(coverage_records(face_verts),
+                        bins.reshape(bins.shape[0], -1)).contiguous()
     p2f, zbuf, slot = raster_coverage_windows(
         starts, ends, recs, image_size, -(-image_size // TILE_COLS))
     return (_tiles_to_image(p2f, image_size), _tiles_to_image(zbuf, image_size),

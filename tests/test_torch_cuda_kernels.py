@@ -36,47 +36,72 @@ def test_kernels_match_plain(card, full, size, B):
     r = Renderer(bundle, image_size=size, device=card)
     fv, fn = r._face_geometry(verts, r.project(verts, cam))
     cap = r.bin_capacity
-    CPT = cap // R.V3_CHUNK
     TX = -(-size // R.TILE_COLS)
     bins, counts = R.bin_faces_flat(fv, size, cap)
-    Tp = bins.shape[1]
-    bins3 = bins.reshape(B, Tp * CPT, R.V3_CHUNK)
     records = R.fused_records(fv, fn)
     R.reset_launch_counts()
-    for budget in (r.raster_compact, 8):
-        s, e, tof, total, _ = R._compact_plan(counts, budget)
-        faces = R.compact_faces(tof, s, total, bins3, CPT)
-        assert torch.equal(faces, R.compact_faces_plain(tof, s, total, bins3, CPT))
-        recs = R._gather_recs(records, faces.reshape(B, -1)).contiguous()
-        got = R.raster_fused_windows(s, e, recs, size, TX)
-        want = R.raster_fused_windows_plain(s, e, recs, size, TX)
-        for a, b in zip(got, want):
+    for compact in (r.raster_compact, 8, None):
+        kept, overflow = R._windows(counts, compact)
+        got = R.raster_fused_windows(kept, bins, records, size, TX)
+        for a, b in zip(got, R.raster_fused_windows_plain(kept, bins, records, size, TX)):
             assert torch.equal(a, b)
-    ps, pe = R.padded_windows(counts, CPT)
-    recs = R._gather_recs(records, bins.reshape(B, -1)).contiguous()
-    for a, b in zip(R.raster_fused_windows(ps, pe, recs, size, TX),
-                    R.raster_fused_windows_plain(ps, pe, recs, size, TX)):
-        assert torch.equal(a, b)
+        if compact is not None:  # the packed route K2's contract describes
+            s, e, recs, dropped = R.packed_layout_plain(records, bins, counts, compact)
+            assert torch.equal(dropped, overflow)
+            for a, b in zip(got, R._fused_plain(s, e, recs, size, TX)):
+                assert torch.equal(a, b)
     torch.cuda.synchronize()
-    assert R.compact_faces.launches == 2 and R.raster_fused_windows.launches == 3
+    assert R.raster_fused_windows.launches == 3
+    assert int(R._windows(counts, 8)[1].min()) > 0  # budget 8 drops chunks
 
 
 def test_wrappers_reject_bad_arguments(card):
-    starts = torch.zeros((1, 8), dtype=torch.int32, device=card)
-    recs = torch.zeros((1, 32, 32), device=card)
+    """K1 and K3 refuse a wrong bins dtype, a wrong record width, face
+    vertices that do not match the records and inputs on two devices."""
+    kept = torch.ones((1, 8), dtype=torch.int32, device=card)
+    bins = torch.full((1, 8, 64), -1, dtype=torch.int32, device=card)
+    recs = torch.zeros((1, 40, 32), device=card)
+    fv = torch.zeros((1, 40, 3, 3), device=card)
     with pytest.raises(TypeError):
-        R.raster_fused_windows(starts.float(), starts, recs, 64, 1)
+        R.raster_fused_windows(kept, bins.long(), recs, 64, 1)
     with pytest.raises(ValueError):
-        R.raster_fused_windows(starts, starts, recs[:, :, :16].contiguous(), 64, 1)
+        R.raster_fused_windows(kept, bins, recs[:, :, :16].contiguous(), 64, 1)
     with pytest.raises(ValueError):
-        R.raster_fused_windows(starts, starts.cpu(), recs, 64, 1)
+        R.raster_fused_windows(kept.cpu(), bins, recs, 64, 1)
+    with pytest.raises(TypeError):
+        R.raster_planes_windows(kept, bins.float(), recs, fv, 64, 1, 3)
+    with pytest.raises(ValueError):
+        R.raster_planes_windows(kept, bins, recs[:, :, :16].contiguous(), fv, 64, 1, 3)
+    with pytest.raises(ValueError):
+        R.raster_planes_windows(kept, bins, recs, fv[:, :20].contiguous(), 64, 1, 3)
+
+
+@pytest.mark.parametrize("size", [64, 100])
+def test_kept_past_the_bins_is_clamped_as_plain(card, size):
+    """A kept count past the bins' C/32 chunks (or below 0): K1 and K3 clamp
+    it to [0, C/32] on the card as their plain versions do, bitwise."""
+    B = 2
+    fv, fn = _face_region(card, B, size, 4)
+    TX = -(-size // R.TILE_COLS)
+    cap = 128
+    bins, counts = R.bin_faces_flat(fv, size, cap)
+    kept = R._windows(counts, None)[0]
+    over = torch.where(kept > 0, kept + 3, -1).to(torch.int32)  # past C/32 = 4, or < 0
+    fr, pr = R.fused_records(fv, fn), R.planes_records(fv, fn)
+    for a, b in zip(R.raster_fused_windows(over, bins, fr, size, TX),
+                    R.raster_fused_windows_plain(over, bins, fr, size, TX)):
+        assert torch.equal(a, b)
+    for a, b in zip(R.raster_planes_windows(over, bins, pr, fv.contiguous(), size, TX, 3),
+                    R.raster_planes_windows_plain(over, bins, pr, size, TX, 3)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("full,size,B", [(False, 64, 2), (False, 100, 2), (True, 224, 3)])
 def test_training_kernels_match_plain(card, full, size, B):
-    """K3 bitwise on the compact, padded and a truncated layout; K4 and K5
-    within 1e-5 x the sum of the magnitudes of their terms (their atomics
-    reorder fp32 sums); the raster gradient against the CPU path."""
+    """K3 (read through the bins, culled) bitwise equal to its plain version
+    and to the packed route on the compact, padded and a truncated layout;
+    K4 and K5 within 1e-5 x the sum of the magnitudes of their terms (their
+    atomics reorder fp32 sums); the raster gradient against the CPU path."""
     bundle = procedural_bundle(seed=2, full_size=full)
     rng = np.random.default_rng(1)
     vt = bundle["v_template"]
@@ -86,25 +111,21 @@ def test_training_kernels_match_plain(card, full, size, B):
     r = Renderer(bundle, image_size=size, device=card)
     fv, fn = r._face_geometry(verts, r.project(verts, cam))
     cap = r.bin_capacity
-    CPT = cap // R.V3_CHUNK
     TX = -(-size // R.TILE_COLS)
     bins, counts = R.bin_faces_flat(fv, size, cap)
-    Tp = bins.shape[1]
     records = R.planes_records(fv, fn)
     R.reset_launch_counts()
-    layouts = []
-    for budget in (r.raster_compact, 8):
-        s, e, tof, total, _ = R._compact_plan(counts, budget)
-        faces = R.compact_faces(tof, s, total, bins.reshape(B, Tp * CPT, R.V3_CHUNK), CPT)
-        layouts.append((s, e, R._gather_recs(records, faces.reshape(B, -1)).contiguous()))
-    ps, pe = R.padded_windows(counts, CPT)
-    layouts.append((ps, pe, R._gather_recs(records, bins.reshape(B, -1)).contiguous()))
-    for s, e, recs in layouts:
-        got = R.raster_planes_windows(s, e, recs, size, TX, 3)
-        want = R.raster_planes_windows_plain(s, e, recs, size, TX, 3)
-        for a, b in zip(got, want):
+    for compact in (r.raster_compact, 8, None):
+        kept, _ = R._windows(counts, compact)
+        got = R.raster_planes_windows(kept, bins, records, fv, size, TX, 3)
+        for a, b in zip(got, R.raster_planes_windows_plain(kept, bins, records, size, TX, 3)):
             assert torch.equal(a, b)
-    slots = R.raster_planes_windows(*layouts[0], size, TX, 3)[2]
+        if compact is not None:
+            s, e, recs, _ = R.packed_layout_plain(records, bins, counts, compact)
+            for a, b in zip(got, R._planes_plain(s, e, recs, size, TX, 3)):
+                assert torch.equal(a, b)
+    slots = R.raster_planes_windows(R._windows(counts, r.raster_compact)[0], bins, records,
+                                    fv, size, TX, 3)[2]
     g = torch.randn((B, size, size, 3), device=card,
                     generator=torch.Generator(device=card).manual_seed(0))
     g_t = R.image_to_tiles(g, size).contiguous()
@@ -136,6 +157,40 @@ def test_training_kernels_match_plain(card, full, size, B):
         assert ((a.cpu().double() - b.double()).abs() <= 1e-4 * sc + 1e-30).all()
 
 
+def test_culled_planes_kernel_matches_plain_on_slivers(card):
+    """Culled K3 bitwise equal to its plain version, which tests every face,
+    on 224 px images of random faces of 0.3 to 16 px, a third of them
+    replaced by slivers and near-degenerate faces along pixel rows (the
+    faces `cull_boxes` never culls), on the padded layout and at a budget
+    that drops chunks."""
+    rng = np.random.default_rng(7)
+    B, S, F, cap = 2, 224, 3000, 512
+    p0 = rng.uniform(-10, S + 10, (B, F, 1, 2))
+    pts = p0 + rng.normal(size=(B, F, 3, 2)) * 10 ** rng.uniform(-0.5, 1.2, (B, F, 1, 1))
+    sl = rng.random((B, F)) < 1 / 3
+    base = np.concatenate([p0[..., 0], np.round(p0[..., 1])], -1)  # (B,F,2), on a row
+    length = rng.uniform(0.2, 30.0, (B, F, 1))
+    off = 10 ** rng.uniform(-9, -1, (B, F, 1))
+    t = rng.uniform(-0.5, 1.5, (B, F, 1))
+    sliver = np.stack([base, base + np.concatenate([length, 0 * length], -1),
+                       base + np.concatenate([t * length, off], -1)], 2)
+    pts = np.where(sl[..., None, None], sliver, pts)
+    xy = (2.0 * pts - S + 1.0) / S
+    fv = torch.tensor(np.concatenate([xy, rng.uniform(9, 11, (B, F, 3, 1))], -1),
+                      dtype=torch.float32, device=card)
+    attrs = torch.tensor(rng.normal(size=(B, F, 3, 3)), dtype=torch.float32, device=card)
+    TX = -(-S // R.TILE_COLS)
+    bins, counts = R.bin_faces_flat(fv, S, cap)
+    records = R.planes_records(fv, attrs)
+    assert bool(torch.isinf(R.cull_boxes(fv, S)[..., 0]).any())
+    for compact in (None, 64):
+        kept, _ = R._windows(counts, compact)
+        got = R.raster_planes_windows(kept, bins, records, fv, S, TX, 3)
+        for a, b in zip(got, R.raster_planes_windows_plain(kept, bins, records, S, TX, 3)):
+            assert torch.equal(a, b)
+        assert float((got[0] >= 0).float().mean()) > 0.05
+
+
 def test_training_wrappers_reject_bad_arguments(card):
     slots = torch.zeros((1, 8, 1024), dtype=torch.int32, device=card)
     g = torch.zeros((1, 8, 1024, 3), device=card)
@@ -145,9 +200,11 @@ def test_training_wrappers_reject_bad_arguments(card):
         R.segment_moments(slots[:, :4], g, 32, 64)  # slots and g disagree
     with pytest.raises(ValueError):
         R.fold_slots_to_faces(g[..., :32, :].contiguous(), slots[..., :16], 10)
-    starts = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    kept = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    bins = torch.full((1, 8, 32), -1, dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        R.raster_planes_windows(starts, starts, torch.zeros((1, 32, 32), device=card), 64, 1, 7)
+        R.raster_planes_windows(kept, bins, torch.zeros((1, 32, 32), device=card),
+                                torch.zeros((1, 32, 3, 3), device=card), 64, 1, 7)
 
 
 def _face_region(card, B, size, seed):
@@ -167,14 +224,15 @@ def test_coverage_kernels_match_plain(card, size, B, cap):
     the same padded bins; K8 bitwise equal to its plain version."""
     fv, fn = _face_region(card, B, size, 3)
     TX = -(-size // R.TILE_COLS)
-    bins, counts = R.bin_faces(fv, size, cap)
-    s, e, recs, _ = R._layout(R.coverage_records(fv), bins, counts, cap, None)
+    bins, counts = R.bin_faces_flat(fv, size, cap)
+    s, e = R.padded_windows(counts, cap // R.V3_CHUNK)
+    recs = R._gather_recs(R.coverage_records(fv), bins.reshape(B, -1)).contiguous()
     R.reset_launch_counts()
     k6 = R.raster_coverage_windows(s, e, recs, size, TX)
     for a, b in zip(k6, R.raster_coverage_windows_plain(s, e, recs, size, TX)):
         assert torch.equal(a, b)
-    _, _, recs3, _ = R._layout(R.planes_records(fv, fn), bins, counts, cap, None)
-    k3 = R.raster_planes_windows(s, e, recs3, size, TX, 3)
+    k3 = R.raster_planes_windows(R._windows(counts, None)[0], bins, R.planes_records(fv, fn),
+                                 fv, size, TX, 3)
     for a, b in zip(k6, k3[:3]):
         assert torch.equal(a, b)
     fv9 = fv.reshape(B, -1, 9).contiguous()
@@ -267,8 +325,8 @@ def test_group_kernels_match_plain(card, size, B, cap, tps):
     recs = R._gather_recs(R.fused_records(fv, fn), bins.reshape(B, -1)).contiguous()
     R.reset_launch_counts()
     k9 = R.raster_fused_groups(counts, recs, size, TX, tps)
-    ps, pe = R.padded_windows(counts, cap // R.V3_CHUNK)
-    k1b = R.raster_fused_windows(ps, pe, recs, size, TX)
+    k1b = R.raster_fused_windows(R._windows(counts, None)[0], bins, R.fused_records(fv, fn),
+                                 size, TX)
     for a, b, c in zip(k9, R.raster_fused_groups_plain(counts, recs, size, TX, tps), k1b):
         assert torch.equal(a, b) and torch.equal(a, c)
     sc, srecs, _ = R.sorted_tiles(R.fused_records(fv, fn), bins, counts, size)

@@ -179,7 +179,7 @@ def test_compact_faces_plain_matches_jax_kernel(bundles, full, size, B, seed):
     Tp = bins.shape[1]
     for budget in (r.raster_compact, 8):
         st, _, tt, tot, _ = TR._compact_plan(counts, budget)
-        ours = TR.compact_faces(tt, st, tot, bins.reshape(B, Tp * CPT, 32), CPT)
+        ours = TR.compact_faces_plain(tt, st, tot, bins.reshape(B, Tp * CPT, 32), CPT)
         sj, _, tj, metaj, _ = JR._compact_plan(jnp.asarray(counts.numpy()), budget)
         ref = JR._compact_faces(metaj, tj, sj, jnp.asarray(bins.numpy()), B, Tp,
                                 CPT, budget, True)
