@@ -16,10 +16,11 @@ Phases (any failure exits non-zero):
     their renders equal, bitwise, the plain renders over the packed route
     the TPU takes (`_compact_plan` + `compact_faces_plain` + a record
     gather, `packed_layout_plain`), with equal overflow;
- 4. K1 raster_fused_windows on the compact and padded (K1b) layouts vs its
-    plain version: pix_to_face, zbuf and normals bitwise equal; compact ==
-    padded when nothing overflows; a truncated budget (24 chunks) overflows
-    and renders its trailing tiles empty;
+ 4. K1 raster_fused_windows (bins read through, the warp bounding-box
+    cull) on the compact and padded (K1b) layouts vs its plain version,
+    which tests every face: pix_to_face, zbuf and normals bitwise equal;
+    compact == padded when nothing overflows; a truncated budget (24
+    chunks) overflows and renders its trailing tiles empty;
  4b. K3 raster_planes_windows (the differentiable raster's forward, with
     the warp bounding-box cull) on the compact and padded (K3b) layouts vs
     its plain version, which tests every face, at the training shapes
@@ -39,9 +40,10 @@ Phases (any failure exits non-zero):
     every element within 1e-5 x the sum of the magnitudes of its terms: 36
     channels at capacity 512 (74 KB of accumulators per block), and 72
     channels at capacity 1024 (295 KB: the channels split over the grid);
- 4g. K8 raster_bins_coverage at b32, capacity 384: bitwise equal to its
-    plain version, and against K6's pix_to_face by the tests' edge/depth
-    tie rule;
+ 4g. K8 raster_bins_coverage (staged one chunk ahead, the warp cull with
+    its own boxes, `cull_boxes_bins`) at b32, capacity 384: bitwise equal
+    to its plain version, which tests every face, and against K6's
+    pix_to_face by the tests' edge/depth tie rule;
  4h. K4 segment_moments at D = 6, capacity 768 (55 KB of accumulators)
     against its plain version, within 1e-5 x the sum of magnitudes;
  4i. the scheduled inference rasters on the main path's faces (b64, the
@@ -55,6 +57,12 @@ Phases (any failure exits non-zero):
     rule, nothing dropped; at cap 4 chunks are dropped, the kept list is
     the full list's nearest prefix, and where the full render's winner is
     in that prefix it still wins;
+ 4j. the culled kernels on a sliver-heavy batch (b2, 224 px, 3000 random
+    faces, a third of them slivers and near-degenerate faces along pixel
+    rows, which the cull boxes leave unbounded): K1 at the default budget,
+    padded and at a budget of 64 that drops chunks, and K8, bitwise equal
+    to their plain versions; K8 on a face that covers pixels through a
+    barycentric rounded to -0 (its sign test must not reject them);
  5. the main path through `Predictor` at full width (three full
     MobileNetV3-minimal encoders, FLAME with 300 shape / 50 expression
     components on the full-size procedural head, batch 64, 224 px), random
@@ -108,8 +116,8 @@ Phases (any failure exits non-zero):
     with K1's and K3's bounds (K9-K11 take K1's) counted from this run's
     inputs as the work their function needs (the face-pixel pairs in the
     faces' boxes, the binned records read once), the count of every slot
-    against every pixel and the face-warp tests K3's cull keeps printed
-    beside them;
+    against every pixel and the face-warp tests the culls of K1, K3 and K8
+    keep printed beside them;
  8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
@@ -246,13 +254,13 @@ def raster_bound(win, n_tiles, n_out, n_planes, B, Tp, lanes=32):
 
 
 def culled_work(kept, bins, raw, image_size, boxes=None):
-    """The work of a read-through raster (K1, K3) on these inputs, counted
+    """The work of a binned raster (K1, K3, K6, K8) on these inputs, counted
     on the host from the inputs (no device counter) -> dict: chunk_steps
     (sum of kept), box_pairs ((face, pixel) pairs of a walked face and a
     pixel of its tile whose centre lies in the face's bounding box `raw`),
     binned_faces (distinct faces in the walked chunks, summed over images)
-    and, given K3's cull boxes `boxes`, warp_tests_all (32 x chunk steps x
-    8 warps: every face slot for every warp, the unculled walk) and
+    and, given a kernel's cull boxes `boxes`, warp_tests_all (32 x chunk
+    steps x 8 warps: every face slot for every warp, the unculled walk) and
     warp_tests_kept (face-warp tests the cull keeps: a real face whose cull
     box widened by one pixel meets the warp's 16x8 rectangle)."""
     import torch
@@ -286,6 +294,12 @@ def culled_work(kept, bins, raw, image_size, boxes=None):
         work["warp_tests_all"] = steps * R.V3_CHUNK * 8
         work["warp_tests_kept"] = int((meet & real[..., None]).sum())
     return work
+
+
+def kept_share(work) -> str:
+    """The face-warp tests a cull keeps, of 32 x chunk steps x 8 warps."""
+    return (f"{work['warp_tests_kept']} of {work['warp_tests_all']} (32 x chunk steps x 8 "
+            f"warps, {work['warp_tests_kept'] / max(1, work['warp_tests_all']) * 100:.1f} %)")
 
 
 def culled_bound(work, n_tiles, n_out, n_planes, rec_bytes=128,
@@ -349,6 +363,30 @@ def tie_mismatches(p2f_a, p2f_b, zb_a, zb_b, fv, size):
           f"the {bad} differing pixels are edge or depth ties")
     check(bad <= 1e-3 * p2f_a.numel(), f"{bad} differing pixels <= 0.1 %")
     return bad
+
+
+def sliver_faces(dev, S, B=2, F=3000):
+    """(B,F,3,3) faces, (B,F,3,3) normals on S px images (seeded): random
+    faces of 0.3 to 16 px, a third of them replaced by slivers and
+    near-degenerate faces along pixel rows (tests/test_torch_cuda_kernels.py's
+    sliver batch)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    p0 = rng.uniform(-10, S + 10, (B, F, 1, 2))
+    pts = p0 + rng.normal(size=(B, F, 3, 2)) * 10 ** rng.uniform(-0.5, 1.2, (B, F, 1, 1))
+    sl = rng.random((B, F)) < 1 / 3
+    base = np.concatenate([p0[..., 0], np.round(p0[..., 1])], -1)  # on a pixel row
+    length = rng.uniform(0.2, 30.0, (B, F, 1))
+    off = 10 ** rng.uniform(-9, -1, (B, F, 1))
+    t = rng.uniform(-0.5, 1.5, (B, F, 1))
+    sliver = np.stack([base, base + np.concatenate([length, 0 * length], -1),
+                       base + np.concatenate([t * length, off], -1)], 2)
+    xy = (2.0 * np.where(sl[..., None, None], sliver, pts) - S + 1.0) / S
+    fv = torch.tensor(np.concatenate([xy, rng.uniform(9, 11, (B, F, 3, 1))], -1),
+                      dtype=torch.float32, device=dev)
+    return fv, torch.tensor(rng.normal(size=(B, F, 3, 3)), dtype=torch.float32, device=dev)
 
 
 def train_batch(B, S, seed):
@@ -561,7 +599,7 @@ def main(argv=None) -> int:
             s_, e_, recs_, ovf_ = R.packed_layout_plain(records, bins, counts, bud)
             check(torch.equal(ob, ovf_), f"overflow at budget {bud} == the plan's "
                   f"(max {int(ob.max())})")
-            got = R.raster_fused_windows(kb, bins, records, S, TX)
+            got = R.raster_fused_windows(kb, bins, records, face_verts, S, TX)
             want = R._fused_plain(s_, e_, recs_, S, TX)
             kb3, ob3 = R._windows(counts_t, bud)
             s3_, e3_, recs3_, ovf3_ = R.packed_layout_plain(prec, bins_t, counts_t, bud)
@@ -576,15 +614,16 @@ def main(argv=None) -> int:
         check(int(ob.min()) > 0 and int(ob3.min()) > 0, "budget 8 drops chunks in every image")
 
         # ---------------- 4. K1 / K1b ----------------
-        log("[4] K1 raster_fused_windows, compact and padded layouts")
-        k1 = R.raster_fused_windows(kept, bins, records, S, TX)
+        log("[4] K1 raster_fused_windows (bins read through, warp cull), compact and "
+            "padded layouts")
+        k1 = R.raster_fused_windows(kept, bins, records, face_verts, S, TX)
         k1_plain = R.raster_fused_windows_plain(kept, bins, records, S, TX)
         torch.cuda.synchronize()
         k1_err = 0.0
         for nm, a, b in zip(FIVE, k1, k1_plain):
-            check(torch.equal(a, b), f"K1 {nm} == plain (bitwise)")
+            check(torch.equal(a, b), f"culled K1 {nm} == plain, every face tested (bitwise)")
             k1_err = max(k1_err, float((a.double() - b.double()).abs().max()))
-        k1b = R.raster_fused_windows(kept_p, bins, records, S, TX)
+        k1b = R.raster_fused_windows(kept_p, bins, records, face_verts, S, TX)
         k1b_plain = R.raster_fused_windows_plain(kept_p, bins, records, S, TX)
         torch.cuda.synchronize()
         k1b_err = 0.0
@@ -598,7 +637,7 @@ def main(argv=None) -> int:
         # truncated budget: overflow from the plan, trailing tiles empty
         tb = 24
         tkept, tdrop = R._windows(counts, tb)
-        tk1 = R.raster_fused_windows(tkept, bins, records, S, TX)
+        tk1 = R.raster_fused_windows(tkept, bins, records, face_verts, S, TX)
         tk1_plain = R.raster_fused_windows_plain(tkept, bins, records, S, TX)
         for nm, a, b in zip(FIVE, tk1, tk1_plain):
             check(torch.equal(a, b), f"K1 {nm} == plain at budget {tb}")
@@ -754,14 +793,15 @@ def main(argv=None) -> int:
                R.segment_sum(slots7b, pay7b.abs(), 1024), "K7 vs plain, C=1024, CHN=72")
 
         # ---------------- 4g. K8 ----------------
-        log(f"[4g] K8 raster_bins_coverage at B={BT}, capacity {cap}")
+        log(f"[4g] K8 raster_bins_coverage (staged ahead, warp cull) at B={BT}, "
+            f"capacity {cap}")
         fv9 = fvt.reshape(BT, -1, 9).contiguous()
         k8 = R.raster_bins_coverage(counts_t, bins_t, fv9, S)
         k8_plain = R.raster_bins_coverage_plain(counts_t, bins_t, fv9, S)
         torch.cuda.synchronize()
         k8_err = 0.0
         for nm, a, b in zip(("p2f", "zbuf"), k8, k8_plain):
-            check(torch.equal(a, b), f"K8 {nm} == plain (bitwise)")
+            check(torch.equal(a, b), f"culled K8 {nm} == plain, every face tested (bitwise)")
             k8_err = max(k8_err, float((a.double() - b.double()).abs().max()))
         k6_img = [R._tiles_to_image(x, S) for x in k6[cap][5][:2]]
         k8_bad = tie_mismatches(k8[0][:, :S, :S], k6_img[0], k8[1][:, :S, :S], k6_img[1],
@@ -858,6 +898,41 @@ def main(argv=None) -> int:
               f"the full render's winner still wins at the {int(in_prefix.sum())} pixels "
               "whose winning chunk the cap-4 list kept")
 
+    # ---------------- 4j. the culled kernels on slivers ----------------
+    log("[4j] culled K1 and K8 on a sliver-heavy batch (b2, 224 px, capacity 512)")
+    with torch.inference_mode():
+        fvs, fns = sliver_faces(dev, S)
+        bins_s, counts_s = R.bin_faces_flat(fvs, S, 512)
+        recs_s = R.fused_records(fvs, fns)
+        check(bool(torch.isinf(R.cull_boxes(fvs, S)[..., 0]).any())
+              and bool(torch.isinf(R.cull_boxes_bins(fvs, S)[..., 0]).any()),
+              "both cull-box functions leave some faces of the batch unbounded")
+        for bud in (budget, None, 64):
+            kept_s, drop_s = R._windows(counts_s, bud)
+            got = R.raster_fused_windows(kept_s, bins_s, recs_s, fvs, S, TX)
+            want = R.raster_fused_windows_plain(kept_s, bins_s, recs_s, S, TX)
+            torch.cuda.synchronize()
+            for nm, a, b in zip(FIVE, got, want):
+                check(torch.equal(a, b), f"slivers, budget {bud}: culled K1 {nm} == plain "
+                      "(bitwise)")
+        check(int(drop_s.min()) > 0, "budget 64 drops chunks of the sliver batch")
+        fv9_s = fvs.reshape(2, -1, 9).contiguous()
+        got = R.raster_bins_coverage(counts_s, bins_s, fv9_s, S)
+        want = R.raster_bins_coverage_plain(counts_s, bins_s, fv9_s, S)
+        torch.cuda.synchronize()
+        for nm, a, b in zip(("p2f", "zbuf"), got, want):
+            check(torch.equal(a, b), f"slivers: culled K8 {nm} == plain (bitwise)")
+        # K8 divides wherever a barycentric may round to -0: at the centre row
+        # of a 65 px image this face covers pixels through w_0 = -0
+        fvz = torch.tensor([[[[0.0, 1.0, 10.0], [1.0, 2.0 ** -149, 10.0],
+                              [-1.0, 0.0, 10.0]]]], device=dev)
+        bz, cz = R.bin_faces_flat(fvz, 65, 32)
+        got = R.raster_bins_coverage(cz, bz, fvz.reshape(1, 1, 9), 65)
+        want = R.raster_bins_coverage_plain(cz, bz, fvz.reshape(1, 1, 9), 65)
+        check(all(torch.equal(a, b) for a, b in zip(got, want))
+              and int((want[0][0, 32, :65] == 0).sum()) >= 3,
+              "K8 == plain on a face covering pixels through a -0 barycentric")
+
     if args.quick:
         log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                                "count": count}}))
@@ -943,7 +1018,7 @@ def main(argv=None) -> int:
         fv_c, fn_c = k1_cycle["faces"]
         bins_c, counts_c = R.bin_faces_flat(fv_c, S, cap)
         k1_cycle["args"] = (R._windows(counts_c, budget)[0], bins_c,
-                            R.fused_records(fv_c, fn_c), S, TX)
+                            R.fused_records(fv_c, fn_c), fv_c.contiguous(), S, TX)
     torch.cuda.synchronize()
     log(f"    launches over 6 train steps: {train_launches}")
     for i, m in enumerate(train_metrics):
@@ -1117,11 +1192,12 @@ def main(argv=None) -> int:
         bidx = torch.arange(B, device=tof.device)[:, None]
         # yardstick of K2's function: one advanced-index gather of the same rows
         res["k2_library_ms"] = cuda_ms(lambda: bins3[bidx, rows], 200)
-        res["k1_ms"] = cuda_ms(lambda: R.raster_fused_windows(kept, bins, records, S, TX), 50)
+        res["k1_ms"] = cuda_ms(
+            lambda: R.raster_fused_windows(kept, bins, records, face_verts, S, TX), 50)
         res["k1_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_windows_plain(kept, bins, records, S, TX), 5, 1)
         res["k1b_ms"] = cuda_ms(
-            lambda: R.raster_fused_windows(kept_p, bins, records, S, TX), 50)
+            lambda: R.raster_fused_windows(kept_p, bins, records, face_verts, S, TX), 50)
         res["k1b_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_windows_plain(kept_p, bins, records, S, TX), 5, 1)
         # K1 on the cycle path's faces of the last train step (b32)
@@ -1291,8 +1367,9 @@ def main(argv=None) -> int:
     # (the pairs in the faces' boxes, the binned records read once); the
     # count of every slot against every pixel is printed beside them
     raw = torch.stack(R._bbox_and_priority(face_verts, S)[:4], -1)
-    work1 = culled_work(kept, bins, raw, S)
-    work1p = culled_work(kept_p, bins, raw, S)
+    boxes1 = R.cull_boxes(face_verts, S)  # as K1 computes them in its staging
+    work1 = culled_work(kept, bins, raw, S, boxes1)
+    work1p = culled_work(kept_p, bins, raw, S, boxes1)
     k1_bms, k1_by = culled_bound(work1, n_tiles, 5, 3)
     k1b_bms, k1b_by = culled_bound(work1p, n_tiles, 5, 3)
     k1_old_bms, _ = raster_bound(win_c, n_tiles, 5, 3, B, Tp)
@@ -1314,7 +1391,8 @@ def main(argv=None) -> int:
     k7_bytes = BT * Tp * R.TILE_PIX * (36 + 1) * 4 + BT * Tp * 512 * 36 * 4
     T_real = -(-S // R.TILE_ROWS) * TX
     k8_pairs = int(counts_t[:, :T_real].sum()) * R.TILE_PIX
-    work8 = culled_work(kept3p, bins_t, raw_t, S)
+    # K8's cull boxes, as it computes them in its staging
+    work8 = culled_work(kept3p, bins_t, raw_t, S, R.cull_boxes_bins(fvt, S))
     k8_bms, k8_by = culled_bound(work8, BT * Tp, 2, 0, rec_bytes=36,
                                  ops_per_pair=OPS_PER_FACE_PIXEL_K8)
     k8_old_bms, _ = bound(k8_pairs * OPS_PER_FACE_PIXEL_K8,
@@ -1428,21 +1506,21 @@ def main(argv=None) -> int:
         log(f"    {nm} bound {bms:.4f} ms ({by}: {w['box_pairs']} face-pixel pairs in the "
             f"faces' boxes x {OPS_PER_FACE_PIXEL}, {w['binned_faces']} binned faces); "
             f"every slot against every pixel {old_bms:.4f} ms ({w['chunk_steps']} chunk "
-            "steps x 32 x 1024 pixels); K9 and K10 take K1b's bound, K11 K1's")
+            "steps x 32 x 1024 pixels); K9 and K10 take K1b's bound, K11 K1's; "
+            f"face-warp tests the cull keeps {kept_share(w)}")
     log(f"    bounds: K6 {k6_bms:.4f} ms ({k6_by}, {work6['box_pairs']} face-pixel pairs "
         f"in the faces' boxes x {OPS_PER_FACE_PIXEL}; every slot against every pixel "
         f"{k6_old_bms:.4f} ms), K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
         f"{k7_bytes / 1e6:.1f} MB), K8 {k8_bms:.4f} ms ({k8_by}, {work8['box_pairs']} "
         f"face-pixel pairs in the faces' boxes x {OPS_PER_FACE_PIXEL_K8}; every binned "
-        f"face against every pixel {k8_old_bms:.4f} ms, {k8_pairs} pairs)")
+        f"face against every pixel {k8_old_bms:.4f} ms, {k8_pairs} pairs); K8's "
+        f"face-warp tests the cull keeps {kept_share(work8)}")
     for nm, w, bms, by, old_bms in (("K3", work3, k3_bms, k3_by, k3_old_bms),
                                     ("K3b", work3p, k3b_bms, k3b_by, k3b_old_bms)):
         log(f"    {nm} bound {bms:.4f} ms ({by}: {w['box_pairs']} face-pixel pairs "
             f"in the faces' boxes x {OPS_PER_FACE_PIXEL}, {w['binned_faces']} binned faces); "
             f"the unculled count's bound {old_bms:.4f} ms ({w['chunk_steps']} chunk steps x "
-            f"32 x 1024 pixels); face-warp tests the cull keeps {w['warp_tests_kept']} of "
-            f"{w['warp_tests_all']} (32 x chunk steps x 8 warps, "
-            f"{w['warp_tests_kept'] / max(1, w['warp_tests_all']) * 100:.1f} %)")
+            f"32 x 1024 pixels); face-warp tests the cull keeps {kept_share(w)}")
     log(f"    schedules past the function's work: K9 walks {int((e9 - s9).sum())} chunk "
         f"steps at tps 8 and K10 {int((e10 - s10).sum())}, against K1b's {win_p} (bound "
         f"{k1b_bms:.4f} ms); K11 {k11_faces} face-tile tests at chunk 8, against K1's "

@@ -7,80 +7,68 @@
 // smirk_tpu/render/rasterizer.py. On the TPU those evaluate a (32 faces x
 // 1024 pixels) block per chunk with one-hot reductions over a record list
 // that _compact_faces_kernel packs first, because a TPU kernel cannot
-// gather. Here a block owns one 8x128 tile of one image, 256 threads x 4
-// pixels, and walks chunks k = 0 .. kept - 1 of the tile's bin row; the
-// compact and padded layouts differ only in kept:
+// gather. Here a block owns one 8x128 tile of one image and walks chunks
+// k = 0 .. kept - 1 of the tile's bin row; the compact and padded layouts
+// differ only in kept. It is K3 (raster_planes.cu) with the inference
+// record layout (lanes 0-11 edge and depth planes, lane 12 the face id,
+// lanes 16-24 the normal planes [NA | NB | NC]) and no slot output, and
+// shares K3's walk (walk_window in window_raster.cuh):
 //   * staging, with the packing and the record gather folded in: thread i
 //     reads the id of face i / 8 of the chunk from the bins and loads the
 //     16-byte quarter i % 8 of that face's 128-byte record from the
 //     image's record table (28 MB at batch 64, held in L2) into shared
-//     memory; an empty slot (-1) stages a record that is never inside.
-//     The next chunk's record and the id after it are loaded before the
-//     current chunk is tested, so their latency hides behind the tests;
-//   * each thread tests the 32 faces in slot order and keeps a face only
-//     if it is inside and strictly nearer (z < best): the same first-
-//     minimum rule as the TPU kernels' chunk min + first slot + strict
+//     memory, one chunk ahead of the tests; lanes 0-2 of the face's 8 load
+//     the x and y of its three vertices beside it, and the face's cull box
+//     is computed from them as rasterizer.cull_boxes computes it, with the
+//     same fp32 operations. An empty slot stages a record that is never
+//     inside and an empty box;
+//   * the 8 warps each own a 16-column x 8-row rectangle of the tile, 4
+//     pixels a thread (one column, rows r, r + 2, 4, 6). A ballot over the
+//     32 staged boxes, widened by one pixel, gives the faces that meet the
+//     warp's rectangle, and the warp walks only those, in slot order,
+//     keeping a face only if it is inside and strictly nearer (z < best):
+//     the TPU kernels' chunk minimum, first slot on ties, and strict
 //     chunk-to-chunk compare;
 //   * the winner, k * 32 + slot in its tile's bin, is read through its id
 //     at the end for its normal planes.
 // Every affine form is evaluated as ((a*x) + (b*y)) + c with __fmul_rn /
 // __fadd_rn, and the pixel centres as ((2i + 1) - size) / size with
-// __fdiv_rn, so nothing is contracted into an FMA and the results are
-// bitwise equal to the plain PyTorch version on the card.
+// __fdiv_rn, so nothing is contracted into an FMA. A culled face fails the
+// edge tests at every pixel of the warp (the lanes 0-11 of K1's records
+// are face_records', for which cull_boxes is exact), so the outputs are
+// bitwise equal to the plain PyTorch version, which tests every face.
 //
-// Bound on H100: fp32 operations. Each face-pixel test is ~16 flops
-// (4 affine forms) plus compares; at batch 64, 224 px, ~160 kept chunks
-// per image that is ~5 GFLOP (~80 us at 67 TFLOP/s), against ~90 MB of
-// records and outputs (~27 us at 3.35 TB/s). The design keeps the record
-// traffic in shared memory and reuses each loaded record value for four
-// pixels; reading the records through the bins costs a few percent over
-// walking a packed list (48 registers against 40), far less than the
-// packing and gather it replaces. It does not skip faces whose bounding
-// box misses the thread's pixels (raster_planes.cu does).
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on H100. Without the cull: fp32 operations, ~16 per face-pixel
+// test over every slot of the walked chunks (~0.08 ms at batch 64, 224 px,
+// 67 TFLOP/s); the unculled walk took ~0.32 ms. A face of a few pixels
+// covers a few of a tile's 1024 pixels, so the number of tests, not their
+// cost (no FMAs, for bitwise equality), is the lever. What the inputs need
+// once the cull skips the faces a warp cannot see is bytes: the outputs
+// (~73 MB at batch 64) and the binned faces' records (~28 MB), ~0.03 ms at
+// 3.35 TB/s. What is left is K3's: the latency of the staging's dependent
+// loads over walks of ~3 chunks, and of the epilogue's record reads.
+#include "window_raster.cuh"
 
 namespace {
 
-constexpr int kTileRows = 8;
-constexpr int kTileCols = 128;
-constexpr int kTilePix = kTileRows * kTileCols;  // 1024
-constexpr int kChunk = 32;                        // faces per chunk
-constexpr int kLanes = 32;                        // floats per record
-constexpr int kQuarters = kLanes / 4;             // float4 per record
-constexpr int kThreads = 256;                     // = kChunk * kQuarters
-constexpr int kPixPerThread = kTilePix / kThreads;  // 4
-constexpr float kBigZ = 1e10f;
+using namespace smirk_raster;
 
-__device__ __forceinline__ float affine(float a, float b, float c, float x,
-                                        float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
-}
-
-__device__ __forceinline__ float ndc(int i, int size) {
-  const float s = (float)size;
-  return __fdiv_rn(__fsub_rn(__fadd_rn(__fmul_rn(2.0f, (float)i), 1.0f), s), s);
-}
-
-// Quarter q of face id's record; an id outside [0, F) gives the kill
-// record (edge constant c0 = -1 in lane 2, face id -1 in lane 12).
-__device__ __forceinline__ float4 record_quarter(const float4* __restrict__ recs,
-                                                 int id, int F, int q) {
-  if (id >= 0 && id < F) return __ldg(recs + (size_t)id * kQuarters + q);
-  return make_float4(q == 3 ? -1.0f : 0.0f, 0.0f, q == 0 ? -1.0f : 0.0f, 0.0f);
-}
-
-__global__ void __launch_bounds__(kThreads)
+// 5 blocks an SM (<= 48 registers a thread, no spills) timed fastest of
+// none and 4-7 (tools/torch_launch_bounds_sweep.py --kernel fused)
+__global__ void __launch_bounds__(kThreads, 5)
 raster_fused_windows_kernel(const int32_t* __restrict__ kept,
                             const int32_t* __restrict__ bins,
                             const float* __restrict__ records,
+                            const float* __restrict__ face_verts,
                             int32_t* __restrict__ p2f,
                             float* __restrict__ zbuf,
                             float* __restrict__ nx,
                             float* __restrict__ ny,
                             float* __restrict__ nz,
-                            int Tp, int C, int F, int H, int W, int TX) {
+                            int Tp, int C, int F, int H, int W, int TX,
+                            float grid_radius) {
   __shared__ float4 s_chunk[kChunk * kQuarters];  // 256 float4 = 4 KB
+  __shared__ float4 s_box[kChunk];                // 512 B
   const int t = blockIdx.x;
   const int b = blockIdx.y;
   const int tile = b * Tp + t;
@@ -89,65 +77,22 @@ raster_fused_windows_kernel(const int32_t* __restrict__ kept,
   const int tx = t % TX;
   const int32_t* row = bins + (size_t)tile * C;
   const float* img = records + (size_t)b * F * kLanes;
-  const float4* img4 = reinterpret_cast<const float4*>(img);
 
-  float xs[kPixPerThread], ys[kPixPerThread], best[kPixPerThread];
-  int win[kPixPerThread];
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    xs[k] = ndc(p % kTileCols + tx * kTileCols, W);
-    ys[k] = ndc(p / kTileCols + ty * kTileRows, H);
-    best[k] = kBigZ;
-    win[k] = -1;
-  }
-
-  const int face = threadIdx.x / kQuarters;
-  const int q = threadIdx.x % kQuarters;
-  float4 staged = record_quarter(img4, n > 0 ? row[face] : -1, F, q);
-  int id_next = n > 1 ? row[kChunk + face] : -1;
-  const float* s = reinterpret_cast<const float*>(s_chunk);
-  for (int c = 0; c < n; ++c) {
-    __syncthreads();  // the previous chunk has been read by every thread
-    s_chunk[threadIdx.x] = staged;
-    __syncthreads();
-    if (c + 1 < n) {  // the next chunk's loads fly during this chunk's tests
-      staged = record_quarter(img4, id_next, F, q);
-      id_next = c + 2 < n ? row[(c + 2) * kChunk + face] : -1;
-    }
-#pragma unroll 2
-    for (int f = 0; f < kChunk; ++f) {
-      const float* r = s + f * kLanes;
-      const float a0 = r[0], b0 = r[1], d0 = r[2];
-      const float a1 = r[3], b1 = r[4], d1 = r[5];
-      const float a2 = r[6], b2 = r[7], d2 = r[8];
-      const float za = r[9], zb = r[10], zc = r[11];
-      const bool real = r[12] >= 0.0f;
-      const int id = c * kChunk + f;
-#pragma unroll
-      for (int k = 0; k < kPixPerThread; ++k) {
-        const float e0 = affine(a0, b0, d0, xs[k], ys[k]);
-        const float e1 = affine(a1, b1, d1, xs[k], ys[k]);
-        const float e2 = affine(a2, b2, d2, xs[k], ys[k]);
-        const float z = affine(za, zb, zc, xs[k], ys[k]);
-        if (real && e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z < best[k]) {
-          best[k] = z;
-          win[k] = id;
-        }
-      }
-    }
-  }
+  Pixels px = tile_pixels(tx, ty, W, H);
+  walk_window(row, reinterpret_cast<const float4*>(img), face_verts + (size_t)b * F * 9,
+              n, F, (float)W, grid_radius, warp_rect(tx, ty, threadIdx.x / 32), s_chunk,
+              s_box, px);
 
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
-    const size_t o = (size_t)tile * kTilePix + threadIdx.x + k * kThreads;
-    if (best[k] < kBigZ) {
-      const float* r = img + (size_t)row[win[k]] * kLanes;
+    const size_t o = (size_t)tile * kTilePix + tile_pixel(k);
+    if (px.best[k] < kBigZ) {
+      const float* r = img + (size_t)row[px.win[k]] * kLanes;
       p2f[o] = (int32_t)r[12];
-      zbuf[o] = best[k];
-      nx[o] = affine(r[16], r[19], r[22], xs[k], ys[k]);
-      ny[o] = affine(r[17], r[20], r[23], xs[k], ys[k]);
-      nz[o] = affine(r[18], r[21], r[24], xs[k], ys[k]);
+      zbuf[o] = px.best[k];
+      nx[o] = affine(r[16], r[19], r[22], px.x, px.ys[k]);
+      ny[o] = affine(r[17], r[20], r[23], px.x, px.ys[k]);
+      nz[o] = affine(r[18], r[21], r[24], px.x, px.ys[k]);
     } else {
       p2f[o] = -1;
       zbuf[o] = kBigZ;
@@ -163,9 +108,10 @@ raster_fused_windows_kernel(const int32_t* __restrict__ kept,
 extern "C" {
 
 int smirk_raster_fused_windows(const void* kept, const void* bins,
-                               const void* records, void* p2f, void* zbuf,
-                               void* nx, void* ny, void* nz, int B, int Tp,
-                               int C, int F, int H, int W, int TX, int device,
+                               const void* records, const void* face_verts,
+                               void* p2f, void* zbuf, void* nx, void* ny,
+                               void* nz, int B, int Tp, int C, int F, int H,
+                               int W, int TX, float grid_radius, int device,
                                void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -174,8 +120,8 @@ int smirk_raster_fused_windows(const void* kept, const void* bins,
   dim3 grid(Tp, B);
   raster_fused_windows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)kept, (const int32_t*)bins, (const float*)records,
-      (int32_t*)p2f, (float*)zbuf, (float*)nx, (float*)ny, (float*)nz, Tp, C,
-      F, H, W, TX);
+      (const float*)face_verts, (int32_t*)p2f, (float*)zbuf, (float*)nx,
+      (float*)ny, (float*)nz, Tp, C, F, H, W, TX, grid_radius);
   return (int)cudaGetLastError();
 }
 

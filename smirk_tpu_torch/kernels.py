@@ -2,13 +2,16 @@
 
 Each source is compiled by `nvcc` for sm_90a into its own shared library
 with a plain C interface, at first use, into `smirk_tpu_torch/build/`
-(listed in .gitignore), and loaded with ctypes. `build()` compiles all
+(listed in .gitignore), and loaded with ctypes. The sources include the
+shared headers of csrc/ (`window_raster.cuh`); a library is rebuilt when
+its source or any header is newer. `build()` compiles all
 stale sources at once, one `nvcc` process per source started together.
 Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -28,9 +31,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # library name -> (source file, {C function: argtypes})
 LIBRARIES = {
     "raster_fused": ("raster_fused.cu", {
-        # kept, bins, records, p2f, zbuf, nx, ny, nz,
-        # B, Tp, C, F, H, W, TX, device, stream
-        "smirk_raster_fused_windows": [_P] * 8 + [_I] * 8 + [_P],
+        # kept, bins, records, face_verts, p2f, zbuf, nx, ny, nz,
+        # B, Tp, C, F, H, W, TX, grid radius, device, stream
+        "smirk_raster_fused_windows": [_P] * 9 + [_I] * 7 + [_F, _I, _P],
     }),
     "raster_planes": ("raster_planes.cu", {
         # kept, bins, records, face_verts, p2f, zbuf, slot, vals,
@@ -57,8 +60,9 @@ LIBRARIES = {
         "smirk_max_shared_optin": [_I],  # device
     }),
     "raster_bins": ("raster_bins.cu", {
-        # counts, bins, fv, p2f, zbuf, B, Tp, T, C, F, H, W, TX, device, stream
-        "smirk_raster_bins_coverage": [_P] * 5 + [_I] * 9 + [_P],
+        # counts, bins, fv, p2f, zbuf, B, Tp, T, C, F, H, W, TX, grid radius,
+        # device, stream
+        "smirk_raster_bins_coverage": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
     }),
     "raster_groups": ("raster_groups.cu", {
         # counts, recs, p2f, zbuf, nx, ny, nz,
@@ -91,8 +95,13 @@ def _paths(name: str):
 
 
 def _stale(name: str) -> bool:
+    """Whether library `name` is missing or older than its source or any
+    header in csrc/ (a source includes the shared headers by name)."""
     source, lib = _paths(name)
-    return not os.path.isfile(lib) or os.path.getmtime(lib) < os.path.getmtime(source)
+    if not os.path.isfile(lib):
+        return True
+    inputs = [source] + glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in inputs)
 
 
 def build(names: Optional[Iterable[str]] = None, force: bool = False) -> Dict[str, dict]:

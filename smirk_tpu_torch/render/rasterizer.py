@@ -27,9 +27,11 @@ Pipeline (`rasterize_normals_fused`):
 4. `raster_fused_windows` (kernel K1): per tile, walk chunks 0 .. kept - 1
    of the tile's bin, reading each face's record from the image's record
    table through its bin id (the TPU's packing kernel K2 and the record
-   gather are folded into this staging), keep the nearest covering face
-   (first in slot order on ties), and evaluate its normal planes at the
-   pixel. `compact_faces_plain` states K2's contract for the checks.
+   gather are folded into this staging), skip per warp the faces whose
+   bounding box (`cull_boxes`, computed in the kernel from the vertices)
+   misses the warp's pixels, keep the nearest covering face (first in slot
+   order on ties), and evaluate its normal planes at the pixel.
+   `compact_faces_plain` states K2's contract for the checks.
 The padded layout has two scheduled variants: `merged` (K9,
 `raster_fused_groups`: every tile of a group of `tps` walks to the group's
 largest bin) and `sort_tiles` (K10, `raster_fused_groups_local`: tiles
@@ -44,7 +46,9 @@ The coverage rasters: `rasterize_coverage_jnp` (all pairs, plain
 PyTorch), `rasterize_coverage_pallas_v3[_full]` (`face_records` on the
 padded layout, `raster_coverage_windows`, kernel K6: pix_to_face, zbuf and
 the per-tile slot) and `rasterize_coverage_pallas` (`raster_bins_coverage`,
-kernel K8: one face at a time per tile, division barycentrics).
+kernel K8: one face at a time per tile, division barycentrics, with a
+per-warp cull whose boxes, `cull_boxes_bins`, are made exact for its
+cross-product arithmetic).
 `rasterize_coverage` takes K6 on the card and the all-pairs version on the
 CPU.
 
@@ -52,10 +56,8 @@ The differentiable raster (`rasterize`). For D <= 6 attribute channels,
 `rasterize_planes_diff`, a torch.autograd.Function, bins and plans the
 same way, with a training record per face (edge and depth planes, the
 face id, D attribute planes). Forward: `raster_planes_windows` (K3) reads
-the records through the bins as K1 does, skips per warp the faces whose
-bounding box (`cull_boxes`, computed in the kernel from the vertices)
-misses the warp's pixels, and keeps the nearest face, its per-tile slot
-and its D interpolated planes.
+the records through the bins and culls per warp as K1 does, and keeps the
+nearest face, its per-tile slot and its D interpolated planes.
 Backward: the value cotangent goes tile-major, `segment_moments` (K4)
 sums [g*x | g*y | g] per (tile, slot), `fold_slots_to_faces` (K5) folds
 the slots into faces, and autograd of `attr_planes` takes it to the
@@ -531,41 +533,50 @@ def _fused_outputs(B: int, Tp: int, dev):
               for _ in range(4)))
 
 
-def _check_read_through(name, kept, bins, records, lanes: int):
-    """Check the read-through rasters' inputs on the card, without reading
-    them -> (B, Tp, C, F)."""
+def _check_read_through(name, kept, bins, records, face_verts, lanes: int):
+    """Check the read-through rasters' inputs on the card (face_verts: the
+    faces the records were built from, which the kernels cull with),
+    without reading them -> (B, Tp, C, F)."""
     dev = records.device
     _check_cuda("kept", kept, torch.int32, 2, dev)
     _check_cuda("bins", bins, torch.int32, 3, dev)
     _check_cuda("records", records, torch.float32, 3, dev)
+    _check_cuda("face_verts", face_verts, torch.float32, 4, dev)
     B, Tp, C = bins.shape
     if (tuple(kept.shape) != (B, Tp) or C % V3_CHUNK or records.shape[0] != B
-            or records.shape[2] != lanes):
+            or records.shape[2] != lanes
+            or tuple(face_verts.shape) != (B, records.shape[1], 3, 3)):
         raise ValueError(f"{name}: inconsistent shapes kept {tuple(kept.shape)} "
                          f"bins {tuple(bins.shape)} records {tuple(records.shape)} "
-                         f"({lanes} lanes)")
+                         f"({lanes} lanes) face_verts {tuple(face_verts.shape)}")
     if records.data_ptr() % 16:
         raise ValueError(f"{name}: records must be 16-byte aligned")
     return B, Tp, C, records.shape[1]
 
 
-def raster_fused_windows(kept, bins, records, image_size: int, tiles_x: int):
+def raster_fused_windows(kept, bins, records, face_verts, image_size: int,
+                         tiles_x: int):
     """K1: per-tile z-buffer over chunks 0 .. kept - 1 of the tile's bin +
     the winner's normals. kept (B,Tp) int32 (`_windows`), bins (B,Tp,C)
     int32 as `bin_faces_flat` gives them, records (B,F,32) f32 as
-    `fused_records` gives them -> as `raster_fused_windows_plain`.
+    `fused_records` gives them, face_verts (B,F,3,3) f32 (the faces the
+    records were built from; the kernel culls with them) -> as
+    `raster_fused_windows_plain`.
 
     Replaces `_raster_kernel_v7` (compact record list, packed by
     `_compact_faces_kernel`) and `_raster_kernel_v4` (padded layout)
     (smirk_tpu/render/rasterizer.py): the layouts differ only in kept.
-    Bound on H100: fp32 operations (~16 per face-pixel test; the record
-    table, 28 MB at b64, stays in L2). Design: one block per (tile,
-    image), 256 threads x 4 pixels; each chunk's 32 face ids are read from
-    the bins and their records staged in shared memory (the packing and
-    the gather folded into the staging, one chunk ahead of the tests),
-    then read as broadcasts, so every record value loaded feeds four
-    pixels. A kept count is clamped to [0, C/32], in the kernel and in the
-    plain version. CPU tensors take the plain version.
+    Bound on H100: fp32 operations (~16 per face-pixel test), with FMAs
+    forbidden so that it stays bitwise equal to the plain version. Design:
+    K3's (`raster_planes_windows`; the two share their walk): the records
+    read through the bins and staged one chunk ahead with each face's cull
+    box (`cull_boxes`) computed from its vertices; each of a block's 8
+    warps owns a 16x8 pixel rectangle of the tile and skips a face whose
+    box widened by one pixel misses it, so the number of face-pixel tests,
+    not their cost, falls. The winner's normal planes are evaluated once,
+    at the end. A kept count is clamped to [0, C/32], in the kernel and in
+    the plain version. CPU tensors take the plain version, which tests
+    every face.
     """
     if records.device.type == "cpu":
         return raster_fused_windows_plain(kept, bins, records, image_size, tiles_x)
@@ -573,14 +584,14 @@ def raster_fused_windows(kept, bins, records, image_size: int, tiles_x: int):
         raise ValueError(f"raster_fused_windows: unsupported device {records.device}")
     dev = records.device
     B, Tp, C, F = _check_read_through("raster_fused_windows", kept, bins, records,
-                                      RECF_LANES)
+                                      face_verts, RECF_LANES)
     p2f, zbuf, nx, ny, nz = _fused_outputs(B, Tp, dev)
     lib = kernels.library("raster_fused")
     rc = lib.smirk_raster_fused_windows(
-        kept.data_ptr(), bins.data_ptr(), records.data_ptr(), p2f.data_ptr(),
-        zbuf.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-        B, Tp, C, F, image_size, image_size, tiles_x, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        kept.data_ptr(), bins.data_ptr(), records.data_ptr(), face_verts.data_ptr(),
+        p2f.data_ptr(), zbuf.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
+        B, Tp, C, F, image_size, image_size, tiles_x, _cull_grid_radius(image_size),
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "raster_fused_windows")
     raster_fused_windows.launches += 1
     return p2f, zbuf, nx, ny, nz
@@ -880,7 +891,8 @@ def rasterize_normals_fused(
         overflow = torch.zeros((B,), dtype=torch.int32, device=counts.device)
     else:
         kept, overflow = _windows(counts, compact)
-        outs = raster_fused_windows(kept, bins, records, image_size, tx)
+        outs = raster_fused_windows(kept, bins, records, face_verts.contiguous(),
+                                    image_size, tx)
     p2f = _tiles_to_image(outs[0], image_size)
     zbuf = _tiles_to_image(outs[1], image_size)
     normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
@@ -1166,16 +1178,43 @@ def _cull_grid_radius(image_size: int) -> float:
     return max(1.0, (2 * tx * TILE_COLS - 1 - S) / S, (2 * ty * TILE_ROWS - 1 - S) / S)
 
 
-def cull_boxes(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
-    """K3's per-face cull boxes -> (B,F,4) f32 [xmin, xmax, ymin, ymax] in
-    pixel coordinates (pixel centre c at coordinate c): the faces' bounding
-    boxes as the binning computes them (`_bbox_and_priority`), except that
-    a face too thin for the cull to be exact gets an unbounded box and is
-    never culled. K3 computes the same boxes, with the same fp32
-    operations, as it stages each chunk (csrc/raster_planes.cu); this is
-    their plain statement, for the checks and the work counts.
+def _face_boxes(face_verts: torch.Tensor, image_size: int):
+    """The cull boxes' common part -> (x, y (B,F,3) NDC vertex coordinates,
+    xmin, xmax, ymin, ymax (B,F) pixel coordinates, ext (B,F) the longer
+    side in pixels, r (B,F,1) the largest |coordinate| of the tile grid's
+    pixel centres and the face's vertices), in the kernels' fp32 order
+    (csrc/window_raster.cuh, `face_box`)."""
+    S = image_size
+    x, y = face_verts[..., 0], face_verts[..., 1]  # (B,F,3)
+    px = (x * S + S - 1.0) / 2.0
+    py = (y * S + S - 1.0) / 2.0
+    xmin, xmax = px.amin(-1), px.amax(-1)
+    ymin, ymax = py.amin(-1), py.amax(-1)
+    r = torch.cat([x, y], -1).abs().amax(-1, keepdim=True).clamp_min(
+        _cull_grid_radius(S))
+    return x, y, xmin, xmax, ymin, ymax, torch.maximum(xmax - xmin, ymax - ymin), r
 
-    K3 skips a face for a warp when its box widened by one pixel misses
+
+def _boxes_where(exact, xmin, xmax, ymin, ymax) -> torch.Tensor:
+    """(B,F,4) [xmin, xmax, ymin, ymax], unbounded where not exact."""
+    inf = float("inf")
+    return torch.stack([torch.where(exact, xmin, -inf), torch.where(exact, xmax, inf),
+                        torch.where(exact, ymin, -inf), torch.where(exact, ymax, inf)],
+                       -1).contiguous()
+
+
+def cull_boxes(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
+    """K1's and K3's per-face cull boxes -> (B,F,4) f32 [xmin, xmax, ymin,
+    ymax] in pixel coordinates (pixel centre c at coordinate c): the faces'
+    bounding boxes as the binning computes them (`_bbox_and_priority`),
+    except that a face too thin for the cull to be exact gets an unbounded
+    box and is never culled. K1 and K3 compute the same boxes, with the
+    same fp32 operations, as they stage each chunk (`cull_box` in
+    csrc/window_raster.cuh); this is their plain statement, for the checks
+    and the work counts. K1's records share lanes 0-11, the edge and depth
+    planes, with K3's (`face_records`), so one proof serves both.
+
+    The kernels skip a face for a warp when its box widened by one pixel misses
     the warp's pixels. At a pixel at least one pixel outside the box (half
     a pixel left for the box's own rounding) the face's most negative
     sign-normalised edge function is at most -|denom| / (4 ext), ext the
@@ -1187,27 +1226,78 @@ def cull_boxes(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
     centres and the vertices). A face keeps its box where |denom| > 32u M
     (4 ext + 1); there no pixel outside the widened box passes the edge
     tests in fp32, so the cull changes no output. Slivers and
-    near-degenerate faces fail the condition and are tested everywhere."""
-    S = image_size
-    x, y = face_verts[..., 0], face_verts[..., 1]  # (B,F,3)
-    px = (x * S + S - 1.0) / 2.0
-    py = (y * S + S - 1.0) / 2.0
-    xmin, xmax = px.amin(-1), px.amax(-1)
-    ymin, ymax = py.amin(-1), py.amax(-1)
-    r = torch.cat([x, y], -1).abs().amax(-1, keepdim=True).clamp_min(
-        _cull_grid_radius(S))
+    near-degenerate faces fail the condition and are tested everywhere.
+    K8's cross-product form, whose rounding grows with the pixel's
+    distance from the face, has a margin of its own: `cull_boxes_bins`."""
+    x, y, xmin, xmax, ymin, ymax, ext, r = _face_boxes(face_verts, image_size)
     xj, yj, xk, yk = x.roll(-1, -1), y.roll(-1, -1), x.roll(-2, -1), y.roll(-2, -1)
     m = (((yj - yk).abs() + (xk - xj).abs()) * r + (xj * yk).abs()
          + (yj * xk).abs()).amax(-1)
     x0, y0 = x[..., 0], y[..., 0]
     x1, y1, x2, y2 = x[..., 1], y[..., 1], x[..., 2], y[..., 2]
     denom = (y1 - y2) * x0 + (x2 - x1) * y0 + (x1 * y2 - y1 * x2)  # face_records'
-    ext = torch.maximum(xmax - xmin, ymax - ymin)
     exact = denom.abs() > _CULL_ROUNDING * m * (4.0 * ext + 1.0)
-    inf = float("inf")
-    return torch.stack([torch.where(exact, xmin, -inf), torch.where(exact, xmax, inf),
-                        torch.where(exact, ymin, -inf), torch.where(exact, ymax, inf)],
-                       -1).contiguous()
+    return _boxes_where(exact, xmin, xmax, ymin, ymax)
+
+
+# 512u = 2^-15: K8's cull margin (cull_boxes_bins), 4x the bound it derives
+_BINS_CULL_ROUNDING = 512 * 2.0 ** -24
+
+
+def cull_boxes_bins(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
+    """K8's per-face cull boxes -> (B,F,4) f32 [xmin, xmax, ymin, ymax] in
+    pixel coordinates, the bounding boxes of `cull_boxes` with a margin
+    derived for K8's arithmetic: a face keeps its box where
+
+        |denom| S^2 > 512u (ext + 1) ((ext + 2)^2 + R S),
+
+    denom = (x1 - x0)(y2 - y0) - (y1 - y0)(x2 - x0) its fp32 cross-product
+    area as K8 computes it, S the image size, ext the box's longer side in
+    pixels, R `cull_boxes`' radius (every pixel centre of the tile grid and
+    every vertex lies in [-R, R]^2 in NDC), u = 2^-24; otherwise it gets an
+    unbounded box. K8 (csrc/raster_bins.cu, `bins_cull_box`) computes the
+    same boxes with the same fp32 operations in its staging; it also skips
+    the faces it never tests (past the count, |denom| < 1e-10).
+
+    Why no pixel outside the box widened by one pixel passes K8's test
+    w_i = fl(fl(e_i) / safe) >= 0 for all i. In exact arithmetic, with the
+    fp32 vertices and pixel centres as given, e_i = (x_j - x)(y_k - y) -
+    (y_j - y)(x_k - x) is D lambda_i, lambda the pixel's barycentric
+    coordinates and D the exact area. Let h = 2/S be a pixel in NDC, e
+    (<= h (ext + 1)) the exact box's longer side and g the pixel's distance
+    from it in the max norm, at least h/2 for a pixel more than one pixel
+    out (half a pixel left for the box's and the centre's own rounding).
+    Writing the pixel's coordinate on the axis of that distance as the
+    lambda-weighted vertices' shows that the negative lambda sum to at
+    least g / e, so min lambda <= -g / (2e) and |e_i| >= |D| g / (2e) for
+    that i. Each factor x_j - x of e_i is rounded once and is at most e + g
+    in magnitude, so fl(e_i) errs by at most gamma_4 (|P| + |Q|) <= 2
+    gamma_4 (e + g)^2 (gamma_4 = 4u / (1 - 4u); P, Q the two products).
+    A pass is impossible when |D| g / (2e) exceeds that for every g in
+    [h/2, 2R], i.e. when |D| > 4 gamma_4 e max phi, phi(g) = (e + g)^2 / g
+    convex, so largest at an end: phi(h/2) <= 2h (ext + 2)^2 and phi(2R)
+    <= 2e + 4R, together at most 2h (ext + 2)^2 + 4R. The kept faces have
+    |fl(denom)| above 64u h (ext + 1)(2h (ext + 2)^2 + 4R) (the condition
+    above, divided by S^2), 4x that bound; fl(denom) errs from D by at
+    most 2 gamma_4 e^2, under 2 % of it, so the sign of safe is D's and |D|
+    keeps a factor over 3.5 for the roundings of the box and of the
+    condition. Then fl(e_i) has the sign opposite to
+    safe and |fl(e_i)| > 20u (e + g)^2, while |safe| <= 2.01 e^2, so the
+    quotient is below -9u: negative, never an underflow to -0. Slivers and
+    near-degenerate faces fail the condition and are tested everywhere.
+    `cull_boxes`' margin was derived for the records' affine form, whose
+    rounding its M bounds by the coefficients; it is not shown to cover
+    this form, whose products P, Q grow with the pixel's distance from the
+    face (to about R^2)."""
+    S = image_size
+    x, y, xmin, xmax, ymin, ymax, ext, r = _face_boxes(face_verts, S)
+    x0, y0 = x[..., 0], y[..., 0]
+    x1, y1, x2, y2 = x[..., 1], y[..., 1], x[..., 2], y[..., 2]
+    denom = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)  # K8's
+    e2 = ext + 2.0
+    exact = (denom.abs() * S * S
+             > _BINS_CULL_ROUNDING * (ext + 1.0) * (e2 * e2 + r[..., 0] * S))
+    return _boxes_where(exact, xmin, xmax, ymin, ymax)
 
 
 def raster_planes_windows(kept, bins, records, face_verts, image_size: int, tiles_x: int,
@@ -1239,11 +1329,10 @@ def raster_planes_windows(kept, bins, records, face_verts, image_size: int, tile
         raise ValueError(f"raster_planes_windows: unsupported device {records.device}")
     dev = records.device
     B, Tp, C, F = _check_read_through("raster_planes_windows", kept, bins, records,
-                                      REC5_LANES)
-    _check_cuda("face_verts", face_verts, torch.float32, 4, dev)
-    if tuple(face_verts.shape) != (B, F, 3, 3) or not 1 <= D <= (REC5_LANES - 13) // 3:
-        raise ValueError(f"raster_planes_windows: face_verts {tuple(face_verts.shape)} "
-                         f"for records {tuple(records.shape)}, D {D}")
+                                      face_verts, REC5_LANES)
+    if not 1 <= D <= (REC5_LANES - 13) // 3:
+        raise ValueError(f"raster_planes_windows: D {D} not in [1, "
+                         f"{(REC5_LANES - 13) // 3}]")
     p2f = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
     zbuf = torch.empty((B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
     slot = torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
@@ -1570,13 +1659,21 @@ def raster_bins_coverage(counts, bins, fv9, image_size: int):
     as `raster_bins_coverage_plain`.
 
     Replaces `_raster_kernel` (via `rasterize_coverage_pallas`,
-    smirk_tpu/render/rasterizer.py). Bound on H100: fp32 operations (~29
-    per face-pixel test: 21 for the edge terms, 3 divisions, 5 for the
-    depth, over count x 1024 pairs per tile). Design: one block per (tile,
-    image), 256 threads x 4 pixels; 32 bin entries at a time are staged in
-    shared memory with each face's area, every operation an IEEE `__f*_rn`
-    intrinsic (`__fdiv_rn` for the barycentrics), so it is bitwise equal to
-    its plain version. CPU tensors take the plain version.
+    smirk_tpu/render/rasterizer.py). Bound on H100: unculled, fp32
+    operations (~29 per face-pixel test: 21 for the edge terms, 3
+    divisions, 5 for the depth, over count x 1024 pairs per tile); counting
+    only the pairs in the faces' boxes, bytes. Design: one block per (tile,
+    image); all 256 threads stage 32 bin entries at a time one chunk ahead
+    of the tests (ids, vertices, each face's area and its cull box,
+    `cull_boxes_bins`, computed in the staging), and each of the 8 warps,
+    owning a 16x8 pixel rectangle, tests only the faces whose box widened
+    by one pixel meets it, in bin order. A pixel where some e_i has the
+    sign opposite to the area's, with |e_i| >= 2^-100 and |area| <= 2^40,
+    is rejected before the divisions: that w_i is at most -2^-140, never a
+    -0 that would pass w_i >= 0. Every operation is an IEEE `__f*_rn`
+    intrinsic (`__fdiv_rn` for the barycentrics), so it is bitwise equal
+    to its plain version, which tests every face and divides everywhere.
+    CPU tensors take the plain version.
     """
     if fv9.device.type == "cpu":
         return raster_bins_coverage_plain(counts, bins, fv9, image_size)
@@ -1602,7 +1699,8 @@ def raster_bins_coverage(counts, bins, fv9, image_size: int):
     rc = lib.smirk_raster_bins_coverage(
         counts.data_ptr(), bins.data_ptr(), fv9.data_ptr(), p2f.data_ptr(),
         zbuf.data_ptr(), B, Tp, ty * tx, C, F, image_size, image_size, tx,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        _cull_grid_radius(image_size), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "raster_bins_coverage")
     raster_bins_coverage.launches += 1
     return p2f, zbuf

@@ -42,7 +42,7 @@ def test_kernels_match_plain(card, full, size, B):
     R.reset_launch_counts()
     for compact in (r.raster_compact, 8, None):
         kept, overflow = R._windows(counts, compact)
-        got = R.raster_fused_windows(kept, bins, records, size, TX)
+        got = R.raster_fused_windows(kept, bins, records, fv, size, TX)
         for a, b in zip(got, R.raster_fused_windows_plain(kept, bins, records, size, TX)):
             assert torch.equal(a, b)
         if compact is not None:  # the packed route K2's contract describes
@@ -57,17 +57,22 @@ def test_kernels_match_plain(card, full, size, B):
 
 def test_wrappers_reject_bad_arguments(card):
     """K1 and K3 refuse a wrong bins dtype, a wrong record width, face
-    vertices that do not match the records and inputs on two devices."""
+    vertices that do not match the records and inputs on two devices; K1's
+    call without the face vertices (its signature before the cull) raises."""
     kept = torch.ones((1, 8), dtype=torch.int32, device=card)
     bins = torch.full((1, 8, 64), -1, dtype=torch.int32, device=card)
     recs = torch.zeros((1, 40, 32), device=card)
     fv = torch.zeros((1, 40, 3, 3), device=card)
     with pytest.raises(TypeError):
-        R.raster_fused_windows(kept, bins.long(), recs, 64, 1)
+        R.raster_fused_windows(kept, bins.long(), recs, fv, 64, 1)
     with pytest.raises(ValueError):
-        R.raster_fused_windows(kept, bins, recs[:, :, :16].contiguous(), 64, 1)
+        R.raster_fused_windows(kept, bins, recs[:, :, :16].contiguous(), fv, 64, 1)
     with pytest.raises(ValueError):
-        R.raster_fused_windows(kept.cpu(), bins, recs, 64, 1)
+        R.raster_fused_windows(kept.cpu(), bins, recs, fv, 64, 1)
+    with pytest.raises(ValueError):
+        R.raster_fused_windows(kept, bins, recs, fv[:, :20].contiguous(), 64, 1)
+    with pytest.raises(TypeError):
+        R.raster_fused_windows(kept, bins, recs, 64, 1)
     with pytest.raises(TypeError):
         R.raster_planes_windows(kept, bins.float(), recs, fv, 64, 1, 3)
     with pytest.raises(ValueError):
@@ -88,7 +93,7 @@ def test_kept_past_the_bins_is_clamped_as_plain(card, size):
     kept = R._windows(counts, None)[0]
     over = torch.where(kept > 0, kept + 3, -1).to(torch.int32)  # past C/32 = 4, or < 0
     fr, pr = R.fused_records(fv, fn), R.planes_records(fv, fn)
-    for a, b in zip(R.raster_fused_windows(over, bins, fr, size, TX),
+    for a, b in zip(R.raster_fused_windows(over, bins, fr, fv.contiguous(), size, TX),
                     R.raster_fused_windows_plain(over, bins, fr, size, TX)):
         assert torch.equal(a, b)
     for a, b in zip(R.raster_planes_windows(over, bins, pr, fv.contiguous(), size, TX, 3),
@@ -157,14 +162,11 @@ def test_training_kernels_match_plain(card, full, size, B):
         assert ((a.cpu().double() - b.double()).abs() <= 1e-4 * sc + 1e-30).all()
 
 
-def test_culled_planes_kernel_matches_plain_on_slivers(card):
-    """Culled K3 bitwise equal to its plain version, which tests every face,
-    on 224 px images of random faces of 0.3 to 16 px, a third of them
-    replaced by slivers and near-degenerate faces along pixel rows (the
-    faces `cull_boxes` never culls), on the padded layout and at a budget
-    that drops chunks."""
+def _sliver_faces(card, B=2, S=224, F=3000):
+    """(B,F,3,3) faces on S px images: random faces of 0.3 to 16 px, a third
+    of them replaced by slivers and near-degenerate faces along pixel rows
+    (the faces the cull boxes leave unbounded), and (B,F,3,3) attributes."""
     rng = np.random.default_rng(7)
-    B, S, F, cap = 2, 224, 3000, 512
     p0 = rng.uniform(-10, S + 10, (B, F, 1, 2))
     pts = p0 + rng.normal(size=(B, F, 3, 2)) * 10 ** rng.uniform(-0.5, 1.2, (B, F, 1, 1))
     sl = rng.random((B, F)) < 1 / 3
@@ -179,6 +181,15 @@ def test_culled_planes_kernel_matches_plain_on_slivers(card):
     fv = torch.tensor(np.concatenate([xy, rng.uniform(9, 11, (B, F, 3, 1))], -1),
                       dtype=torch.float32, device=card)
     attrs = torch.tensor(rng.normal(size=(B, F, 3, 3)), dtype=torch.float32, device=card)
+    return fv, attrs
+
+
+def test_culled_planes_kernel_matches_plain_on_slivers(card):
+    """Culled K3 bitwise equal to its plain version, which tests every face,
+    on the sliver batch (`_sliver_faces`), on the padded layout and at a
+    budget that drops chunks."""
+    S, cap = 224, 512
+    fv, attrs = _sliver_faces(card, S=S)
     TX = -(-S // R.TILE_COLS)
     bins, counts = R.bin_faces_flat(fv, S, cap)
     records = R.planes_records(fv, attrs)
@@ -189,6 +200,52 @@ def test_culled_planes_kernel_matches_plain_on_slivers(card):
         for a, b in zip(got, R.raster_planes_windows_plain(kept, bins, records, S, TX, 3)):
             assert torch.equal(a, b)
         assert float((got[0] >= 0).float().mean()) > 0.05
+
+
+def test_culled_fused_and_bins_kernels_match_plain_on_slivers(card):
+    """Culled K1 (compact at 216 chunks, padded, and a budget of 64 that
+    drops chunks) and culled K8 bitwise equal to their plain versions,
+    which test every face, on the sliver batch; both cull-box functions
+    leave some of its faces unbounded."""
+    S, cap = 224, 512
+    fv, normals = _sliver_faces(card, S=S)
+    B, F = fv.shape[:2]
+    TX = -(-S // R.TILE_COLS)
+    bins, counts = R.bin_faces_flat(fv, S, cap)
+    records = R.fused_records(fv, normals)
+    assert bool(torch.isinf(R.cull_boxes(fv, S)[..., 0]).any())
+    assert bool(torch.isinf(R.cull_boxes_bins(fv, S)[..., 0]).any())
+    R.reset_launch_counts()
+    for compact in (216, None, 64):
+        kept, _ = R._windows(counts, compact)
+        got = R.raster_fused_windows(kept, bins, records, fv, S, TX)
+        for a, b in zip(got, R.raster_fused_windows_plain(kept, bins, records, S, TX)):
+            assert torch.equal(a, b)
+        assert float((got[0] >= 0).float().mean()) > 0.05
+    fv9 = fv.reshape(B, F, 9).contiguous()
+    k8 = R.raster_bins_coverage(counts, bins, fv9, S)
+    for a, b in zip(k8, R.raster_bins_coverage_plain(counts, bins, fv9, S)):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    assert (R.raster_fused_windows.launches, R.raster_bins_coverage.launches) == (3, 1)
+    assert int(R._windows(counts, 64)[1].min()) > 0
+
+
+def test_bins_kernel_keeps_negative_zero_barycentrics(card):
+    """K8 rejects a pixel before dividing only where a barycentric is surely
+    negative: at the centre row of a 65 px image the face (0, 1),
+    (1, 2^-149), (-1, 0) covers pixels through w_0 = -0 in its plain
+    version, and the kernel equals it bitwise."""
+    S = 65
+    fv = torch.tensor([[[[0.0, 1.0, 10.0], [1.0, 2.0 ** -149, 10.0], [-1.0, 0.0, 10.0]]]],
+                      device=card)
+    bins, counts = R.bin_faces_flat(fv, S, 32)
+    fv9 = fv.reshape(1, 1, 9).contiguous()
+    got = R.raster_bins_coverage(counts, bins, fv9, S)
+    want = R.raster_bins_coverage_plain(counts, bins, fv9, S)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int((want[0][0, S // 2, :S] == 0).sum()) >= 3
 
 
 def test_training_wrappers_reject_bad_arguments(card):
@@ -326,7 +383,7 @@ def test_group_kernels_match_plain(card, size, B, cap, tps):
     R.reset_launch_counts()
     k9 = R.raster_fused_groups(counts, recs, size, TX, tps)
     k1b = R.raster_fused_windows(R._windows(counts, None)[0], bins, R.fused_records(fv, fn),
-                                 size, TX)
+                                 fv.contiguous(), size, TX)
     for a, b, c in zip(k9, R.raster_fused_groups_plain(counts, recs, size, TX, tps), k1b):
         assert torch.equal(a, b) and torch.equal(a, c)
     sc, srecs, _ = R.sorted_tiles(R.fused_records(fv, fn), bins, counts, size)

@@ -77,7 +77,7 @@ def test_fused_read_through_matches_packed_route(full, size, B, seed):
     records = R.fused_records(fv, fn)
     dropped = {}
     for compact, kept, overflow in layouts(r, counts):
-        got = R.raster_fused_windows(kept, bins, records, size, TX)  # CPU: plain
+        got = R.raster_fused_windows(kept, bins, records, fv, size, TX)  # CPU: plain
         dropped[compact] = check_layout(
             compact, kept, overflow, records, bins, counts,
             lambda s, e, recs: R._fused_plain(s, e, recs, size, TX), got)
@@ -86,8 +86,9 @@ def test_fused_read_through_matches_packed_route(full, size, B, seed):
     # a kept count past the bin's C/32 chunks walks the whole bin, as the
     # kernel clamps it
     cpt = bins.shape[2] // R.V3_CHUNK
-    assert_equal(R.raster_fused_windows(kept + cpt, bins, records, size, TX),
-                 R.raster_fused_windows(torch.full_like(kept, cpt), bins, records, size, TX))
+    assert_equal(R.raster_fused_windows(kept + cpt, bins, records, fv, size, TX),
+                 R.raster_fused_windows(torch.full_like(kept, cpt), bins, records, fv, size,
+                                        TX))
     _, p2f, _, ovf = R.rasterize_normals_fused(fv, fn, size, r.bin_capacity, compact=8,
                                                return_overflow=True)
     assert torch.equal(ovf, R._compact_plan(counts, 8)[4])
