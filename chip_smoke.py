@@ -33,13 +33,18 @@ Phases (any failure exits non-zero):
     dense gather-based autograd reference on the card and against the
     port's CPU path, within 1e-4 x its rounding scale
     (rasterizer.dense_gradient_and_scale);
- 4e. K6 raster_coverage_windows at b32, 224 px on the face region at
-    capacity 512 and 384: pix_to_face, zbuf and slot bitwise equal to its
-    plain version and to K3's on the same padded bins;
+ 4e. K6 raster_coverage_windows (16-float records read through the
+    padded bins, the warp cull of K1 and K3) at b32, 224 px on the face
+    region at capacity 512 and 384: pix_to_face, zbuf and slot bitwise
+    equal to its plain version, which tests every face, and to K3's on the
+    same (kept, bins, face_verts);
  4f. K7 segment_reduce_tiles against `segment_sum` (one scatter_add_),
-    every element within 1e-5 x the sum of the magnitudes of its terms: 36
-    channels at capacity 512 (74 KB of accumulators per block), and 72
-    channels at capacity 1024 (295 KB: the channels split over the grid);
+    every element within 1e-5 x the sum of the magnitudes of its terms,
+    with NaN in every payload row whose slot is outside [0, C) (the
+    contract drops them; K7 never reads them) and the output finite: 36
+    channels at capacity 512 on K6's slots (3 runs of 176 slots, 25 KB of
+    accumulators a block), and 72 channels at capacity 1024 (10 runs of
+    104); the share of pixels whose rows are read;
  4g. K8 raster_bins_coverage (staged one chunk ahead, the warp cull with
     its own boxes, `cull_boxes_bins`) at b32, capacity 384: bitwise equal
     to its plain version, which tests every face, and against K6's
@@ -60,9 +65,11 @@ Phases (any failure exits non-zero):
  4j. the culled kernels on a sliver-heavy batch (b2, 224 px, 3000 random
     faces, a third of them slivers and near-degenerate faces along pixel
     rows, which the cull boxes leave unbounded): K1 at the default budget,
-    padded and at a budget of 64 that drops chunks, and K8, bitwise equal
-    to their plain versions; K8 on a face that covers pixels through a
-    barycentric rounded to -0 (its sign test must not reject them);
+    padded and at a budget of 64 that drops chunks, K6 padded and at kept
+    counts cut to 2 chunks (also against K3's coverage outputs), and K8,
+    bitwise equal to their plain versions; K8 on a face that covers pixels
+    through a barycentric rounded to -0 (its sign test must not reject
+    them);
  5. the main path through `Predictor` at full width (three full
     MobileNetV3-minimal encoders, FLAME with 300 shape / 50 expression
     components on the full-size procedural head, batch 64, 224 px), random
@@ -86,7 +93,9 @@ Phases (any failure exits non-zero):
     capacity 512, point shading with 2 lights and SH shading, an L2 loss
     to a seeded target and its gradient to the expression parameters:
     coverage > 5 %, every output and gradient finite, K6, K7 and K5
-    launched and K3 not, the values equal to `interpolate_attributes`,
+    launched and K3 not, no record list gathered on the forward (K6 reads
+    the records through the bins), the values equal to
+    `interpolate_attributes`,
     and the gradient to the face vertices and attributes within 1e-5 x the
     sum of the per-pixel terms' magnitudes of a dense gather-based
     autograd reference on the card; one more pass at capacity 384; then
@@ -103,7 +112,8 @@ Phases (any failure exits non-zero):
     there is one (K2's function: one advanced-index gather; K4 and K7: one
     scatter_add_ of prebuilt rows; K5: one index_add_), the kept counts
     that stand where K2 stood, K1 at b32 on the cycle path's faces, the op
-    path's forward and backward, the whole calls of the five inference
+    path's forward and backward, the coverage forward with its inputs
+    (`_v3_impl`, b32, capacity 512), the whole calls of the five inference
     rasters (compact, padded, merged, sort_tiles, chunk-skip), the stages
     of infer (and K3 with its inputs, the training raster's forward) and of
     one train step, a torch.profiler trace of one train step per parity
@@ -116,8 +126,10 @@ Phases (any failure exits non-zero):
     with K1's and K3's bounds (K9-K11 take K1's) counted from this run's
     inputs as the work their function needs (the face-pixel pairs in the
     faces' boxes, the binned records read once), the count of every slot
-    against every pixel and the face-warp tests the culls of K1, K3 and K8
-    keep printed beside them;
+    against every pixel and the face-warp tests the culls of K1, K3, K6 and
+    K8 keep printed beside them; K7's bound counts the slots, the payload
+    rows of slots in [0, C) and the output, with the count that reads every
+    row and the share of rows read beside it;
  8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
@@ -747,48 +759,67 @@ def main(argv=None) -> int:
     within(d_fn.cpu(), dc_fn, sc_fn.cpu(), "d normals card vs cpu", GRAD_RTOL)
 
     # ---------------- 4e. K6 ----------------
-    log(f"[4e] K6 raster_coverage_windows at B={BT}, capacity 512 and {cap}")
+    log(f"[4e] K6 raster_coverage_windows (bins read through, warp cull) at B={BT}, "
+        f"capacity 512 and {cap}")
     with torch.inference_mode():
         crec = R.coverage_records(fvt)
         k6, k6_err = {}, 0.0
         for c6 in (512, cap):
             b6, n6 = R.bin_faces_flat(fvt, S, c6)
-            s6, e6 = R.padded_windows(n6, c6 // R.V3_CHUNK)
-            r6 = R._gather_recs(crec, b6.reshape(BT, -1)).contiguous()
-            out6 = R.raster_coverage_windows(s6, e6, r6, S, TX)
-            plain6 = R.raster_coverage_windows_plain(s6, e6, r6, S, TX)
+            kept6 = R._windows(n6, None)[0]
+            out6 = R.raster_coverage_windows(kept6, b6, crec, fvt, S, TX)
+            plain6 = R.raster_coverage_windows_plain(kept6, b6, crec, S, TX)
             torch.cuda.synchronize()
             for nm, a, b in zip(("p2f", "zbuf", "slot"), out6, plain6):
-                check(torch.equal(a, b), f"K6 {nm} == plain at capacity {c6} (bitwise)")
+                check(torch.equal(a, b), f"culled K6 {nm} == plain, every face tested, at "
+                      f"capacity {c6} (bitwise)")
                 k6_err = max(k6_err, float((a.double() - b.double()).abs().max()))
-            k3c = R.raster_planes_windows(R._windows(n6, None)[0], b6, prec, fvt, S, TX,
-                                          D)
+            k3c = R.raster_planes_windows(kept6, b6, prec, fvt, S, TX, D)
             for nm, a, b in zip(("p2f", "zbuf", "slot"), out6, k3c):
                 check(torch.equal(a, b), f"K6 {nm} == K3's on the same bins at capacity {c6}")
-            k6[c6] = (b6, n6, s6, e6, r6, out6)
-        check(float((k6[512][5][0] >= 0).float().mean()) > 0.05, "K6 covers > 5 % of pixels")
+            k6[c6] = (b6, kept6, out6)
+        check(float((k6[512][2][0] >= 0).float().mean()) > 0.05, "K6 covers > 5 % of pixels")
 
         # ---------------- 4f. K7 ----------------
-        log("[4f] K7 segment_reduce_tiles vs segment_sum (one scatter_add_)")
-        k7_lib = kernels.library("segment_reduce")
-        slots7 = R.image_to_tiles(R._tiles_to_image(k6[512][5][2], S), S).contiguous()
+        log("[4f] K7 segment_reduce_tiles vs segment_sum (one scatter_add_), NaN in "
+            "the dropped rows")
+        k7_limit = kernels.library("segment_reduce").smirk_max_shared_optin(dev.index)
+
+        def nan_dropped(slots, payload, c):
+            """The payload with NaN in every row whose slot is outside [0, c)."""
+            drop = (slots < 0) | (slots >= c)
+            return torch.where(drop[..., None], float("nan"), payload)
+
+        slots7 = R.image_to_tiles(R._tiles_to_image(k6[512][2][2], S), S).contiguous()
         gen7 = torch.Generator(device=dev).manual_seed(7)
-        pay7 = torch.randn(tuple(slots7.shape) + (36,), device=dev, generator=gen7)
+        pay7 = nan_dropped(slots7, torch.randn(tuple(slots7.shape) + (36,), device=dev,
+                                               generator=gen7), 512)
         k7 = R.segment_reduce_tiles(slots7, pay7, 512)
         k7_plain = R.segment_sum(slots7, pay7, 512)
         torch.cuda.synchronize()
-        check(R._channel_group(k7_lib, 512, 36, dev) == 36,
-              "K7 at C=512, CHN=36: 74 KB of accumulators in one block (opt-in)")
+        group7, span7 = R._reduce_blocks(512, 36, k7_limit)
+        check((group7, span7) == (36, 176), f"K7 at C=512, CHN=36: runs of {span7} "
+              f"slots x {group7} channels, {span7 * group7 * 4} bytes of accumulators "
+              "a block")
+        check(bool(torch.isfinite(k7).all()), "K7 finite with NaN in the dropped rows")
         k7_ratio, k7_err = within(k7, k7_plain, R.segment_sum(slots7, pay7.abs(), 512),
                                   "K7 vs plain, C=512, CHN=36")
+        k7_rows = int(((slots7 >= 0) & (slots7 < 512)).sum())
+        covered7 = int((R._tiles_to_image(slots7, S) >= 0).sum())
+        log(f"    K7 reads {k7_rows} of {slots7.numel()} payload rows "
+            f"({k7_rows / slots7.numel() * 100:.1f} %: {covered7} covered pixels, "
+            f"{k7_rows - covered7} padding pixels with slot 0)")
         B7 = min(B, 8)
-        slots7b = torch.randint(-1, 1024, (B7, Tp, R.TILE_PIX), device=dev,
+        slots7b = torch.randint(-1, 1024 + 128, (B7, Tp, R.TILE_PIX), device=dev,
                                 generator=gen7, dtype=torch.int32)
-        pay7b = torch.randn((B7, Tp, R.TILE_PIX, 72), device=dev, generator=gen7)
-        group7b = R._channel_group(k7_lib, 1024, 72, dev)
+        pay7b = nan_dropped(slots7b, torch.randn((B7, Tp, R.TILE_PIX, 72), device=dev,
+                                                 generator=gen7), 1024)
+        group7b, span7b = R._reduce_blocks(1024, 72, k7_limit)
         k7b = R.segment_reduce_tiles(slots7b, pay7b, 1024)
-        check(group7b < 72, f"K7 at C=1024, CHN=72 (295 KB) splits the channels into "
-              f"groups of {group7b}")
+        check(span7b < 1024, f"K7 at C=1024, CHN=72 (295 KB) splits the slots into "
+              f"runs of {span7b} ({span7b * group7b * 4} bytes a block)")
+        check(bool(torch.isfinite(k7b).all()), "K7 finite with NaN in the dropped rows, "
+              "C=1024, CHN=72")
         within(k7b, R.segment_sum(slots7b, pay7b, 1024),
                R.segment_sum(slots7b, pay7b.abs(), 1024), "K7 vs plain, C=1024, CHN=72")
 
@@ -803,7 +834,7 @@ def main(argv=None) -> int:
         for nm, a, b in zip(("p2f", "zbuf"), k8, k8_plain):
             check(torch.equal(a, b), f"culled K8 {nm} == plain, every face tested (bitwise)")
             k8_err = max(k8_err, float((a.double() - b.double()).abs().max()))
-        k6_img = [R._tiles_to_image(x, S) for x in k6[cap][5][:2]]
+        k6_img = [R._tiles_to_image(x, S) for x in k6[cap][2][:2]]
         k8_bad = tie_mismatches(k8[0][:, :S, :S], k6_img[0], k8[1][:, :S, :S], k6_img[1],
                                 fvt, S)
         log(f"    K8 vs K6 pix_to_face: {k8_bad} tie pixels")
@@ -916,6 +947,17 @@ def main(argv=None) -> int:
                 check(torch.equal(a, b), f"slivers, budget {bud}: culled K1 {nm} == plain "
                       "(bitwise)")
         check(int(drop_s.min()) > 0, "budget 64 drops chunks of the sliver batch")
+        crec_s, prec_s = R.coverage_records(fvs), R.planes_records(fvs, fns)
+        kept_sp = R._windows(counts_s, None)[0]
+        check(int(kept_sp.max()) > 2, "some tile of the sliver batch walks more than 2 chunks")
+        for nm6, kept_s6 in (("padded", kept_sp), ("2 chunks", kept_sp.clamp(max=2))):
+            got = R.raster_coverage_windows(kept_s6, bins_s, crec_s, fvs, S, TX)
+            want = R.raster_coverage_windows_plain(kept_s6, bins_s, crec_s, S, TX)
+            k3s = R.raster_planes_windows(kept_s6, bins_s, prec_s, fvs, S, TX, 3)
+            torch.cuda.synchronize()
+            for nm, a, b, c in zip(("p2f", "zbuf", "slot"), got, want, k3s):
+                check(torch.equal(a, b) and torch.equal(a, c), f"slivers, {nm6}: culled K6 "
+                      f"{nm} == plain and == K3's (bitwise)")
         fv9_s = fvs.reshape(2, -1, 9).contiguous()
         got = R.raster_bins_coverage(counts_s, bins_s, fv9_s, S)
         want = R.raster_bins_coverage_plain(counts_s, bins_s, fv9_s, S)
@@ -1099,10 +1141,21 @@ def main(argv=None) -> int:
         return ((img - op_target) ** 2).mean(), fv, attrs, vals, mask, p2f, ovf
 
     op_grad_ratio = 0.0
+    gather_fn, gathers = R._gather_recs, [0]
+
+    def gather_counted(*a, **kw):
+        gathers[0] += 1
+        return gather_fn(*a, **kw)
+
     for c5 in (512, cap):
         expr = op_params["expression_params"].clone().requires_grad_(True)
         R.reset_launch_counts()
-        loss, fv5, at5, vals5, mask5, p2f5, ovf5 = op_path(expr, c5)
+        R._gather_recs, gathers[0] = gather_counted, 0
+        try:
+            loss, fv5, at5, vals5, mask5, p2f5, ovf5 = op_path(expr, c5)
+        finally:
+            R._gather_recs = gather_fn
+        check(gathers[0] == 0, f"capacity {c5}: the forward gathered no record list")
         g_vals, d_fv5, d_at5, d_exp = torch.autograd.grad(loss, (vals5, fv5, at5, expr))
         torch.cuda.synchronize()
         launched = {k.__name__: k.launches for k in R.KERNELS}
@@ -1146,6 +1199,13 @@ def main(argv=None) -> int:
     check(k8_launches["raster_bins_coverage"] == 1 and sum(k8_launches.values()) == 1,
           "rasterize_coverage_pallas launched K8 once and nothing else")
     check(torch.equal(p2f_cov, p2f_op), "rasterize_coverage pix_to_face == the op path's")
+    with torch.inference_mode():  # the rows K7 reads on the op path's backward
+        slots_op = R.image_to_tiles(R._v3_impl(fv_op, S, 512)[2], S)
+    rows_op = int(((slots_op >= 0) & (slots_op < 512)).sum())
+    covered_op = int((p2f_op >= 0).sum())
+    log(f"    the op path's K7 reads {rows_op} of {slots_op.numel()} payload rows "
+        f"({rows_op / slots_op.numel() * 100:.1f} %: {covered_op} covered pixels, "
+        f"{rows_op - covered_op} padding pixels with slot 0)")
     log(f"    K8 vs K6 on the op path's faces: "
         f"{tie_mismatches(p2f_k8, p2f_cov, z_k8, z_cov, fv_op, S)} tie pixels")
 
@@ -1244,10 +1304,13 @@ def main(argv=None) -> int:
         src5 = k4.reshape(-1, 3 * D)
         buf5 = torch.zeros((BT * F_render + 1, 3 * D), device=dev)
         res["k5_library_ms"] = cuda_ms(lambda: buf5.index_add_(0, idx5, src5), 200)
-        _, _, s6, e6, r6, _ = k6[512]
-        res["k6_ms"] = cuda_ms(lambda: R.raster_coverage_windows(s6, e6, r6, S, TX), 50)
+        b6, kept6, _ = k6[512]
+        res["k6_ms"] = cuda_ms(
+            lambda: R.raster_coverage_windows(kept6, b6, crec, fvt, S, TX), 50)
         res["k6_plain_ms"] = cuda_ms(
-            lambda: R.raster_coverage_windows_plain(s6, e6, r6, S, TX), 3, 1)
+            lambda: R.raster_coverage_windows_plain(kept6, b6, crec, S, TX), 3, 1)
+        # the coverage forward with its inputs (binning, records, K6), b32
+        res["call_coverage_b32_ms"] = cuda_ms(lambda: R._v3_impl(fvt, S, 512), 20)
         res["k7_ms"] = cuda_ms(lambda: R.segment_reduce_tiles(slots7, pay7, 512), 100)
         res["k7_plain_ms"] = cuda_ms(lambda: R.segment_sum(slots7, pay7, 512), 20)
         # yardstick: the one scatter_add_ of the payload rows, index prebuilt
@@ -1385,10 +1448,14 @@ def main(argv=None) -> int:
     # K6 and K8 compute coverage on binned faces: their bounds count the
     # same way (K6's 64-byte records; K8's 36-byte vertices, 29 operations
     # a pair), with every binned slot against every pixel printed beside
-    work6 = culled_work(e6 - s6, k6[512][0], raw_t, S)
+    work6 = culled_work(kept6, b6, raw_t, S, boxes_t)  # K6 culls with K3's boxes
     k6_bms, k6_by = culled_bound(work6, BT * Tp, 3, 0, rec_bytes=64)
-    k6_old_bms, _ = raster_bound(int((e6 - s6).sum()), BT * Tp, 3, 0, BT, Tp, lanes=16)
-    k7_bytes = BT * Tp * R.TILE_PIX * (36 + 1) * 4 + BT * Tp * 512 * 36 * 4
+    k6_old_bms, _ = raster_bound(int(kept6.sum()), BT * Tp, 3, 0, BT, Tp, lanes=16)
+    # K7 needs the slots, the payload rows of slots in [0, C) and the
+    # output; the count that reads every row is printed beside it
+    k7_out_bytes = BT * Tp * 512 * 36 * 4
+    k7_bytes = BT * Tp * R.TILE_PIX * 4 + k7_rows * 36 * 4 + k7_out_bytes
+    k7_all_bytes = BT * Tp * R.TILE_PIX * (36 + 1) * 4 + k7_out_bytes
     T_real = -(-S // R.TILE_ROWS) * TX
     k8_pairs = int(counts_t[:, :T_real].sum()) * R.TILE_PIX
     # K8's cull boxes, as it computes them in its staging
@@ -1509,9 +1576,16 @@ def main(argv=None) -> int:
             "steps x 32 x 1024 pixels); K9 and K10 take K1b's bound, K11 K1's; "
             f"face-warp tests the cull keeps {kept_share(w)}")
     log(f"    bounds: K6 {k6_bms:.4f} ms ({k6_by}, {work6['box_pairs']} face-pixel pairs "
-        f"in the faces' boxes x {OPS_PER_FACE_PIXEL}; every slot against every pixel "
-        f"{k6_old_bms:.4f} ms), K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
-        f"{k7_bytes / 1e6:.1f} MB), K8 {k8_bms:.4f} ms ({k8_by}, {work8['box_pairs']} "
+        f"in the faces' boxes x {OPS_PER_FACE_PIXEL}, {work6['binned_faces']} binned "
+        f"faces; every slot against every pixel {k6_old_bms:.4f} ms, "
+        f"{work6['chunk_steps']} chunk steps); K6's face-warp tests the cull keeps "
+        f"{kept_share(work6)}")
+    log(f"    bounds: K7 {k7_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
+        f"{k7_bytes / 1e6:.1f} MB: the slots, {k7_rows} payload rows of slots in [0, 512) "
+        f"of {BT * Tp * R.TILE_PIX} ({k7_rows / (BT * Tp * R.TILE_PIX) * 100:.1f} %), the "
+        f"output); every row read {k7_all_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms "
+        f"({k7_all_bytes / 1e6:.1f} MB)")
+    log(f"    bounds: K8 {k8_bms:.4f} ms ({k8_by}, {work8['box_pairs']} "
         f"face-pixel pairs in the faces' boxes x {OPS_PER_FACE_PIXEL_K8}; every binned "
         f"face against every pixel {k8_old_bms:.4f} ms, {k8_pairs} pairs); K8's "
         f"face-warp tests the cull keeps {kept_share(work8)}")

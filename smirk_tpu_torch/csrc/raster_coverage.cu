@@ -1,127 +1,91 @@
-// K6 raster_coverage_windows: per-tile coverage z-buffer over a window of
-// 32-face chunks: the nearest face, its depth and its per-tile bin slot.
+// K6 raster_coverage_windows: per-tile coverage z-buffer over the first
+// `kept` 32-face chunks of the tile's bin: the nearest face, its depth and
+// its per-tile bin slot.
 //
 // Replaces _raster_kernel_v3 (via _v3_impl, rasterize_coverage_pallas_v3
 // and rasterize_coverage_pallas_v3_full) in smirk_tpu/render/rasterizer.py.
 // On the TPU that evaluates a (32 faces x 1024 pixels) block per chunk of a
-// tile's padded bin and merges chunk minima. Here a block owns one 8x128
-// tile of one image, 256 threads x 4 pixels, and walks the tile's chunk
-// window [starts, ends) of 16-lane coverage records (lanes 0-11 edge and
-// depth planes, lane 12 the face id, -1 on kill rows):
-//   * the chunk's 32 records (2 KB) are staged in shared memory, one float4
-//     load for each of the first 128 threads, and read as broadcasts;
-//   * each thread tests the 32 faces in slot order and keeps a face only if
-//     it is inside and strictly nearer: the TPU kernel's chunk minimum,
-//     first slot on ties, and strict chunk-to-chunk compare;
-//   * the winner's slot is written per TILE, (c - start) * 32 + slot, which
-//     indexes the tile's bin row for the backward's segment reduction.
-// Only p2f, zbuf and slot are written. Every affine form is ((a*x) + (b*y))
-// + c with __fmul_rn / __fadd_rn and the pixel centres use __fdiv_rn, so
-// nothing is contracted into an FMA and the outputs are bitwise equal to
-// the plain PyTorch version on the card, and to K3's coverage outputs on
-// the same bins.
+// tile's padded bin, over a record list gathered per bin slot, and merges
+// chunk minima. Here it is K3 (raster_planes.cu) without the attribute
+// planes, on 16-float coverage records (lanes 0-11 edge and depth planes,
+// lane 12 the face id), and it shares K1's and K3's walk (walk_window in
+// window_raster.cuh, at 16 floats a record). A block owns one 8x128 tile
+// of one image and walks chunks k = 0 .. kept - 1 of the tile's bin row:
+//   * staging: the chunk's 32 face ids are read from the bins and their
+//     records (2 KB a chunk) loaded from the image's record table into
+//     shared memory, with each face's cull box computed from its vertices
+//     as rasterizer.cull_boxes computes it. A chunk is 128 float4, so the
+//     block's two halves stage alternate chunks, each half's loads flying
+//     two chunks ahead of the tests (window_raster.cuh says why). No
+//     record list is gathered before the launch (it was 59 MB at batch 32,
+//     224 px, capacity 512);
+//   * the 8 warps each own a 16-column x 8-row rectangle of the tile, 4
+//     pixels a thread; a ballot over the 32 staged boxes, widened by one
+//     pixel, gives the faces that meet the warp's rectangle, and the warp
+//     walks only those, in slot order, keeping a face only if it is inside
+//     and strictly nearer: the TPU kernel's chunk minimum, first slot on
+//     ties, and strict chunk-to-chunk compare;
+//   * the winner's slot k * 32 + f in its tile's bin is written (it indexes
+//     the bin row for the backward's segment reduction), and its face id is
+//     read from the bin row there; no record is read again.
+// Every affine form is ((a*x) + (b*y)) + c with __fmul_rn / __fadd_rn and
+// the pixel centres use __fdiv_rn, so nothing is contracted into an FMA.
+// The records' lanes 0-11 are face_records', for which cull_boxes is
+// exact: a culled face fails the edge tests at every pixel of the warp, so
+// the outputs are bitwise equal to the plain PyTorch version, which tests
+// every face, and to K3's coverage outputs on the same bins.
 //
-// Bound on H100: fp32 operations, ~16 per face-pixel test (4 affine forms)
-// over the occupied chunk windows; the records (2 KB per chunk) stay in
-// shared memory and every loaded record value feeds four pixels. It does
-// not skip faces whose bounding box misses the pixels.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on H100. Without the cull: fp32 operations, ~16 per face-pixel
+// test over every slot of the walked chunks (~0.04 ms at batch 32, 224 px,
+// capacity 512), and the unculled walk over a gathered list took ~0.18
+// ms. Counting only the face-pixel pairs inside the faces' boxes, what the
+// inputs need is bytes: the binned faces' records (64 B each), the walked
+// bin ids and the three outputs (~0.009 ms at 3.35 TB/s). What is left is
+// K3's: the latency of the staging's dependent loads over walks of ~3
+// chunks.
+#include "window_raster.cuh"
 
 namespace {
 
-constexpr int kTileRows = 8;
-constexpr int kTileCols = 128;
-constexpr int kTilePix = kTileRows * kTileCols;  // 1024
-constexpr int kChunk = 32;                        // faces per chunk
-constexpr int kLanes = 16;                        // floats per record
-constexpr int kThreads = 256;
-constexpr int kPixPerThread = kTilePix / kThreads;  // 4
-constexpr int kChunkVec = kChunk * kLanes / 4;      // 128 float4 per chunk
-constexpr float kBigZ = 1e10f;
+using namespace smirk_raster;
 
-__device__ __forceinline__ float affine(float a, float b, float c, float x,
-                                        float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
-}
+constexpr int kCoverageLanes = 16;  // floats per coverage record
 
-__device__ __forceinline__ float ndc(int i, int size) {
-  const float s = (float)size;
-  return __fdiv_rn(__fsub_rn(__fadd_rn(__fmul_rn(2.0f, (float)i), 1.0f), s), s);
-}
-
-__global__ void __launch_bounds__(kThreads)
-raster_coverage_windows_kernel(const int32_t* __restrict__ starts,
-                               const int32_t* __restrict__ ends,
-                               const float* __restrict__ recs,
+// 5 blocks an SM: K1's and K3's minimum (tools/torch_launch_bounds_sweep.py
+// --kernel coverage)
+__global__ void __launch_bounds__(kThreads, 5)
+raster_coverage_windows_kernel(const int32_t* __restrict__ kept,
+                               const int32_t* __restrict__ bins,
+                               const float* __restrict__ records,
+                               const float* __restrict__ face_verts,
                                int32_t* __restrict__ p2f,
                                float* __restrict__ zbuf,
-                               int32_t* __restrict__ slot, int Tp,
-                               int n_chunks, int H, int W, int TX) {
-  __shared__ float4 s_chunk[kChunkVec];
+                               int32_t* __restrict__ slot, int Tp, int C,
+                               int F, int H, int W, int TX, float grid_radius) {
+  __shared__ float4 s_chunk[kChunk * kCoverageLanes / 4];  // 128 float4 = 2 KB
+  __shared__ float4 s_box[kChunk];                         // 512 B
   const int t = blockIdx.x;
   const int b = blockIdx.y;
   const int tile = b * Tp + t;
-  const int c0 = starts[tile];
-  const int c1 = ends[tile];
+  const int n = min(kept[tile], C / kChunk);
   const int ty = t / TX;
   const int tx = t % TX;
-  const float* img_recs = recs + (size_t)b * n_chunks * kChunk * kLanes;
+  const int32_t* row = bins + (size_t)tile * C;
+  const float* img = records + (size_t)b * F * kCoverageLanes;
 
-  float xs[kPixPerThread], ys[kPixPerThread], best[kPixPerThread];
-  int win[kPixPerThread];
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    xs[k] = ndc(p % kTileCols + tx * kTileCols, W);
-    ys[k] = ndc(p / kTileCols + ty * kTileRows, H);
-    best[k] = kBigZ;
-    win[k] = -1;
-  }
-
-  const float* s = reinterpret_cast<const float*>(s_chunk);
-  for (int c = c0; c < c1; ++c) {
-    __syncthreads();  // the previous chunk has been read by every thread
-    if (threadIdx.x < kChunkVec) {
-      s_chunk[threadIdx.x] = reinterpret_cast<const float4*>(
-          img_recs + (size_t)c * kChunk * kLanes)[threadIdx.x];
-    }
-    __syncthreads();
-#pragma unroll 2
-    for (int f = 0; f < kChunk; ++f) {
-      const float* r = s + f * kLanes;
-      const float a0 = r[0], b0 = r[1], d0 = r[2];
-      const float a1 = r[3], b1 = r[4], d1 = r[5];
-      const float a2 = r[6], b2 = r[7], d2 = r[8];
-      const float za = r[9], zb = r[10], zc = r[11];
-      const bool real = r[12] >= 0.0f;
-      const int id = c * kChunk + f;
-#pragma unroll
-      for (int k = 0; k < kPixPerThread; ++k) {
-        const float e0 = affine(a0, b0, d0, xs[k], ys[k]);
-        const float e1 = affine(a1, b1, d1, xs[k], ys[k]);
-        const float e2 = affine(a2, b2, d2, xs[k], ys[k]);
-        const float z = affine(za, zb, zc, xs[k], ys[k]);
-        if (real && e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z < best[k]) {
-          best[k] = z;
-          win[k] = id;
-        }
-      }
-    }
-  }
+  Pixels px = tile_pixels(tx, ty, W, H);
+  walk_window<kCoverageLanes>(row, reinterpret_cast<const float4*>(img),
+                              face_verts + (size_t)b * F * 9, n, F, (float)W,
+                              grid_radius, warp_rect(tx, ty, threadIdx.x / 32),
+                              s_chunk, s_box, px);
 
 #pragma unroll
   for (int k = 0; k < kPixPerThread; ++k) {
-    const size_t o = (size_t)tile * kTilePix + threadIdx.x + k * kThreads;
-    if (best[k] < kBigZ) {
-      p2f[o] = (int32_t)img_recs[(size_t)win[k] * kLanes + 12];
-      zbuf[o] = best[k];
-      slot[o] = win[k] - c0 * kChunk;
-    } else {
-      p2f[o] = -1;
-      zbuf[o] = kBigZ;
-      slot[o] = -1;
-    }
+    const size_t o = (size_t)tile * kTilePix + tile_pixel(k);
+    const bool covered = px.best[k] < kBigZ;
+    p2f[o] = covered ? row[px.win[k]] : -1;
+    zbuf[o] = covered ? px.best[k] : kBigZ;
+    slot[o] = covered ? px.win[k] : -1;
   }
 }
 
@@ -129,18 +93,20 @@ raster_coverage_windows_kernel(const int32_t* __restrict__ starts,
 
 extern "C" {
 
-int smirk_raster_coverage_windows(const void* starts, const void* ends,
-                                  const void* recs, void* p2f, void* zbuf,
-                                  void* slot, int B, int Tp, int n_chunks,
-                                  int H, int W, int TX, int device,
-                                  void* stream) {
+int smirk_raster_coverage_windows(const void* kept, const void* bins,
+                                  const void* records, const void* face_verts,
+                                  void* p2f, void* zbuf, void* slot, int B,
+                                  int Tp, int C, int F, int H, int W, int TX,
+                                  float grid_radius, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (C % kChunk) return (int)cudaErrorInvalidValue;
   if (B == 0 || Tp == 0) return 0;
   dim3 grid(Tp, B);
   raster_coverage_windows_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)starts, (const int32_t*)ends, (const float*)recs,
-      (int32_t*)p2f, (float*)zbuf, (int32_t*)slot, Tp, n_chunks, H, W, TX);
+      (const int32_t*)kept, (const int32_t*)bins, (const float*)records,
+      (const float*)face_verts, (int32_t*)p2f, (float*)zbuf, (int32_t*)slot, Tp,
+      C, F, H, W, TX, grid_radius);
   return (int)cudaGetLastError();
 }
 

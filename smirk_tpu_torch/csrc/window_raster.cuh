@@ -1,6 +1,7 @@
-// Shared by the tile rasters K1 (raster_fused.cu), K3 (raster_planes.cu) and
-// K8 (raster_bins.cu): the tile and warp geometry, the exact fp32 forms,
-// the cull boxes, and the read-through window walk of K1 and K3.
+// Shared by the tile rasters K1 (raster_fused.cu), K3 (raster_planes.cu),
+// K6 (raster_coverage.cu) and K8 (raster_bins.cu): the tile and warp
+// geometry, the exact fp32 forms, the cull boxes, and the read-through
+// window walk of K1, K3 (32-float records) and K6 (16-float records).
 //
 // A block owns one 8x128 tile of one image. Its 8 warps each own a
 // 16-column x 8-row rectangle of the tile; lane l takes column l % 16 of
@@ -24,7 +25,7 @@ constexpr int kTileRows = 8;
 constexpr int kTileCols = 128;
 constexpr int kTilePix = kTileRows * kTileCols;  // 1024
 constexpr int kChunk = 32;                        // faces per chunk
-constexpr int kLanes = 32;                        // floats per record
+constexpr int kLanes = 32;                        // floats per record (K1, K3)
 constexpr int kQuarters = kLanes / 4;             // float4 per record
 constexpr int kThreads = 256;                     // = kChunk * kQuarters
 constexpr int kWarpCols = 16;                     // a warp's rectangle: 16 x 8
@@ -49,11 +50,13 @@ __device__ __forceinline__ float4 empty_box() {
   return make_float4(inf_f(), -inf_f(), inf_f(), -inf_f());
 }
 
-// Quarter q of face id's record; an id outside [0, F) gives the kill
-// record (edge constant c0 = -1 in lane 2, face id -1 in lane 12).
+// Quarter q of face id's record of Lanes floats; an id outside [0, F)
+// gives the kill record (edge constant c0 = -1 in lane 2, face id -1 in
+// lane 12: the x of quarter 3 for either width).
+template <int Lanes = kLanes>
 __device__ __forceinline__ float4 record_quarter(const float4* __restrict__ recs,
                                                  int id, int F, int q) {
-  if (id >= 0 && id < F) return __ldg(recs + (size_t)id * kQuarters + q);
+  if (id >= 0 && id < F) return __ldg(recs + (size_t)id * (Lanes / 4) + q);
   return make_float4(q == 3 ? -1.0f : 0.0f, 0.0f, q == 0 ? -1.0f : 0.0f, 0.0f);
 }
 
@@ -180,55 +183,81 @@ __device__ __forceinline__ int tile_pixel(int k) {
   return (lane / kWarpCols + 2 * k) * kTileCols + warp * kWarpCols + lane % kWarpCols;
 }
 
-// K1's and K3's walk of one tile: chunks c = 0 .. n - 1 of the tile's bin
-// row (`row`, 32 face ids each), each face's 32-float record read through
-// its id from the image's record table (img4) and staged in shared memory
-// one chunk ahead of the tests, lanes 0-2 of its 8 loading its vertices'
-// x and y (fv) beside it, from which every lane of the face computes its
-// cull box (cull_box). Each warp then walks the faces that meet its
-// rectangle, in slot order, and keeps a face at a pixel only if it is
-// inside (records' lanes 0-8, lane 12 >= 0) and strictly nearer (lanes
-// 9-11): the first minimum in bin order. s_chunk holds 256 float4, s_box 32.
+// The window walk of one tile (K1, K3: Lanes = 32; K6: Lanes = 16):
+// chunks c = 0 .. n - 1 of the tile's bin row (`row`, 32 face ids each),
+// each face's record of Lanes floats read through its id from the image's
+// record table (img4) and staged in shared memory ahead of the tests,
+// lanes 0-2 of its Lanes / 4 loading its vertices' x and y (fv) beside it,
+// from which every lane of the face computes its cull box (cull_box).
+// Each warp then walks the faces that meet its rectangle, in slot order,
+// and keeps a face at a pixel only if it is inside (records' lanes 0-8,
+// lane 12 >= 0) and strictly nearer (lanes 9-11): the first minimum in bin
+// order. s_chunk holds a chunk's 32 * Lanes / 4 float4, s_box 32.
+//
+// A chunk is 32 x Lanes / 4 float4, so it takes kStagers = kThreads /
+// (32 x Lanes / 4) groups of threads to stage: one at 32 floats (every
+// thread loads a quarter of the chunk, one chunk ahead of the tests), two
+// at 16 floats. Group h stages chunks c = h, h + kStagers, ..., so each
+// group's loads fly for kStagers chunks before their values are stored:
+// at 16 floats the first two chunks' loads leave together, and the walk
+// of ~3 chunks a tile waits on one round of dependent loads (bin ids, then
+// records and vertices) where staging with half the threads would wait on
+// one a chunk. A group is whole warps, so its branch does not diverge;
+// at 32 floats kStagers = 1 and every test below folds away.
+template <int Lanes = kLanes>
 __device__ __forceinline__ void walk_window(const int32_t* __restrict__ row,
                                             const float4* __restrict__ img4,
                                             const float* __restrict__ fv, int n,
                                             int F, float S, float grid_radius,
                                             const WarpRect& rect, float4* s_chunk,
                                             float4* s_box, Pixels& px) {
+  constexpr int kQ = Lanes / 4;                     // float4 per record
+  constexpr int kChunkVec = kChunk * kQ;            // float4 per chunk
+  constexpr int kStagers = kThreads / kChunkVec;    // 1 (32 floats) or 2 (16)
+  static_assert(kStagers * kChunkVec == kThreads, "a chunk must tile the block");
   const int lane = threadIdx.x % 32;
-  const int face = threadIdx.x / kQuarters;
-  const int q = threadIdx.x % kQuarters;
-  const int base = lane & ~(kQuarters - 1);  // the face's lane q = 0
-  int id = n > 0 ? row[face] : -1;
-  float4 staged = record_quarter(img4, id, F, q);
+  const int h = kStagers == 1 ? 0 : threadIdx.x / kChunkVec;  // staging group
+  // the thread's float4 of the chunk, unsigned as threadIdx.x is (a signed
+  // index costs the 32-float walk a register)
+  const unsigned slot = kStagers == 1 ? threadIdx.x : threadIdx.x % kChunkVec;
+  const int face = slot / kQ;
+  const int q = threadIdx.x % kQ;
+  const int base = lane & ~(kQ - 1);  // the face's lane q = 0
+  int id = h < n ? row[h * kChunk + face] : -1;
+  float4 staged = record_quarter<Lanes>(img4, id, F, q);
   float2 vxy = vertex_xy(fv, id, F, q);
-  int id_next = n > 1 ? row[kChunk + face] : -1;
+  int id_next = h + kStagers < n ? row[(h + kStagers) * kChunk + face] : -1;
   const float* s = reinterpret_cast<const float*>(s_chunk);
   for (int c = 0; c < n; ++c) {
-    // the face's 3 vertices from its lanes 0-2; every lane computes the box
-    float vx[3], vy[3];
+    const bool mine = kStagers == 1 || c % kStagers == h;  // warp-uniform
+    float4 box;
+    if (mine) {
+      // the face's 3 vertices from its lanes 0-2; every lane computes the box
+      float vx[3], vy[3];
 #pragma unroll
-    for (int v = 0; v < 3; ++v) {
-      vx[v] = __shfl_sync(0xffffffffu, vxy.x, base + v);
-      vy[v] = __shfl_sync(0xffffffffu, vxy.y, base + v);
+      for (int v = 0; v < 3; ++v) {
+        vx[v] = __shfl_sync(0xffffffffu, vxy.x, base + v);
+        vy[v] = __shfl_sync(0xffffffffu, vxy.y, base + v);
+      }
+      box = (id >= 0 && id < F) ? cull_box(vx, vy, S, grid_radius) : empty_box();
     }
-    const float4 box = (id >= 0 && id < F) ? cull_box(vx, vy, S, grid_radius)
-                                           : empty_box();
     __syncthreads();  // the previous chunk has been read by every thread
-    s_chunk[threadIdx.x] = staged;
-    if (q == 0) s_box[face] = box;
+    if (mine) {
+      s_chunk[slot] = staged;
+      if (q == 0) s_box[face] = box;
+    }
     __syncthreads();
-    if (c + 1 < n) {  // the next chunk's loads fly during this chunk's tests
-      staged = record_quarter(img4, id_next, F, q);
+    if (mine && c + kStagers < n) {  // this group's next chunk flies meanwhile
+      staged = record_quarter<Lanes>(img4, id_next, F, q);
       vxy = vertex_xy(fv, id_next, F, q);
       id = id_next;
-      id_next = c + 2 < n ? row[(c + 2) * kChunk + face] : -1;
+      id_next = c + 2 * kStagers < n ? row[(c + 2 * kStagers) * kChunk + face] : -1;
     }
     unsigned live = live_faces(s_box[lane], rect);
     while (live) {  // the faces that meet the rectangle, in slot order
       const int f = __ffs(live) - 1;
       live &= live - 1;
-      const float* r = s + f * kLanes;
+      const float* r = s + f * Lanes;
       const float a0 = r[0], b0 = r[1], d0 = r[2];
       const float a1 = r[3], b1 = r[4], d1 = r[5];
       const float a2 = r[6], b2 = r[7], d2 = r[8];

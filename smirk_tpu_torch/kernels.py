@@ -50,13 +50,13 @@ LIBRARIES = {
         "smirk_fold_faces": [_P] * 3 + [_I] * 5 + [_P],
     }),
     "raster_coverage": ("raster_coverage.cu", {
-        # starts, ends, recs, p2f, zbuf, slot,
-        # B, Tp, n_chunks, H, W, TX, device, stream
-        "smirk_raster_coverage_windows": [_P] * 6 + [_I] * 7 + [_P],
+        # kept, bins, records, face_verts, p2f, zbuf, slot,
+        # B, Tp, C, F, H, W, TX, grid radius, device, stream
+        "smirk_raster_coverage_windows": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     }),
     "segment_reduce": ("segment_reduce.cu", {
-        # slots, payload, out, B, Tp, C, CHN, group, device, stream
-        "smirk_segment_reduce_tiles": [_P] * 3 + [_I] * 6 + [_P],
+        # slots, payload, out, B, Tp, C, CHN, group, span, device, stream
+        "smirk_segment_reduce_tiles": [_P] * 3 + [_I] * 7 + [_P],
         "smirk_max_shared_optin": [_I],  # device
     }),
     "raster_bins": ("raster_bins.cu", {

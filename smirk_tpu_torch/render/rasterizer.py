@@ -43,9 +43,10 @@ record table (K11, `raster_chunkskip`): no plan.
 `set_backface_cull` drops one winding at the binning stage.
 
 The coverage rasters: `rasterize_coverage_jnp` (all pairs, plain
-PyTorch), `rasterize_coverage_pallas_v3[_full]` (`face_records` on the
-padded layout, `raster_coverage_windows`, kernel K6: pix_to_face, zbuf and
-the per-tile slot) and `rasterize_coverage_pallas` (`raster_bins_coverage`,
+PyTorch), `rasterize_coverage_pallas_v3[_full]` (`coverage_records` read
+through the padded layout's bins, `raster_coverage_windows`, kernel K6:
+K3's walk and cull without the planes; pix_to_face, zbuf and the per-tile
+slot) and `rasterize_coverage_pallas` (`raster_bins_coverage`,
 kernel K8: one face at a time per tile, division barycentrics, with a
 per-warp cull whose boxes, `cull_boxes_bins`, are made exact for its
 cross-product arithmetic).
@@ -510,7 +511,13 @@ def _bin_walk(kept, bins, records):
     of records gathered (empty slots a kill row), tile t walking chunks
     [t*cpt, t*cpt + kept) of it, kept clamped to [0, cpt] as the kernels
     clamp it (cpt = C/32). kept (B,Tp) int32, bins (B,Tp,C) int32, records
-    (B,F,L) -> (starts, ends (B,Tp), recs (B, Tp*C, L))."""
+    (B,F,L) -> (starts, ends (B,Tp), recs (B, Tp*C, L)). A 2-D `bins` is
+    the old chunk-window form (starts, ends, recs) of these arguments and
+    raises ValueError, so that a call in that form is not misread."""
+    if bins.ndim != 3 or kept.ndim != 2:
+        raise ValueError(f"expected kept (B,Tp) and bins (B,Tp,C), got kept "
+                         f"{tuple(kept.shape)} and bins {tuple(bins.shape)}; the "
+                         "(starts, ends, recs) window form is not taken")
     B, Tp, C = bins.shape
     cpt = C // V3_CHUNK
     starts = (torch.arange(Tp, dtype=torch.int32, device=bins.device) * cpt)[None].expand(B, Tp)
@@ -1500,53 +1507,57 @@ fold_slots_to_faces.launches = 0
 REC_LANES = 16  # [a0 b0 c0 a1 b1 c1 a2 b2 c2 zA zB zC fid pad pad pad]
 
 
-def raster_coverage_windows_plain(starts, ends, recs, image_size: int, tiles_x: int):
-    """Plain version of K6: `_plain_zbuffer` over records in the REC_LANES
-    layout. -> p2f (B,Tp,1024) int32 (-1 empty), zbuf f32 (1e10 empty),
-    slot (B,Tp,1024) int32, the winner's per-tile slot (c - start)*32 +
-    best (-1 empty)."""
+def raster_coverage_windows_plain(kept, bins, records, image_size: int, tiles_x: int):
+    """Plain version of K6: `_plain_zbuffer` over chunks 0 .. kept - 1 of
+    each tile's gathered bin (`_bin_walk`) of records in the REC_LANES
+    layout, every face tested (no cull). kept (B,Tp) int32, bins (B,Tp,C)
+    int32, records (B,F,16) (`coverage_records`) -> p2f (B,Tp,1024) int32
+    (-1 empty), zbuf f32 (1e10 empty), slot (B,Tp,1024) int32, the winner's
+    index k*32 + slot in its tile's bin (-1 empty). A 2-D bins (the old
+    (starts, ends, recs) form) raises ValueError."""
+    starts, ends, recs = _bin_walk(kept, bins, records)
     outs = [_winner_and_slot(starts, recs, *group[:3])[2:]
             for group in _plain_zbuffer(starts, ends, recs, image_size, tiles_x)]
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
-def raster_coverage_windows(starts, ends, recs, image_size: int, tiles_x: int):
-    """K6: per-tile coverage z-buffer over chunk windows -> as
-    `raster_coverage_windows_plain`.
+def raster_coverage_windows(kept, bins, records, face_verts, image_size: int,
+                            tiles_x: int):
+    """K6: per-tile coverage z-buffer over chunks 0 .. kept - 1 of the
+    tile's bin. kept (B,Tp) int32 (`_windows`), bins (B,Tp,C) int32,
+    records (B,F,16) f32 (`coverage_records`), face_verts (B,F,3,3) f32
+    (the faces the records were built from; the kernel culls with them) ->
+    as `raster_coverage_windows_plain`.
 
     Replaces `_raster_kernel_v3` (via `_v3_impl`,
-    smirk_tpu/render/rasterizer.py). Bound on H100: fp32 operations (~16
-    per face-pixel test over the windows). Design: K3's without the
-    attribute planes, one block per (tile, image), 256 threads x 4 pixels,
-    each chunk's 32 records (2 KB) staged in shared memory and read as
-    broadcasts, the strict first-minimum rule and no FMAs, so it is
-    bitwise equal to its plain version and to K3's coverage outputs on the
-    same bins. CPU tensors take the plain version.
+    smirk_tpu/render/rasterizer.py). Bound on H100: bytes, once the cull
+    skips the faces a warp cannot see (unculled, fp32 operations: ~16 per
+    face-pixel test), with FMAs forbidden so that it stays bitwise equal to
+    the plain version. Design: K3's walk (`raster_planes_windows`;
+    csrc/window_raster.cuh at 16 floats a record): the records read
+    through the bins, the block's halves staging alternate chunks two
+    ahead, each face's cull box (`cull_boxes`, exact for these records'
+    lanes 0-11) computed from its vertices; each of the 8 warps owns a 16x8
+    pixel rectangle and skips a face whose box widened by one pixel misses
+    it. The winner's face id is read from the bin row. A kept count is
+    clamped to [0, C/32]. Bitwise equal to its plain version and to K3's
+    coverage outputs on the same bins. CPU tensors take the plain version.
     """
-    if recs.device.type == "cpu":
-        return raster_coverage_windows_plain(starts, ends, recs, image_size, tiles_x)
-    if recs.device.type != "cuda":
-        raise ValueError(f"raster_coverage_windows: unsupported device {recs.device}")
-    dev = recs.device
-    B, Tp = starts.shape
-    _check_cuda("starts", starts, torch.int32, 2, dev)
-    _check_cuda("ends", ends, torch.int32, 2, dev)
-    _check_cuda("recs", recs, torch.float32, 3, dev)
-    if (tuple(ends.shape) != (B, Tp) or recs.shape[0] != B
-            or recs.shape[2] != REC_LANES or recs.shape[1] % V3_CHUNK):
-        raise ValueError("raster_coverage_windows: inconsistent shapes "
-                         f"starts {tuple(starts.shape)} ends {tuple(ends.shape)} "
-                         f"recs {tuple(recs.shape)}")
-    if recs.data_ptr() % 16:
-        raise ValueError("raster_coverage_windows: recs must be 16-byte aligned")
+    if records.device.type == "cpu":
+        return raster_coverage_windows_plain(kept, bins, records, image_size, tiles_x)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_coverage_windows: unsupported device {records.device}")
+    dev = records.device
+    B, Tp, C, F = _check_read_through("raster_coverage_windows", kept, bins, records,
+                                      face_verts, REC_LANES)
     p2f, slot = (torch.empty((B, Tp, TILE_PIX), dtype=torch.int32, device=dev)
                  for _ in range(2))
     zbuf = torch.empty((B, Tp, TILE_PIX), dtype=torch.float32, device=dev)
     lib = kernels.library("raster_coverage")
     rc = lib.smirk_raster_coverage_windows(
-        starts.data_ptr(), ends.data_ptr(), recs.data_ptr(), p2f.data_ptr(),
-        zbuf.data_ptr(), slot.data_ptr(), B, Tp, recs.shape[1] // V3_CHUNK,
-        image_size, image_size, tiles_x, dev.index,
+        kept.data_ptr(), bins.data_ptr(), records.data_ptr(), face_verts.data_ptr(),
+        p2f.data_ptr(), zbuf.data_ptr(), slot.data_ptr(), B, Tp, C, F, image_size,
+        image_size, tiles_x, _cull_grid_radius(image_size), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "raster_coverage_windows")
     raster_coverage_windows.launches += 1
@@ -1555,22 +1566,61 @@ def raster_coverage_windows(starts, ends, recs, image_size: int, tiles_x: int):
 
 raster_coverage_windows.launches = 0
 
+# K7's accumulators per block: small enough for 6-8 resident blocks an SM
+# (228 KB of shared memory on an H100 SM), where one block of all C x CHN
+# (74 KB at C=512, CHN=36) left 3; beside them a block lists its pixels
+# (K7_LIST_BYTES)
+K7_BLOCK_BYTES = 32 * 1024
+K7_LIST_BYTES = TILE_PIX * 4
+
+
+def _reduce_blocks(capacity: int, channels: int, limit: int) -> Tuple[int, int]:
+    """K7's block: (channels, slots) of the accumulators it holds. All the
+    channels where a row takes at most 32 lanes of 16 bytes (128 channels,
+    a multiple of 4 for float4 pieces) or of 4 bytes (32 channels
+    otherwise), else the fewest even groups under that, each a multiple of
+    4 where `channels` is one; then the longest run of slots whose rows fit
+    K7_BLOCK_BYTES (and `limit`, the device's opt-in bytes per block, with
+    the pixel list), evened out over the runs the capacity needs, each a
+    multiple of 8 slots (whole 128-byte lines of output at a multiple of 4
+    channels) unless one run holds them all."""
+    vec = channels % 4 == 0
+    most = 128 if vec else 32
+    groups = -(-channels // most)
+    width = -(-channels // groups)
+    if vec:
+        width = -(-width // 4) * 4
+    width = min(width, channels)
+    room = min(K7_BLOCK_BYTES, limit - K7_LIST_BYTES) // (width * 4)
+    if room < 8:
+        raise ValueError(f"{limit} bytes of shared memory per block cannot hold K7's "
+                         f"rows of {width} channels")
+    if room >= capacity:
+        return width, capacity
+    room -= room % 8
+    runs = -(-capacity // room)
+    return width, -(-capacity // (runs * 8)) * 8  # <= room, a multiple of 8
+
 
 def segment_reduce_tiles(slots, payload, capacity: int):
     """K7: per-(tile, slot) sums of a per-pixel payload; slots (B,Tp,1024)
     int32 (-1 = none; the tile grid's padding pixels hold slot 0 with a
-    zero payload), payload (B,Tp,1024,CHN) f32 tile-major -> (B,Tp,C,CHN)
-    f32, zeros for slots that won nothing.
+    zero payload), payload (B,Tp,1024,CHN) f32 tile-major, 16-byte aligned
+    -> (B,Tp,C,CHN) f32, zeros for slots that won nothing. Rows whose slot
+    is outside [0, C) are dropped, and the kernel never reads them.
 
     Replaces `_segment_reduce_kernel` (`segment_reduce_tiles`,
-    smirk_tpu/render/rasterizer.py). Bound on H100: bytes (the payload and
-    the slots read once, the rows written once). Design: K4's, one block
-    per (tile, image) with the tile's C x CHN accumulators in dynamic
-    shared memory (past 48 KB by opt-in), CHN split into channel groups
-    over the grid where even the opt-in limit is too small; shared-memory
-    atomics per (pixel, channel), one coalesced store. The atomics make the
-    float order vary, so it matches its plain version, `segment_sum` (one
-    scatter_add_), within a tolerance. CPU tensors take the plain version.
+    smirk_tpu/render/rasterizer.py). Bound on H100: bytes (the slots, the
+    payload rows of slots in [0, C) and the output rows, each once).
+    Design: one block per (run of slots, tile, image), the run fastest,
+    with the run's rows of accumulators in dynamic shared memory, sized for
+    6-8 resident blocks an SM (`_reduce_blocks`; past 128 channels also a
+    channel group). The block reads the tile's slots once, lists the pixels
+    whose slot is in its run and loads only their rows (float4 pieces);
+    shared-memory atomics, then one contiguous float4 store of its rows.
+    The atomics make the float order vary, so it matches its plain
+    version, `segment_sum` (one scatter_add_), within a tolerance. CPU
+    tensors take the plain version.
     """
     if payload.device.type == "cpu":
         return segment_sum(slots, payload, capacity)
@@ -1583,12 +1633,17 @@ def segment_reduce_tiles(slots, payload, capacity: int):
     if tuple(slots.shape) != (B, Tp, P) or P != TILE_PIX or CHN < 1:
         raise ValueError("segment_reduce_tiles: inconsistent shapes "
                          f"slots {tuple(slots.shape)} payload {tuple(payload.shape)}")
+    if payload.data_ptr() % 16 or slots.data_ptr() % 16:
+        raise ValueError("segment_reduce_tiles: slots and payload must be 16-byte aligned")
     out = torch.empty((B, Tp, capacity, CHN), dtype=torch.float32, device=dev)
     lib = kernels.library("segment_reduce")
-    group = _channel_group(lib, capacity, CHN, dev)
+    limit = lib.smirk_max_shared_optin(dev.index)
+    if limit <= 0:
+        raise RuntimeError("could not read the device's shared memory limit")
+    group, span = _reduce_blocks(capacity, CHN, limit)
     rc = lib.smirk_segment_reduce_tiles(
         slots.data_ptr(), payload.data_ptr(), out.data_ptr(), B, Tp, capacity,
-        CHN, group, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        CHN, group, span, dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "segment_reduce_tiles")
     segment_reduce_tiles.launches += 1
     return out
@@ -1935,15 +1990,14 @@ def _v3_impl(face_verts: torch.Tensor, image_size: int, capacity: int):
     """Tiled coverage on the padded layout (K6) -> (pix_to_face (B,H,W),
     zbuf (B,H,W), pix_to_slot (B,H,W) int32, the winner's index into its
     tile's bin (-1 empty), bins (B,Tp,C) with Tp the 8-padded tile count).
-    Empty slots gather a kill row."""
+    Each tile walks ceil(count / 32) chunks of its bin, the records read
+    through the bins (no gathered record list)."""
     _check_capacity(capacity)
-    face_verts = face_verts.detach()
+    face_verts = face_verts.detach().contiguous()
     bins, counts = bin_faces(face_verts, image_size, capacity)
-    starts, ends = padded_windows(counts, capacity // V3_CHUNK)
-    recs = _gather_recs(coverage_records(face_verts),
-                        bins.reshape(bins.shape[0], -1)).contiguous()
     p2f, zbuf, slot = raster_coverage_windows(
-        starts, ends, recs, image_size, -(-image_size // TILE_COLS))
+        _windows(counts, None)[0], bins, coverage_records(face_verts), face_verts,
+        image_size, -(-image_size // TILE_COLS))
     return (_tiles_to_image(p2f, image_size), _tiles_to_image(zbuf, image_size),
             _tiles_to_image(slot, image_size), bins)
 

@@ -58,7 +58,8 @@ def test_kernels_match_plain(card, full, size, B):
 def test_wrappers_reject_bad_arguments(card):
     """K1 and K3 refuse a wrong bins dtype, a wrong record width, face
     vertices that do not match the records and inputs on two devices; K1's
-    call without the face vertices (its signature before the cull) raises."""
+    call without the face vertices (its signature before the cull) raises;
+    K6 refuses 32-float records and its old window-form call."""
     kept = torch.ones((1, 8), dtype=torch.int32, device=card)
     bins = torch.full((1, 8, 64), -1, dtype=torch.int32, device=card)
     recs = torch.zeros((1, 40, 32), device=card)
@@ -79,6 +80,13 @@ def test_wrappers_reject_bad_arguments(card):
         R.raster_planes_windows(kept, bins, recs[:, :, :16].contiguous(), fv, 64, 1, 3)
     with pytest.raises(ValueError):
         R.raster_planes_windows(kept, bins, recs, fv[:, :20].contiguous(), 64, 1, 3)
+    # K6 takes 16-float records and the face vertices; its old
+    # (starts, ends, recs, image_size, tiles_x) call raises
+    crec = torch.zeros((1, 40, 16), device=card)
+    with pytest.raises(ValueError):
+        R.raster_coverage_windows(kept, bins, recs, fv, 64, 1)
+    with pytest.raises(TypeError):
+        R.raster_coverage_windows(kept, kept, crec, 64, 1)
 
 
 @pytest.mark.parametrize("size", [64, 100])
@@ -202,6 +210,32 @@ def test_culled_planes_kernel_matches_plain_on_slivers(card):
         assert float((got[0] >= 0).float().mean()) > 0.05
 
 
+def test_culled_coverage_kernel_matches_plain_on_slivers(card):
+    """Culled K6 (16-float records read through the bins, two staging
+    halves) bitwise equal to its plain version, which tests every face, and
+    to K3's coverage outputs, on the sliver batch at capacity 512 and at
+    kept counts truncated to 2 chunks."""
+    S, cap = 224, 512
+    fv, attrs = _sliver_faces(card, S=S)
+    TX = -(-S // R.TILE_COLS)
+    bins, counts = R.bin_faces_flat(fv, S, cap)
+    crec = R.coverage_records(fv)
+    assert bool(torch.isinf(R.cull_boxes(fv, S)[..., 0]).any())
+    R.reset_launch_counts()
+    full = R._windows(counts, None)[0]
+    for kept in (full, full.clamp(max=2)):
+        got = R.raster_coverage_windows(kept, bins, crec, fv, S, TX)
+        for a, b in zip(got, R.raster_coverage_windows_plain(kept, bins, crec, S, TX)):
+            assert torch.equal(a, b)
+        k3 = R.raster_planes_windows(kept, bins, R.planes_records(fv, attrs), fv, S, TX, 3)
+        for a, b in zip(got, k3[:3]):
+            assert torch.equal(a, b)
+        assert float((got[0] >= 0).float().mean()) > 0.05
+    torch.cuda.synchronize()
+    assert R.raster_coverage_windows.launches == 2
+    assert int(full.max()) > 2
+
+
 def test_culled_fused_and_bins_kernels_match_plain_on_slivers(card):
     """Culled K1 (compact at 216 chunks, padded, and a budget of 64 that
     drops chunks) and culled K8 bitwise equal to their plain versions,
@@ -277,19 +311,19 @@ def _face_region(card, B, size, seed):
 
 @pytest.mark.parametrize("size,B,cap", [(64, 2, 96), (224, 3, 384), (224, 2, 512)])
 def test_coverage_kernels_match_plain(card, size, B, cap):
-    """K6 bitwise equal to its plain version and to K3's coverage outputs on
-    the same padded bins; K8 bitwise equal to its plain version."""
+    """K6 (records read through the padded bins, the warp cull) bitwise
+    equal to its plain version and to K3's coverage outputs on the same
+    (kept, bins, face_verts); K8 bitwise equal to its plain version."""
     fv, fn = _face_region(card, B, size, 3)
     TX = -(-size // R.TILE_COLS)
     bins, counts = R.bin_faces_flat(fv, size, cap)
-    s, e = R.padded_windows(counts, cap // R.V3_CHUNK)
-    recs = R._gather_recs(R.coverage_records(fv), bins.reshape(B, -1)).contiguous()
+    kept = R._windows(counts, None)[0]
+    crec = R.coverage_records(fv)
     R.reset_launch_counts()
-    k6 = R.raster_coverage_windows(s, e, recs, size, TX)
-    for a, b in zip(k6, R.raster_coverage_windows_plain(s, e, recs, size, TX)):
+    k6 = R.raster_coverage_windows(kept, bins, crec, fv, size, TX)
+    for a, b in zip(k6, R.raster_coverage_windows_plain(kept, bins, crec, size, TX)):
         assert torch.equal(a, b)
-    k3 = R.raster_planes_windows(R._windows(counts, None)[0], bins, R.planes_records(fv, fn),
-                                 fv, size, TX, 3)
+    k3 = R.raster_planes_windows(kept, bins, R.planes_records(fv, fn), fv, size, TX, 3)
     for a, b in zip(k6, k3[:3]):
         assert torch.equal(a, b)
     fv9 = fv.reshape(B, -1, 9).contiguous()
@@ -303,21 +337,30 @@ def test_coverage_kernels_match_plain(card, size, B, cap):
 
 @pytest.mark.parametrize("B,cap,chn", [(2, 512, 36), (1, 1024, 72), (2, 96, 7)])
 def test_segment_reduce_matches_plain(card, B, cap, chn):
-    """K7 within 1e-5 x the sum of the magnitudes of its terms: 74 KB of
-    accumulators per block at C=512, CHN=36, and a channel split at
-    C=1024, CHN=72 (295 KB, past the opt-in limit)."""
+    """K7 within 1e-5 x the sum of the magnitudes of its terms: 3 runs of
+    176 slots at C=512, CHN=36, 10 of 104 at C=1024, CHN=72 (295 KB in all,
+    past the opt-in limit), one block of 7 channels in 4-byte pieces at
+    C=96. Every row whose slot is -1 or >= C holds NaN, which the contract
+    drops (and K7 never reads): the output stays finite."""
     gen = torch.Generator(device=card).manual_seed(cap)
-    slots = torch.randint(-1, cap, (B, 56, 1024), device=card, generator=gen,
+    slots = torch.randint(-1, cap + cap // 8, (B, 56, 1024), device=card, generator=gen,
                           dtype=torch.int32)
     payload = torch.randn((B, 56, 1024, chn), device=card, generator=gen)
     payload[payload.abs() < 0.1] = 0.0
+    dropped = (slots < 0) | (slots >= cap)
+    assert bool((slots >= cap).any()) and bool((slots < 0).any())
+    zeroed = torch.where(dropped[..., None], 0.0, payload)
+    payload = torch.where(dropped[..., None], float("nan"), payload)
     R.reset_launch_counts()
     got = R.segment_reduce_tiles(slots, payload, cap)
     want = R.segment_sum(slots, payload, cap)
     scale = R.segment_sum(slots, payload.abs(), cap)
     torch.cuda.synchronize()
     assert R.segment_reduce_tiles.launches == 1
+    assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(want).all())
     assert ((got - want).abs() <= 1e-5 * scale + 1e-30).all()
+    # the plain version's own atomics reorder its sums on the card too
+    assert ((want - R.segment_sum(slots, zeroed, cap)).abs() <= 1e-5 * scale + 1e-30).all()
     assert float(got.abs().sum()) > 0
 
 
