@@ -27,12 +27,18 @@ Phases (any failure exits non-zero):
     (b32): pix_to_face, zbuf, slot and the 3 value planes bitwise equal; a
     truncated budget (24 chunks) gives the plan's overflow and renders the
     clipped tiles empty with slot -1;
- 4c. K4 segment_moments and K5 fold_slots_to_faces vs their plain versions:
-    every element within 1e-5 x the sum of the magnitudes of its terms;
- 4d. the raster gradient (K3 -> K4 -> K5 -> attr_planes) at b4 against a
+ 4c. K4 at the training shapes (b32, C=384, D=3, F=3408): its fold
+    epilogue (segment_moments_to_faces, what the training backward runs)
+    against the plain composition fold_slots_to_faces_plain(
+    segment_moments_plain(...)), its store epilogue (segment_moments)
+    against segment_moments_plain, and K5 fold_slots_to_faces on the
+    store's 9-channel rows against its plain version: every element within
+    1e-5 x the sum of the magnitudes of its terms;
+ 4d. the raster gradient (K3 -> K4's fold -> attr_planes) at b4 against a
     dense gather-based autograd reference on the card and against the
     port's CPU path, within 1e-4 x its rounding scale
-    (rasterizer.dense_gradient_and_scale);
+    (rasterizer.dense_gradient_and_scale); the forward and backward
+    launched K3 and K4's fold once each, and neither K4's store nor K5;
  4e. K6 raster_coverage_windows (16-float records read through the
     padded bins, the warp cull of K1 and K3) at b32, 224 px on the face
     region at capacity 512 and 384: pix_to_face, zbuf and slot bitwise
@@ -44,13 +50,17 @@ Phases (any failure exits non-zero):
     contract drops them; K7 never reads them) and the output finite: 36
     channels at capacity 512 on K6's slots (3 runs of 176 slots, 25 KB of
     accumulators a block), and 72 channels at capacity 1024 (10 runs of
-    104); the share of pixels whose rows are read;
+    104); the share of pixels whose rows are read; then K5 at the op
+    path's shapes on K7's output (C=512, 36 channels, F=3408) with NaN in
+    every row of a slot that holds no face: finite and within 1e-5 x the
+    sum of magnitudes of its plain version; the share of rows it reads;
  4g. K8 raster_bins_coverage (staged one chunk ahead, the warp cull with
     its own boxes, `cull_boxes_bins`) at b32, capacity 384: bitwise equal
     to its plain version, which tests every face, and against K6's
     pix_to_face by the tests' edge/depth tie rule;
- 4h. K4 segment_moments at D = 6, capacity 768 (55 KB of accumulators)
-    against its plain version, within 1e-5 x the sum of magnitudes;
+ 4h. K4 at D = 6, capacity 768 (55 KB of accumulators), both epilogues
+    (the fold on random face ids) against their plain versions, within
+    1e-5 x the sum of magnitudes;
  4i. the scheduled inference rasters on the main path's faces (b64, the
     face region through Renderer._face_geometry), capacity 384: K9
     raster_fused_groups at tps 8 and 16 bitwise equal to its plain version
@@ -84,8 +94,9 @@ Phases (any failure exits non-zero):
     fp32, bench.py's synthetic batch: 3 steps of each parity with finite
     metrics, zero raster overflow on both paths, the expression encoder
     and the generator moved, the pose and shape encoders not, and every
-    step of each parity launched K1 (the cycle path's render), K3, K4 and
-    K5; then one step of each parity on the padded layout (K1b, K3b);
+    step of each parity launched K1 (the cycle path's render), K3 and K4's
+    fold, and neither K5 nor K4's store; then one step of each parity on
+    the padded layout (K1b, K3b);
  5c. the op path through `smirk_tpu_torch.ops` at full width: FLAME from
     seeded parameters (300 shape / 50 expression components) on the
     recentred procedural head, its face region at b32, 224 px;
@@ -93,7 +104,8 @@ Phases (any failure exits non-zero):
     capacity 512, point shading with 2 lights and SH shading, an L2 loss
     to a seeded target and its gradient to the expression parameters:
     coverage > 5 %, every output and gradient finite, K6, K7 and K5
-    launched and K3 not, no record list gathered on the forward (K6 reads
+    launched and neither K3 nor K4 (either epilogue), no record list
+    gathered on the forward (K6 reads
     the records through the bins), the values equal to
     `interpolate_attributes`,
     and the gradient to the face vertices and attributes within 1e-5 x the
@@ -108,9 +120,13 @@ Phases (any failure exits non-zero):
     dropped, K9, K10 and K11 launched, and pix_to_face against the
     default compact render by the tie rule;
  6. timings, warm, each beside the card's name and power limit: with CUDA
-    events each kernel, its plain version, its library yardstick where
-    there is one (K2's function: one advanced-index gather; K4 and K7: one
-    scatter_add_ of prebuilt rows; K5: one index_add_), the kept counts
+    events around back-to-back calls each kernel, its plain version, its
+    library yardstick where
+    there is one (K2's function: one advanced-index gather; K7: one
+    scatter_add_ of prebuilt rows; K4's fold: one index_add_ of prebuilt
+    moment rows by a prebuilt pixel-to-face index; its store: one
+    scatter_add_; K5: one index_add_), K4's store epilogue and K5 at the
+    training shapes beside, the kept counts
     that stand where K2 stood, K1 at b32 on the cycle path's faces, the op
     path's forward and backward, the coverage forward with its inputs
     (`_v3_impl`, b32, capacity 512), the whole calls of the five inference
@@ -121,15 +137,26 @@ Phases (any failure exits non-zero):
     on the host clock the median and spread of 5 windows of 50 infer calls
     (ms/batch, images/s), of 3 windows of 20 Predictor calls and of 3
     windows of 5 train steps per parity; occupied chunks vs the budget;
+    each kernel row's call on the device alone, 20 calls captured in one
+    CUDA graph and replayed (a call shorter than its Python and launch
+    costs, as K4's and K5's are, is paced by the host in the times above;
+    a call that cannot be captured fails the run);
  7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
-    K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches),
+    K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches;
+    each row's `device_ms` beside its `ms`),
     with K1's and K3's bounds (K9-K11 take K1's) counted from this run's
     inputs as the work their function needs (the face-pixel pairs in the
     faces' boxes, the binned records read once), the count of every slot
     against every pixel and the face-warp tests the culls of K1, K3, K6 and
     K8 keep printed beside them; K7's bound counts the slots, the payload
     rows of slots in [0, C) and the output, with the count that reads every
-    row and the share of rows read beside it;
+    row and the share of rows read beside it; K4's row is its fold
+    epilogue's (the slots, g at the pixels with a live slot, the bins of
+    the slots a live pixel reached, the face table), with the store's time,
+    the count that reads every bin and the per-slot route's bound (K4 +
+    K5) beside; K5's row is the op path's launch (the bins, the rows
+    of slots that hold a face, the face table), with the every-row count
+    and the training shapes' time beside;
  8. the last line, {"ok": true, "device": ...}.
 
 The weights are random (seeded) and the FLAME assets are a procedural
@@ -158,6 +185,7 @@ INFER_WINDOWS, INFER_CALLS = 5, 50
 CALL_WINDOWS, CALL_CALLS = 3, 20
 TRAIN_WINDOWS, TRAIN_STEPS = 3, 5
 INFER_B = 64  # bench.py's inference batch
+GRAPH_CALLS = 20  # calls a kernel row's CUDA graph replays for its device time
 TRAIN_B = 32  # the training recipe's batch
 # tolerances of the float-order-dependent checks: K4 and K5 within 1e-5 x
 # the sum of the magnitudes of their terms; the end-to-end gradient within
@@ -531,8 +559,8 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
 
-    TRAIN_KERNELS = (R.raster_fused_windows, R.raster_planes_windows, R.segment_moments,
-                     R.fold_slots_to_faces)
+    TRAIN_KERNELS = (R.raster_fused_windows, R.raster_planes_windows,
+                     R.segment_moments_to_faces)
 
     # ---------------- 1. device ----------------
     torch.backends.cudnn.allow_tf32 = False
@@ -713,21 +741,30 @@ def main(argv=None) -> int:
               f"{int(empty3.sum())} clipped tiles render empty with slot -1")
 
         # ---------------- 4c. K4 / K5 ----------------
-        log("[4c] K4 segment_moments and K5 fold_slots_to_faces vs plain")
+        log(f"[4c] K4 segment_moments_to_faces (fold) and segment_moments (store), K5 "
+            f"fold_slots_to_faces vs plain at B={BT}, C={cap}, D={D}, F={F_render}")
         gimg = torch.randn((BT, S, S, D), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(0))
         g_t = R.image_to_tiles(gimg, S).contiguous()
         slots3 = k3[2]
+        k4_scale = R.segment_sum(slots3, R.moment_rows(g_t, S).abs(), cap)
+        k4f = R.segment_moments_to_faces(slots3, g_t, bins_t, cap, S, F_render)
+        k4f_plain = R.segment_moments_to_faces_plain(slots3, g_t, bins_t, cap, S, F_render)
+        torch.cuda.synchronize()
+        k4f_ratio, k4f_err = within(
+            k4f, k4f_plain, R.fold_slots_to_faces_plain(k4_scale, bins_t, F_render),
+            "K4 fold vs plain composition")
+        check(float(k4f.abs().sum()) > 0, "K4's fold folded a nonzero gradient")
         k4 = R.segment_moments(slots3, g_t, cap, S)
         k4_plain = R.segment_moments_plain(slots3, g_t, cap, S)
-        k4_scale = R.segment_sum(slots3, R.moment_rows(g_t, S).abs(), cap)
         torch.cuda.synchronize()
-        k4_ratio, k4_err = within(k4, k4_plain, k4_scale, "K4 vs plain")
+        k4_ratio = within(k4, k4_plain, k4_scale, "K4 store vs plain")[0]
         k5 = R.fold_slots_to_faces(k4, bins_t, F_render)
         k5_plain = R.fold_slots_to_faces_plain(k4, bins_t, F_render)
         k5_scale = R.fold_slots_to_faces_plain(k4.abs(), bins_t, F_render)
         torch.cuda.synchronize()
-        k5_ratio, k5_err = within(k5, k5_plain, k5_scale, "K5 vs plain")
+        k5_ratio = within(k5, k5_plain, k5_scale,
+                          f"K5 vs plain at the training shapes, C={cap}, CHN={3 * D}")[0]
         check(float(k5.abs().sum()) > 0, "K5 folded a nonzero gradient")
 
     # ---------------- 4d. the raster gradient ----------------
@@ -741,9 +778,10 @@ def main(argv=None) -> int:
                      generator=torch.Generator(device=dev).manual_seed(1))
     d_fv, d_fn = torch.autograd.grad((vals4 * w4).sum(), (fv4, fn4))
     torch.cuda.synchronize()
-    check(all(k.launches == 1 for k in (R.raster_planes_windows, R.segment_moments,
-                                        R.fold_slots_to_faces)),
-          "one forward + backward launched K3, K4 and K5 once each")
+    check(R.raster_planes_windows.launches == 1 and R.segment_moments_to_faces.launches == 1
+          and R.segment_moments.launches == 0 and R.fold_slots_to_faces.launches == 0,
+          "one forward + backward launched K3 and K4's fold once each, and neither K4's "
+          "store nor K5")
     ref_fv, sc_fv, ref_fn, sc_fn = R.dense_gradient_and_scale(
         p2f4, fv4.detach(), fn4.detach(), w4)
     grad_ratio = max(within(d_fv, ref_fv, sc_fv, "d face_verts vs dense", GRAD_RTOL)[0],
@@ -822,6 +860,21 @@ def main(argv=None) -> int:
               "C=1024, CHN=72")
         within(k7b, R.segment_sum(slots7b, pay7b, 1024),
                R.segment_sum(slots7b, pay7b.abs(), 1024), "K7 vs plain, C=1024, CHN=72")
+        # K5 where the op path runs it: on K7's rows, NaN in every row of a
+        # slot that holds no face (its contract drops them; K5 never reads them)
+        b5op = k6[512][0]
+        pay5 = torch.where((b5op < 0)[..., None], float("nan"), k7).contiguous()
+        k5op = R.fold_slots_to_faces(pay5, b5op, F_render)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(k5op).all()), "K5 finite with NaN in the rows of slots "
+              "without a face, C=512, CHN=36")
+        k5op_ratio, k5op_err = within(
+            k5op, R.fold_slots_to_faces_plain(pay5, b5op, F_render),
+            R.fold_slots_to_faces_plain(pay5.abs(), b5op, F_render),
+            "K5 vs plain at the op path's shapes, C=512, CHN=36")
+        k5_rows = int((b5op >= 0).sum())
+        log(f"    K5 reads {k5_rows} of {b5op.numel()} slot rows "
+            f"({k5_rows / b5op.numel() * 100:.1f} %: the slots that hold a face)")
 
         # ---------------- 4g. K8 ----------------
         log(f"[4g] K8 raster_bins_coverage (staged ahead, warp cull) at B={BT}, "
@@ -840,12 +893,19 @@ def main(argv=None) -> int:
         log(f"    K8 vs K6 pix_to_face: {k8_bad} tie pixels")
 
         # ---------------- 4h. K4 past 48 KB ----------------
-        log("[4h] K4 segment_moments at D=6, capacity 768 (55 KB of accumulators)")
+        log("[4h] K4 at D=6, capacity 768 (55 KB of accumulators), both epilogues")
         slots4 = torch.randint(-1, 768, (B7, Tp, R.TILE_PIX), device=dev, generator=gen7,
                                dtype=torch.int32)
         g4 = torch.randn((B7, Tp, R.TILE_PIX, 6), device=dev, generator=gen7)
+        bins4 = torch.randint(-1, F_render, (B7, Tp, 768), device=dev, generator=gen7,
+                              dtype=torch.int32)
+        scale4 = R.segment_sum(slots4, R.moment_rows(g4, S).abs(), 768)
         within(R.segment_moments(slots4, g4, 768, S), R.segment_moments_plain(slots4, g4, 768, S),
-               R.segment_sum(slots4, R.moment_rows(g4, S).abs(), 768), "K4 vs plain at C=768, D=6")
+               scale4, "K4 store vs plain at C=768, D=6")
+        within(R.segment_moments_to_faces(slots4, g4, bins4, 768, S, F_render),
+               R.segment_moments_to_faces_plain(slots4, g4, bins4, 768, S, F_render),
+               R.fold_slots_to_faces_plain(scale4, bins4, F_render),
+               "K4 fold vs plain composition at C=768, D=6")
 
     # ---------------- 4i. K9 / K10 / K11 ----------------
     log(f"[4i] K9 raster_fused_groups, K10 raster_fused_groups_local, K11 "
@@ -1050,8 +1110,10 @@ def main(argv=None) -> int:
             m, taux = tsys.train_step(tbatch, parity, gen_t)
             train_metrics.append(m)
             step = {k.__name__: k.launches for k in R.KERNELS}
-            check(all(step[k.__name__] > 0 for k in TRAIN_KERNELS),
-                  f"parity {parity} step: K1, K3, K4 and K5 launched ({step})")
+            check(all(step[k.__name__] > 0 for k in TRAIN_KERNELS)
+                  and step["fold_slots_to_faces"] == 0 and step["segment_moments"] == 0,
+                  f"parity {parity} step: K1, K3 and K4's fold launched, and neither K5 "
+                  f"nor K4's store ({step})")
             for k, v in step.items():
                 train_launches[k] = train_launches.get(k, 0) + v
     finally:
@@ -1165,8 +1227,10 @@ def main(argv=None) -> int:
         check(all(launched[k.__name__] > 0 for k in (R.raster_coverage_windows,
                                                      R.segment_reduce_tiles,
                                                      R.fold_slots_to_faces))
-              and launched["raster_planes_windows"] == 0,
-              "the op path went through K6, K7 and K5, and not K3")
+              and launched["raster_planes_windows"] == 0
+              and launched["segment_moments"] == 0
+              and launched["segment_moments_to_faces"] == 0,
+              "the op path went through K6, K7 and K5, and not K3 or K4")
         cov5 = float(mask5.mean())
         check(cov5 > 0.05, f"coverage {cov5:.4f} > 0.05")
         check(int(ovf5.abs().max()) == 0, "overflow == 0")
@@ -1238,11 +1302,18 @@ def main(argv=None) -> int:
 
     # ---------------- 6. timings ----------------
     log(f"[6] timings {card}")
-    res = {}
+    res, kernel_calls = {}, {}
+
+    def kernel_ms(key, fn, iters, warmup=2):
+        """res[key]: a kernel row's call timed as cuda_ms does (the host
+        launching each call); the call is kept for its device time."""
+        kernel_calls[key] = fn
+        res[key] = cuda_ms(fn, iters, warmup)
+
     with torch.inference_mode():
         # K2's packing is folded into K1's and K3's staging: what the compact
         # layout still computes in its place is the kept counts (`_windows`)
-        res["windows_ms"] = cuda_ms(lambda: R._windows(counts, budget), 200)
+        kernel_ms("windows_ms", lambda: R._windows(counts, budget), 200)
         starts, _, tof, total, _ = R._compact_plan(counts, budget)
         bins3 = bins.reshape(B, Tp * CPT, R.V3_CHUNK)
         res["k2_plain_ms"] = cuda_ms(
@@ -1252,16 +1323,16 @@ def main(argv=None) -> int:
         bidx = torch.arange(B, device=tof.device)[:, None]
         # yardstick of K2's function: one advanced-index gather of the same rows
         res["k2_library_ms"] = cuda_ms(lambda: bins3[bidx, rows], 200)
-        res["k1_ms"] = cuda_ms(
+        kernel_ms("k1_ms", 
             lambda: R.raster_fused_windows(kept, bins, records, face_verts, S, TX), 50)
         res["k1_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_windows_plain(kept, bins, records, S, TX), 5, 1)
-        res["k1b_ms"] = cuda_ms(
+        kernel_ms("k1b_ms", 
             lambda: R.raster_fused_windows(kept_p, bins, records, face_verts, S, TX), 50)
         res["k1b_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_windows_plain(kept_p, bins, records, S, TX), 5, 1)
         # K1 on the cycle path's faces of the last train step (b32)
-        res["k1_b32_cycle_ms"] = cuda_ms(
+        kernel_ms("k1_b32_cycle_ms", 
             lambda: R.raster_fused_windows(*k1_cycle["args"]), 50)
 
         def records_plan():
@@ -1281,57 +1352,77 @@ def main(argv=None) -> int:
         }
         for k, fn in stages.items():
             res[f"stage_{k}_ms"] = cuda_ms(fn, 10)
-        res["k3_ms"] = cuda_ms(
+        kernel_ms("k3_ms", 
             lambda: R.raster_planes_windows(kept3, bins_t, prec, fvt, S, TX, D), 50)
         res["k3_plain_ms"] = cuda_ms(
             lambda: R.raster_planes_windows_plain(kept3, bins_t, prec, S, TX, D), 3, 1)
-        res["k3b_ms"] = cuda_ms(
+        kernel_ms("k3b_ms", 
             lambda: R.raster_planes_windows(kept3p, bins_t, prec, fvt, S, TX, D), 50)
         res["k3b_plain_ms"] = cuda_ms(
             lambda: R.raster_planes_windows_plain(kept3p, bins_t, prec, S, TX, D), 3, 1)
-        res["k4_ms"] = cuda_ms(lambda: R.segment_moments(slots3, g_t, cap, S), 200)
-        res["k4_plain_ms"] = cuda_ms(lambda: R.segment_moments_plain(slots3, g_t, cap, S), 20)
-        # yardstick: the one scatter_add_ of prebuilt moment rows
-        rows4 = R.moment_rows(g_t, S).reshape(BT, -1, 3 * D)
-        idx4 = R.slot_index(slots3, cap, 3 * D)
-        buf4 = torch.zeros((BT, Tp * cap + 1, 3 * D), device=dev)
-        res["k4_library_ms"] = cuda_ms(lambda: buf4.scatter_add_(1, idx4, rows4), 200)
-        res["k5_ms"] = cuda_ms(lambda: R.fold_slots_to_faces(k4, bins_t, F_render), 200)
+        # K4: its fold epilogue (the training backward's launch), then its
+        # store epilogue and K5 at the same shapes, the per-slot route
+        kernel_ms("k4_ms", 
+            lambda: R.segment_moments_to_faces(slots3, g_t, bins_t, cap, S, F_render), 200)
+        res["k4_plain_ms"] = cuda_ms(lambda: R.segment_moments_to_faces_plain(
+            slots3, g_t, bins_t, cap, S, F_render), 20)
+        # yardstick of the fold: one index_add_ of prebuilt moment rows by a
+        # prebuilt pixel -> face row index (dropped pixels to a last row)
+        rows4 = R.moment_rows(g_t, S).reshape(-1, 3 * D)
+        ids4 = torch.gather(bins_t, 2, slots3.clamp(0, cap - 1).long())
+        held4 = (slots3 >= 0) & (slots3 < cap) & (ids4 >= 0) & (ids4 < F_render)
+        idx4 = torch.where(held4, torch.arange(BT, device=dev)[:, None, None] * F_render
+                           + ids4, BT * F_render).reshape(-1)
+        buf4 = torch.zeros((BT * F_render + 1, 3 * D), device=dev)
+        res["k4_library_ms"] = cuda_ms(lambda: buf4.index_add_(0, idx4, rows4), 200)
+        kernel_ms("k4_store_ms", lambda: R.segment_moments(slots3, g_t, cap, S), 200)
+        res["k4_store_plain_ms"] = cuda_ms(
+            lambda: R.segment_moments_plain(slots3, g_t, cap, S), 20)
+        # yardstick of the store: the one scatter_add_ of prebuilt moment rows
+        idx4s = R.slot_index(slots3, cap, 3 * D)
+        buf4s = torch.zeros((BT, Tp * cap + 1, 3 * D), device=dev)
+        rows4s = rows4.reshape(BT, -1, 3 * D)
+        res["k4_store_library_ms"] = cuda_ms(lambda: buf4s.scatter_add_(1, idx4s, rows4s), 200)
+        kernel_ms("k5_train_ms", lambda: R.fold_slots_to_faces(k4, bins_t, F_render), 200)
+        kernel_ms("k4_store_then_k5_ms", lambda: R.fold_slots_to_faces(
+            R.segment_moments(slots3, g_t, cap, S), bins_t, F_render), 200)
+        # K5 where it is served: the op path's K7 rows, C=512, CHN=36
+        kernel_ms("k5_ms", lambda: R.fold_slots_to_faces(pay5, b5op, F_render), 200)
         res["k5_plain_ms"] = cuda_ms(
-            lambda: R.fold_slots_to_faces_plain(k4, bins_t, F_render), 20)
+            lambda: R.fold_slots_to_faces_plain(pay5, b5op, F_render), 20)
         # yardstick: the one index_add_ of the same rows into the face table
-        idx5 = R._fold_index(bins_t, F_render)
-        src5 = k4.reshape(-1, 3 * D)
-        buf5 = torch.zeros((BT * F_render + 1, 3 * D), device=dev)
+        idx5 = R._fold_index(b5op, F_render)
+        src5 = pay5.reshape(-1, 36)
+        buf5 = torch.zeros((BT * F_render + 1, 36), device=dev)
         res["k5_library_ms"] = cuda_ms(lambda: buf5.index_add_(0, idx5, src5), 200)
         b6, kept6, _ = k6[512]
-        res["k6_ms"] = cuda_ms(
+        kernel_ms("k6_ms", 
             lambda: R.raster_coverage_windows(kept6, b6, crec, fvt, S, TX), 50)
         res["k6_plain_ms"] = cuda_ms(
             lambda: R.raster_coverage_windows_plain(kept6, b6, crec, S, TX), 3, 1)
         # the coverage forward with its inputs (binning, records, K6), b32
         res["call_coverage_b32_ms"] = cuda_ms(lambda: R._v3_impl(fvt, S, 512), 20)
-        res["k7_ms"] = cuda_ms(lambda: R.segment_reduce_tiles(slots7, pay7, 512), 100)
+        kernel_ms("k7_ms", lambda: R.segment_reduce_tiles(slots7, pay7, 512), 100)
         res["k7_plain_ms"] = cuda_ms(lambda: R.segment_sum(slots7, pay7, 512), 20)
         # yardstick: the one scatter_add_ of the payload rows, index prebuilt
         idx7 = R.slot_index(slots7, 512, 36)
         rows7 = pay7.reshape(BT, -1, 36)
         buf7 = torch.zeros((BT, Tp * 512 + 1, 36), device=dev)
         res["k7_library_ms"] = cuda_ms(lambda: buf7.scatter_add_(1, idx7, rows7), 100)
-        res["k8_ms"] = cuda_ms(lambda: R.raster_bins_coverage(counts_t, bins_t, fv9, S), 20)
+        kernel_ms("k8_ms", lambda: R.raster_bins_coverage(counts_t, bins_t, fv9, S), 20)
         res["k8_plain_ms"] = cuda_ms(
             lambda: R.raster_bins_coverage_plain(counts_t, bins_t, fv9, S), 3, 1)
         for tps in (8, 16):
             c9, r9, _ = k9[tps]
-            res[f"k9_tps{tps}_ms"] = cuda_ms(
+            kernel_ms(f"k9_tps{tps}_ms", 
                 lambda c9=c9, r9=r9, tps=tps: R.raster_fused_groups(c9, r9, S, TX, tps), 50)
         res["k9_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_groups_plain(k9[8][0], k9[8][1], S, TX, 8), 5, 1)
-        res["k10_ms"] = cuda_ms(lambda: R.raster_fused_groups_local(c10, r10, S, 8), 50)
+        kernel_ms("k10_ms", lambda: R.raster_fused_groups_local(c10, r10, S, 8), 50)
         res["k10_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_groups_plain(c10, r10, S, TX, 8, local=True), 5, 1)
         for ch, (c11, l11, r11, _) in k11.items():
-            res[f"k11_ch{ch}_ms"] = cuda_ms(
+            kernel_ms(f"k11_ch{ch}_ms", 
                 lambda c11=c11, l11=l11, r11=r11, ch=ch: R.raster_chunkskip(
                     c11, l11, r11, S, TX, ch), 50)
         res["k11_plain_ms"] = cuda_ms(
@@ -1352,6 +1443,9 @@ def main(argv=None) -> int:
             res[f"call_{k}_ms"] = cuda_ms(fn, 20)
         res["bin_chunks_8_128_ms"] = cuda_ms(lambda: R.bin_chunks(
             R._pad_faces_offscreen(fv_perm, 8)[0], S, 8, 128), 20)
+        # the kernel rows' calls on the device alone: a call shorter than its
+        # Python and launch costs is paced by the host in the times above
+        dev_ms = {k: kernels.graph_ms(fn, GRAPH_CALLS) for k, fn in kernel_calls.items()}
     # the op path at b32, capacity 512: forward (FLAME -> loss) and backward
     # to the expression, CUDA events, median of 5 warm passes
     expr_t = op_params["expression_params"].clone().requires_grad_(True)
@@ -1382,6 +1476,9 @@ def main(argv=None) -> int:
     occ = renderer.measure_compact_occupancy(fl["vertices"], enc["cam"])
     for k, v in res.items():
         log(f"    {k:32s} {v:10.4f} ms {card}")
+    for k, v in dev_ms.items():
+        log(f"    {k:32s} {v:10.4f} ms on the device (a CUDA graph of {GRAPH_CALLS} "
+            f"calls) {card}")
     log(f"    infer ms/batch{B} median {infer_ms:.3f} over {INFER_WINDOWS} windows of "
         f"{INFER_CALLS} calls (min {infer_w[0]:.3f}, max {infer_w[-1]:.3f}, spread "
         f"{spread(infer_w):.1f} %)  images/s {B / infer_ms * 1e3:.1f} {card}")
@@ -1443,8 +1540,23 @@ def main(argv=None) -> int:
     k3b_bms, k3b_by = culled_bound(work3p, BT * Tp, 3 + D, D)
     k3_old_bms, _ = raster_bound(work3["chunk_steps"], BT * Tp, 3 + D, D, BT, Tp)
     k3b_old_bms, _ = raster_bound(work3p["chunk_steps"], BT * Tp, 3 + D, D, BT, Tp)
-    k4_bytes = BT * Tp * R.TILE_PIX * 4 * (1 + D) + BT * Tp * cap * 3 * D * 4
-    k5_bytes = BT * Tp * cap * (3 * D + 1) * 4 + BT * F_render * 3 * D * 4
+    # K4's fold needs the slots, g at the pixels with a live slot, the bin
+    # ids of the slots a live pixel reached (it reads no other) and the
+    # face table; the per-slot route (K4's store, then K5) reads all of g
+    # and writes and reads back the (B, Tp, C, 3D) table
+    k4_live = int(((slots3 >= 0) & (slots3 < cap)).sum())
+    k4_won = int(torch.zeros((BT, Tp * cap + 1), device=slots3.device).scatter_(
+        1, R.slot_index(slots3, cap, 1)[..., 0], 1.0)[:, :-1].sum())
+    k4_bytes = (BT * Tp * R.TILE_PIX * 4 + k4_live * D * 4 + k4_won * 4
+                + BT * F_render * 3 * D * 4)
+    k4_all_bins_bytes = k4_bytes + (BT * Tp * cap - k4_won) * 4
+    k4_store_bytes = BT * Tp * R.TILE_PIX * 4 * (1 + D) + BT * Tp * cap * 3 * D * 4
+    k5_train_bytes = BT * Tp * cap * (3 * D + 1) * 4 + BT * F_render * 3 * D * 4
+    # K5 on the op path needs the bins, the rows of slots that hold a face and
+    # the face table; the count that reads every row beside it
+    k5_out_bytes = BT * F_render * 36 * 4
+    k5_bytes = b5op.numel() * 4 + k5_rows * 36 * 4 + k5_out_bytes
+    k5_all_bytes = b5op.numel() * (36 + 1) * 4 + k5_out_bytes
     # K6 and K8 compute coverage on binned faces: their bounds count the
     # same way (K6's 64-byte records; K8's 36-byte vertices, 29 operations
     # a pair), with every binned slot against every pixel printed beside
@@ -1479,83 +1591,117 @@ def main(argv=None) -> int:
          "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1257",
          "launches": 0, "max_abs_err": k2_err,
-         "ms": res["windows_ms"], "plain_ms": res["k2_plain_ms"],
+         "ms": res["windows_ms"], "device_ms": dev_ms["windows_ms"],
+         "plain_ms": res["k2_plain_ms"],
          "bound_ms": windows_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
          "library_ms": res["k2_library_ms"]},
         {"name": "raster_fused_windows", "route": "cuda", "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1331",
          "launches": launches["raster_fused_windows"], "max_abs_err": k1_err,
-         "ms": res["k1_ms"], "plain_ms": res["k1_plain_ms"],
+         "ms": res["k1_ms"], "device_ms": dev_ms["k1_ms"],
+         "plain_ms": res["k1_plain_ms"],
          "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None},
         {"name": "raster_fused_windows (padded layout)", "route": "cuda",
          "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1157",
          "launches": launches_pad["raster_fused_windows"], "max_abs_err": k1b_err,
-         "ms": res["k1b_ms"], "plain_ms": res["k1b_plain_ms"],
+         "ms": res["k1b_ms"], "device_ms": dev_ms["k1b_ms"],
+         "plain_ms": res["k1b_plain_ms"],
          "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
         {"name": "raster_planes_windows", "route": "cuda", "source": src + "raster_planes.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2443",
          "launches": train_launches["raster_planes_windows"], "max_abs_err": k3_err,
-         "ms": res["k3_ms"], "plain_ms": res["k3_plain_ms"],
+         "ms": res["k3_ms"], "device_ms": dev_ms["k3_ms"],
+         "plain_ms": res["k3_plain_ms"],
          "bound_ms": k3_bms, "bound_by": k3_by, "library_ms": None},
         {"name": "raster_planes_windows (padded layout)", "route": "cuda",
          "source": src + "raster_planes.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2382",
          "launches": train_launches_pad["raster_planes_windows"], "max_abs_err": k3b_err,
-         "ms": res["k3b_ms"], "plain_ms": res["k3b_plain_ms"],
+         "ms": res["k3b_ms"], "device_ms": dev_ms["k3b_ms"],
+         "plain_ms": res["k3b_plain_ms"],
          "bound_ms": k3b_bms, "bound_by": k3b_by, "library_ms": None},
-        {"name": "segment_moments", "route": "cuda", "source": src + "segment_moments.cu",
+        {"name": "segment_moments_to_faces", "route": "cuda",
+         "source": src + "segment_moments.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2225",
-         "launches": train_launches["segment_moments"], "max_abs_err": k4_err,
-         "ms": res["k4_ms"], "plain_ms": res["k4_plain_ms"],
+         "launches": train_launches["segment_moments_to_faces"], "max_abs_err": k4f_err,
+         "ms": res["k4_ms"], "device_ms": dev_ms["k4_ms"],
+         "plain_ms": res["k4_plain_ms"],
          "bound_ms": k4_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
-         "library_ms": res["k4_library_ms"]},
+         "library_ms": res["k4_library_ms"], "store_ms": res["k4_store_ms"],
+         "store_device_ms": dev_ms["k4_store_ms"],
+         "every_bin_bound_ms": k4_all_bins_bytes / PEAK_HBM_BYTES * 1e3,
+         "per_slot_bound_ms": (k4_store_bytes + k5_train_bytes) / PEAK_HBM_BYTES * 1e3},
         {"name": "fold_slots_to_faces", "route": "cuda", "source": src + "fold_faces.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2120",
-         "launches": train_launches["fold_slots_to_faces"], "max_abs_err": k5_err,
-         "ms": res["k5_ms"], "plain_ms": res["k5_plain_ms"],
+         "launches": op_launches["fold_slots_to_faces"], "max_abs_err": k5op_err,
+         "ms": res["k5_ms"], "device_ms": dev_ms["k5_ms"],
+         "plain_ms": res["k5_plain_ms"],
          "bound_ms": k5_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
-         "library_ms": res["k5_library_ms"]},
+         "library_ms": res["k5_library_ms"], "train_shape_ms": res["k5_train_ms"],
+         "train_shape_device_ms": dev_ms["k5_train_ms"],
+         "every_row_bound_ms": k5_all_bytes / PEAK_HBM_BYTES * 1e3},
         {"name": "raster_coverage_windows", "route": "cuda",
          "source": src + "raster_coverage.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:936",
          "launches": op_launches["raster_coverage_windows"], "max_abs_err": k6_err,
-         "ms": res["k6_ms"], "plain_ms": res["k6_plain_ms"],
+         "ms": res["k6_ms"], "device_ms": dev_ms["k6_ms"],
+         "plain_ms": res["k6_plain_ms"],
          "bound_ms": k6_bms, "bound_by": k6_by, "library_ms": None},
         {"name": "segment_reduce_tiles", "route": "cuda", "source": src + "segment_reduce.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2035",
          "launches": op_launches["segment_reduce_tiles"], "max_abs_err": k7_err,
-         "ms": res["k7_ms"], "plain_ms": res["k7_plain_ms"],
+         "ms": res["k7_ms"], "device_ms": dev_ms["k7_ms"],
+         "plain_ms": res["k7_plain_ms"],
          "bound_ms": k7_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",
          "library_ms": res["k7_library_ms"]},
         {"name": "raster_bins_coverage", "route": "cuda", "source": src + "raster_bins.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:597",
          "launches": k8_launches["raster_bins_coverage"], "max_abs_err": k8_err,
-         "ms": res["k8_ms"], "plain_ms": res["k8_plain_ms"],
+         "ms": res["k8_ms"], "device_ms": dev_ms["k8_ms"],
+         "plain_ms": res["k8_plain_ms"],
          "bound_ms": k8_bms, "bound_by": k8_by, "library_ms": None},
         {"name": "raster_fused_groups", "route": "cuda", "source": src + "raster_groups.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1505",
          "launches": sched_launches["raster_fused_groups"], "max_abs_err": k9_err,
-         "ms": res["k9_tps8_ms"], "plain_ms": res["k9_plain_ms"],
+         "ms": res["k9_tps8_ms"], "device_ms": dev_ms["k9_tps8_ms"],
+         "plain_ms": res["k9_plain_ms"],
          "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
         {"name": "raster_fused_groups_local", "route": "cuda",
          "source": src + "raster_groups.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1442",
          "launches": sched_launches["raster_fused_groups_local"], "max_abs_err": k10_err,
-         "ms": res["k10_ms"], "plain_ms": res["k10_plain_ms"],
+         "ms": res["k10_ms"], "device_ms": dev_ms["k10_ms"],
+         "plain_ms": res["k10_plain_ms"],
          "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
         {"name": "raster_chunkskip", "route": "cuda", "source": src + "raster_chunkskip.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1863",
          "launches": sched_launches["raster_chunkskip"], "max_abs_err": k11_err,
-         "ms": res["k11_ch8_ms"], "plain_ms": res["k11_plain_ms"],
+         "ms": res["k11_ch8_ms"], "device_ms": dev_ms["k11_ch8_ms"],
+         "plain_ms": res["k11_plain_ms"],
          "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None},
     ]}
     for k in line["kernels"]:
         assert all(isinstance(k[f], (int, float)) and math.isfinite(k[f])
                    for f in ("ms", "plain_ms", "bound_ms", "max_abs_err"))
-    log(f"    worst tolerance ratios: K4 {k4_ratio:.4g}, K5 {k5_ratio:.4g}, "
-        f"gradient {grad_ratio:.4g}, K7 {k7_ratio:.4g}, op-path gradient "
-        f"{op_grad_ratio:.4g} (of 1e-5, 1e-5, 1e-4, 1e-5, 1e-5 x scale; <= 1 passes)")
+    log(f"    worst tolerance ratios: K4 fold {k4f_ratio:.4g}, K4 store {k4_ratio:.4g}, "
+        f"K5 (train shapes) {k5_ratio:.4g}, K5 (op path) {k5op_ratio:.4g}, gradient "
+        f"{grad_ratio:.4g}, K7 {k7_ratio:.4g}, op-path gradient {op_grad_ratio:.4g} (of "
+        f"1e-5, 1e-5, 1e-5, 1e-5, 1e-4, 1e-5, 1e-5 x scale; <= 1 passes)")
+    log(f"    bounds: K4's fold {k4_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
+        f"{k4_bytes / 1e6:.2f} MB: the slots, g at {k4_live} of {slots3.numel()} pixels "
+        f"with a live slot ({k4_live / slots3.numel() * 100:.1f} %), the bins of the "
+        f"{k4_won} of {BT * Tp * cap} slots a live pixel reached "
+        f"({k4_won / (BT * Tp * cap) * 100:.1f} %), the face table; every bin read "
+        f"{k4_all_bins_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms); the per-slot route: K4's store "
+        f"{k4_store_bytes / PEAK_HBM_BYTES * 1e3:.4f}"
+        f" ms + K5 {k5_train_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms; K4's store "
+        f"{res['k4_store_ms']:.4f} ms, K5 at these shapes {res['k5_train_ms']:.4f} ms, "
+        f"the two {res['k4_store_then_k5_ms']:.4f} ms {card}")
+    log(f"    bounds: K5 {k5_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms (bytes, "
+        f"{k5_bytes / 1e6:.1f} MB: the bins, {k5_rows} of {b5op.numel()} rows of slots "
+        f"that hold a face ({k5_rows / b5op.numel() * 100:.1f} %), the face table); every "
+        f"row read {k5_all_bytes / PEAK_HBM_BYTES * 1e3:.4f} ms ({k5_all_bytes / 1e6:.1f} MB)")
     k1c_kept, k1c_bins = k1_cycle["args"][:2]
     k1c_work = culled_work(k1c_kept, k1c_bins,
                            torch.stack(R._bbox_and_priority(k1_cycle["faces"][0], S)[:4], -1),

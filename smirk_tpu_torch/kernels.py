@@ -43,11 +43,14 @@ LIBRARIES = {
     "segment_moments": ("segment_moments.cu", {
         # slots, g, out, B, Tp, C, D, group, H, W, TX, device, stream
         "smirk_segment_moments": [_P] * 3 + [_I] * 9 + [_P],
+        # slots, g, bins, out, B, Tp, C, D, group, H, W, TX, F, device, stream
+        "smirk_segment_moments_to_faces": [_P] * 4 + [_I] * 10 + [_P],
         "smirk_max_shared_optin": [_I],  # device
     }),
     "fold_faces": ("fold_faces.cu", {
-        # per_slot, bins, out, B, rows_per_image, CHN, F, device, stream
-        "smirk_fold_faces": [_P] * 3 + [_I] * 5 + [_P],
+        # per_slot, bins, out, B, rows (an image's slot rows), CHN, F, vec,
+        # device, stream
+        "smirk_fold_faces": [_P] * 3 + [_I] * 6 + [_P],
     }),
     "raster_coverage": ("raster_coverage.cu", {
         # kept, bins, records, face_verts, p2f, zbuf, slot,
@@ -157,3 +160,28 @@ def error_string(code: int) -> str:
     for lib in _loaded.values():
         return lib.smirk_cuda_error_string(code).decode()
     return "unknown"
+
+
+def graph_ms(fn, calls: int) -> float:
+    """Device ms per call of `fn` on the current CUDA stream: `calls` calls
+    captured in one CUDA graph and replayed, so that no host time lies
+    between their launches (their output allocations and fills included).
+    Every kernel wrapper of the port can be captured; a call that cannot
+    raises torch's RuntimeError."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls

@@ -59,10 +59,12 @@ same way, with a training record per face (edge and depth planes, the
 face id, D attribute planes). Forward: `raster_planes_windows` (K3) reads
 the records through the bins and culls per warp as K1 does, and keeps the
 nearest face, its per-tile slot and its D interpolated planes.
-Backward: the value cotangent goes tile-major, `segment_moments` (K4)
-sums [g*x | g*y | g] per (tile, slot), `fold_slots_to_faces` (K5) folds
-the slots into faces, and autograd of `attr_planes` takes it to the
-vertices and attributes. For D > 6, K6 gives the coverage and
+Backward: the value cotangent goes tile-major, `segment_moments_to_faces`
+(K4 with its fold epilogue) sums [g*x | g*y | g] per (tile, slot) and adds
+each won slot's sums into its face (the JAX package's
+`segment_reduce_moments` then `fold_slots_to_faces`, K4's store epilogue
+and K5, without the per-slot table), and autograd of `attr_planes` takes it to the vertices
+and attributes. For D > 6, K6 gives the coverage and
 `interpolate_attributes_fast` interpolates by per-pixel gathers; its
 backward reduces the per-pixel gradients per (tile, slot) with
 `segment_reduce_tiles` (K7) and folds them into faces with K5.
@@ -1096,7 +1098,7 @@ def rasterize_normals_chunkskip(
 
 
 # ---------------------------------------------------------------------------
-# The differentiable raster (training): K3 forward, K4 + K5 backward
+# The differentiable raster (training): K3 forward, K4's fold backward
 # ---------------------------------------------------------------------------
 
 REC5_LANES = 32  # [9 edge | 3 zplane | fid | PA(D) PB(D) PC(D) | pad], D <= 6
@@ -1386,14 +1388,15 @@ def segment_sum(slots, rows, capacity: int):
     return out[:, :Tp * capacity].reshape(B, Tp, capacity, Wd)
 
 
-def _channel_group(lib, capacity: int, channels: int, device) -> int:
+def _channel_group(lib, capacity: int, channels: int, device, reserve: int = 0) -> int:
     """Channels per block of a per-(tile, slot) reduction whose capacity x
-    channels fp32 accumulators live in shared memory: all of them where
-    they fit in the device's opt-in limit per block, else the fewest
-    groups of near-equal width that fit."""
+    channels fp32 accumulators live in shared memory beside `reserve`
+    other bytes: all of them where they fit in the device's opt-in limit
+    per block, else the fewest groups of near-equal width that fit."""
     limit = lib.smirk_max_shared_optin(device.index)
     if limit <= 0:
         raise RuntimeError("could not read the device's shared memory limit")
+    limit -= reserve
     if capacity * 4 > limit:
         raise ValueError(f"capacity {capacity}: one channel of accumulators "
                          f"exceeds the {limit} bytes of shared memory per block")
@@ -1407,35 +1410,44 @@ def segment_moments_plain(slots, g, capacity: int, image_size: int):
     return segment_sum(slots, moment_rows(g, image_size), capacity)
 
 
+def _check_moments(name, slots, g):
+    """K4's argument checks on the card -> (B, Tp, D)."""
+    _check_cuda("slots", slots, torch.int32, 3, g.device)
+    _check_cuda("g", g, torch.float32, 4, g.device)
+    B, Tp, P, D = g.shape
+    if tuple(slots.shape) != (B, Tp, P) or P != TILE_PIX:
+        raise ValueError(f"{name}: inconsistent shapes "
+                         f"slots {tuple(slots.shape)} g {tuple(g.shape)}")
+    return B, Tp, D
+
+
 def segment_moments(slots, g, capacity: int, image_size: int):
-    """K4: per-(tile, slot) sums of [g*x | g*y | g] over the pixels the slot
-    won; slots (B,Tp,1024) int32 (-1 = none), g (B,Tp,1024,D) f32
-    tile-major -> (B,Tp,C,3D) f32, zeros for slots that won nothing.
+    """K4 with its store epilogue: per-(tile, slot) sums of [g*x | g*y | g]
+    over the pixels the slot won; slots (B,Tp,1024) int32 (-1 = none), g
+    (B,Tp,1024,D) f32 tile-major -> (B,Tp,C,3D) f32, zeros for slots that
+    won nothing.
 
     Replaces `_segment_moments_kernel` (`segment_reduce_moments`,
     smirk_tpu/render/rasterizer.py). Bound on H100: bytes (slots + g read
     once, the rows written once; ~16 us at b32, 224 px). Design: one block
     per (tile, image) with the tile's C x 3D accumulators in shared memory
     (dynamic, past 48 KB by opt-in; the 3D channels split into groups over
-    the grid where even the opt-in limit is too small), shared-memory
-    atomics per pixel, one coalesced store; the atomics make the float
+    the grid where even the opt-in limit is too small), a warp's pixels on
+    one slot summed with shuffles before one set of shared-memory atomics,
+    one coalesced store; the atomics make the float
     order vary, so it matches the plain version within a tolerance, not
-    bitwise. CPU tensors take the plain version.
+    bitwise. The training backward runs the fold epilogue instead
+    (`segment_moments_to_faces`). CPU tensors take the plain version.
     """
     if g.device.type == "cpu":
         return segment_moments_plain(slots, g, capacity, image_size)
     if g.device.type != "cuda":
         raise ValueError(f"segment_moments: unsupported device {g.device}")
     dev = g.device
-    _check_cuda("slots", slots, torch.int32, 3, dev)
-    _check_cuda("g", g, torch.float32, 4, dev)
-    B, Tp, P, D = g.shape
-    if tuple(slots.shape) != (B, Tp, P) or P != TILE_PIX:
-        raise ValueError("segment_moments: inconsistent shapes "
-                         f"slots {tuple(slots.shape)} g {tuple(g.shape)}")
+    B, Tp, D = _check_moments("segment_moments", slots, g)
     out = torch.empty((B, Tp, capacity, 3 * D), dtype=torch.float32, device=dev)
     lib = kernels.library("segment_moments")
-    group = _channel_group(lib, capacity, 3 * D, dev)
+    group = _channel_group(lib, capacity, 3 * D, dev, K4_CENTRE_BYTES)
     rc = lib.smirk_segment_moments(
         slots.data_ptr(), g.data_ptr(), out.data_ptr(), B, Tp, capacity, D,
         group, image_size, image_size, -(-image_size // TILE_COLS), dev.index,
@@ -1446,6 +1458,69 @@ def segment_moments(slots, g, capacity: int, image_size: int):
 
 
 segment_moments.launches = 0
+
+
+def segment_moments_to_faces_plain(slots, g, bins, capacity: int, image_size: int, F: int):
+    """Plain version of K4's fold epilogue: the plain per-slot table, then
+    the plain fold. -> (B,F,3D)."""
+    return fold_slots_to_faces_plain(segment_moments_plain(slots, g, capacity, image_size),
+                                     bins, F)
+
+
+# K4's shared bytes beside its accumulators: the tile's 136 pixel centres
+K4_CENTRE_BYTES = (TILE_COLS + TILE_ROWS) * 4
+
+
+def _fold_reserve(capacity: int) -> int:
+    """Shared bytes of K4's fold epilogue beside its accumulators: the
+    pixel centres, one mark byte a slot (whole words) and the per-warp
+    lists of 32 slots and face ids of its 8 warps."""
+    return K4_CENTRE_BYTES + -(-capacity // 4) * 4 + 2 * 8 * 32 * 4
+
+
+def segment_moments_to_faces(slots, g, bins, capacity: int, image_size: int, F: int):
+    """K4 with its fold epilogue: the per-face totals of the moments,
+    `fold_slots_to_faces(segment_moments(slots, g, capacity, image_size),
+    bins, F)` without the per-slot table; bins (B,Tp,C) int32 face ids (< 0
+    or >= F dropped) -> (B,F,3D) f32.
+
+    Replaces `_segment_moments_kernel` followed by `_fold_kernel`
+    (smirk_tpu/render/rasterizer.py), the training backward's pair. Bound on
+    H100: bytes (the slots, g at the pixels with a live slot, the bin ids
+    of the slots a pixel reached and the face table, each once; ~5 us at
+    b32, 224 px, C=384, D=3). Design:
+    K4's walk, which also marks the slots a pixel reached; each warp then
+    reads 32 bin ids of its tile, lists the marked slots holding a face and
+    adds their nonzero sums into the zeroed face table with global atomics
+    (a face sits in at most one slot of a tile). The atomics make the float
+    order vary, so it matches the plain version within a tolerance. A
+    `bins` that does not match the slots raises ValueError on any device;
+    CPU tensors take the plain version.
+    """
+    B, Tp = g.shape[:2]
+    if tuple(bins.shape) != (B, Tp, capacity):
+        raise ValueError("segment_moments_to_faces: bins must be (B, Tp, capacity) = "
+                         f"{(B, Tp, capacity)}, got {tuple(bins.shape)}")
+    if g.device.type == "cpu":
+        return segment_moments_to_faces_plain(slots, g, bins, capacity, image_size, F)
+    if g.device.type != "cuda":
+        raise ValueError(f"segment_moments_to_faces: unsupported device {g.device}")
+    dev = g.device
+    B, Tp, D = _check_moments("segment_moments_to_faces", slots, g)
+    _check_cuda("bins", bins, torch.int32, 3, dev)
+    out = torch.zeros((B, F, 3 * D), dtype=torch.float32, device=dev)
+    lib = kernels.library("segment_moments")
+    group = _channel_group(lib, capacity, 3 * D, dev, _fold_reserve(capacity))
+    rc = lib.smirk_segment_moments_to_faces(
+        slots.data_ptr(), g.data_ptr(), bins.data_ptr(), out.data_ptr(), B, Tp,
+        capacity, D, group, image_size, image_size, -(-image_size // TILE_COLS), F,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "segment_moments_to_faces")
+    segment_moments_to_faces.launches += 1
+    return out
+
+
+segment_moments_to_faces.launches = 0
 
 
 def _fold_index(bins: torch.Tensor, F: int) -> torch.Tensor:
@@ -1467,15 +1542,20 @@ def fold_slots_to_faces_plain(per_slot, bins, F: int):
 
 def fold_slots_to_faces(per_slot, bins, F: int):
     """K5: per-face totals of per-(tile, slot) rows; per_slot (B,Tp,C,CHN)
-    f32, bins (B,Tp,C) int32 face ids (< 0 dropped) -> (B,F,CHN) f32.
+    f32, bins (B,Tp,C) int32 face ids (< 0 or >= F dropped) -> (B,F,CHN)
+    f32. The rows of dropped slots are never read.
 
     Replaces `_fold_kernel` (`_fold_matmul` / `fold_slots_to_faces`,
-    smirk_tpu/render/rasterizer.py). Bound on H100: bytes (~9.4 us at b32,
-    224 px). Design: one thread per element, atomicAdd into the zeroed
-    output where the slot holds a face and the value is not 0; a face
-    appears once per tile, so its atomics rarely collide. The float order
-    varies, so it matches the plain version within a tolerance. CPU tensors
-    take the plain version.
+    smirk_tpu/render/rasterizer.py); served after K7 on the op path.
+    Bound on H100: bytes (the bins, the rows of slots that hold a face and
+    the face table, each once; ~12 us at b32, 224 px, C=512, CHN=36).
+    Design: one warp per run of 32 slot rows of an image: one coalesced
+    read of their bin ids, a ballot of those in [0, F), then only those
+    rows read (float4 pieces where CHN % 4 == 0 and per_slot is 16-byte
+    aligned, 4-byte pieces otherwise) and their nonzero pieces added into
+    the zeroed output with atomics; a face appears once per tile, so its
+    atomics rarely collide. The float order varies, so it matches the
+    plain version within a tolerance. CPU tensors take the plain version.
     """
     if per_slot.device.type == "cpu":
         return fold_slots_to_faces_plain(per_slot, bins, F)
@@ -1488,11 +1568,15 @@ def fold_slots_to_faces(per_slot, bins, F: int):
     if tuple(bins.shape) != (B, Tp, C):
         raise ValueError("fold_slots_to_faces: inconsistent shapes "
                          f"per_slot {tuple(per_slot.shape)} bins {tuple(bins.shape)}")
+    if max(Tp * C, F) * CHN >= 2 ** 31 or B > 65535:
+        raise ValueError("fold_slots_to_faces: an image's rows or the face table "
+                         "exceed 32-bit indexing, or B > 65535")
     out = torch.zeros((B, F, CHN), dtype=torch.float32, device=dev)
+    vec = CHN % 4 == 0 and per_slot.data_ptr() % 16 == 0
     lib = kernels.library("fold_faces")
     rc = lib.smirk_fold_faces(
         per_slot.data_ptr(), bins.data_ptr(), out.data_ptr(), B, Tp * C, CHN, F,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        int(vec), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "fold_slots_to_faces")
     fold_slots_to_faces.launches += 1
     return out
@@ -1764,9 +1848,9 @@ def raster_bins_coverage(counts, bins, fv9, image_size: int):
 raster_bins_coverage.launches = 0
 
 KERNELS = (raster_fused_windows, raster_planes_windows,
-           segment_moments, fold_slots_to_faces, raster_coverage_windows,
-           segment_reduce_tiles, raster_bins_coverage, raster_fused_groups,
-           raster_fused_groups_local, raster_chunkskip)
+           segment_moments, segment_moments_to_faces, fold_slots_to_faces,
+           raster_coverage_windows, segment_reduce_tiles, raster_bins_coverage,
+           raster_fused_groups, raster_fused_groups_local, raster_chunkskip)
 
 
 def _v5_impl(face_verts, attributes, image_size: int, capacity: int,
@@ -1884,11 +1968,12 @@ def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g,
 
 
 class _RasterizePlanesDiff(torch.autograd.Function):
-    """Forward `_v5_impl` (K3); backward image_to_tiles -> K4 -> K5 -> the
-    vector-Jacobian product of attr_planes. The cotangent of an affine
-    plane is its first moments over the pixels it won, so the backward
-    gathers nothing per pixel. Coverage is not differentiable: the
-    gradient reaches the vertices through the planes only, and the
+    """Forward `_v5_impl` (K3); backward image_to_tiles -> K4 with its fold
+    epilogue (`segment_moments_to_faces`: the moments folded straight into
+    faces) -> the vector-Jacobian product of attr_planes. The cotangent of
+    an affine plane is its first moments over the pixels it won, so the
+    backward gathers nothing per pixel. Coverage is not differentiable:
+    the gradient reaches the vertices through the planes only, and the
     gradient to z is zero."""
 
     @staticmethod
@@ -1908,8 +1993,8 @@ class _RasterizePlanesDiff(torch.autograd.Function):
         if g_vals is None:
             return None, None, None, None, None
         g_t = image_to_tiles(g_vals, ctx.image_size).contiguous()
-        per_slot = segment_moments(slots, g_t, ctx.capacity, ctx.image_size)
-        plane_ct = fold_slots_to_faces(per_slot, bins, face_verts.shape[1])
+        plane_ct = segment_moments_to_faces(slots, g_t, bins, ctx.capacity,
+                                            ctx.image_size, face_verts.shape[1])
         with torch.enable_grad():
             fv = face_verts.detach().requires_grad_(True)
             at = attributes.detach().requires_grad_(True)
@@ -2080,8 +2165,8 @@ def rasterize(face_verts, attributes, image_size: int, capacity: int = 512, *,
     """Full differentiable raster (the JAX package's `rasterize` on its
     Pallas path) -> (vals (B,H,W,D), mask (B,H,W,1), pix_to_face (B,H,W)
     int32, overflow (B,) int32). D attribute channels with 13 + 3D <= 32
-    (D <= 6) take the planes raster (`rasterize_planes_diff`, K3 + K4 + K5,
-    on the `compact` layout); wider attributes take the coverage raster
+    (D <= 6) take the planes raster (`rasterize_planes_diff`, K3 + K4's
+    fold, on the `compact` layout); wider attributes take the coverage raster
     K6 and `interpolate_attributes_fast` (K7 + K5), which bins the padded
     layout, so `compact` does not apply and overflow is 0. Coverage carries
     no gradient."""

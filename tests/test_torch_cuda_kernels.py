@@ -114,7 +114,12 @@ def test_training_kernels_match_plain(card, full, size, B):
     """K3 (read through the bins, culled) bitwise equal to its plain version
     and to the packed route on the compact, padded and a truncated layout;
     K4 and K5 within 1e-5 x the sum of the magnitudes of their terms (their
-    atomics reorder fp32 sums); the raster gradient against the CPU path."""
+    atomics reorder fp32 sums), each case launching only its kernels: K4's
+    store epilogue and K5 on its 9-channel rows (4-byte pieces), K4's fold
+    epilogue against the plain composition, and K5 on 36-channel rows
+    (float4 pieces, and 4-byte pieces on a view that is not 16-byte
+    aligned) with NaN in every row of a slot that holds no face; the raster
+    gradient against the CPU path."""
     bundle = procedural_bundle(seed=2, full_size=full)
     rng = np.random.default_rng(1)
     vt = bundle["v_template"]
@@ -139,21 +144,52 @@ def test_training_kernels_match_plain(card, full, size, B):
                 assert torch.equal(a, b)
     slots = R.raster_planes_windows(R._windows(counts, r.raster_compact)[0], bins, records,
                                     fv, size, TX, 3)[2]
+    torch.cuda.synchronize()
+    assert R.raster_planes_windows.launches == 4
     g = torch.randn((B, size, size, 3), device=card,
                     generator=torch.Generator(device=card).manual_seed(0))
     g_t = R.image_to_tiles(g, size).contiguous()
-    k4 = R.segment_moments(slots, g_t, cap, size)
     scale = R.segment_sum(slots, R.moment_rows(g_t, size).abs(), cap)
-    assert ((k4 - R.segment_moments_plain(slots, g_t, cap, size)).abs()
-            <= 1e-5 * scale + 1e-30).all()
     F = fv.shape[1]
-    k5 = R.fold_slots_to_faces(k4, bins, F)
-    assert ((k5 - R.fold_slots_to_faces_plain(k4, bins, F)).abs()
-            <= 1e-5 * R.fold_slots_to_faces_plain(k4.abs(), bins, F) + 1e-30).all()
-    assert float(k5.abs().sum()) > 0
-    torch.cuda.synchronize()
-    assert (R.raster_planes_windows.launches, R.segment_moments.launches,
-            R.fold_slots_to_faces.launches) == (4, 1, 1)
+
+    def store():
+        k4 = R.segment_moments(slots, g_t, cap, size)
+        assert ((k4 - R.segment_moments_plain(slots, g_t, cap, size)).abs()
+                <= 1e-5 * scale + 1e-30).all()
+        k5 = R.fold_slots_to_faces(k4, bins, F)
+        assert ((k5 - R.fold_slots_to_faces_plain(k4, bins, F)).abs()
+                <= 1e-5 * R.fold_slots_to_faces_plain(k4.abs(), bins, F) + 1e-30).all()
+        assert float(k5.abs().sum()) > 0
+
+    def fold():
+        k4 = R.segment_moments_to_faces(slots, g_t, bins, cap, size, F)
+        want = R.segment_moments_to_faces_plain(slots, g_t, bins, cap, size, F)
+        assert ((k4 - want).abs()
+                <= 1e-5 * R.fold_slots_to_faces_plain(scale, bins, F) + 1e-30).all()
+        assert float(k4.abs().sum()) > 0
+
+    def k5_36():
+        gen = torch.Generator(device=card).manual_seed(5)
+        rows = torch.randn(tuple(bins.shape) + (36,), device=card, generator=gen)
+        rows = torch.where((bins < 0)[..., None], float("nan"), rows)
+        unaligned = torch.empty(rows.numel() + 1, device=card)[1:].view(rows.shape)
+        unaligned.copy_(rows)
+        assert unaligned.data_ptr() % 16 and rows.data_ptr() % 16 == 0
+        want = R.fold_slots_to_faces_plain(rows, bins, F)
+        for per_slot in (rows, unaligned):
+            k5 = R.fold_slots_to_faces(per_slot, bins, F)
+            assert bool(torch.isfinite(k5).all())
+            assert ((k5 - want).abs() <= 1e-5 * R.fold_slots_to_faces_plain(
+                rows.abs(), bins, F) + 1e-30).all()
+
+    # (K4 store, K4 fold, K5) launches of each case
+    for case, launched in ((store, (1, 0, 1)), (fold, (0, 1, 0)), (k5_36, (0, 0, 2))):
+        R.reset_launch_counts()
+        case()
+        torch.cuda.synchronize()
+        assert (R.raster_planes_windows.launches, R.segment_moments.launches,
+                R.segment_moments_to_faces.launches, R.fold_slots_to_faces.launches) == \
+            (0, *launched), case.__name__
 
     fvg, fng = fv.clone().requires_grad_(True), fn.clone().requires_grad_(True)
     vals, _, p2f, _ = R.rasterize(fvg, fng, size, cap, compact=r.raster_compact)
@@ -282,13 +318,29 @@ def test_bins_kernel_keeps_negative_zero_barycentrics(card):
     assert int((want[0][0, S // 2, :S] == 0).sum()) >= 3
 
 
-def test_training_wrappers_reject_bad_arguments(card):
+@pytest.mark.parametrize("epilogue", ["store", "fold"])
+def test_training_wrappers_reject_bad_arguments(card, epilogue):
+    """K4 (either epilogue) refuses int slots of another dtype, slots that
+    disagree with g and, folding, a bins of another dtype, shape or
+    device; K5 refuses a bins that disagrees with its rows; K3 refuses a
+    D its records cannot hold."""
     slots = torch.zeros((1, 8, 1024), dtype=torch.int32, device=card)
     g = torch.zeros((1, 8, 1024, 3), device=card)
+    bins32 = torch.full((1, 8, 32), -1, dtype=torch.int32, device=card)
+    if epilogue == "store":
+        def k4(sl, gg):
+            return R.segment_moments(sl, gg, 32, 64)
+    else:
+        def k4(sl, gg, bb=bins32):
+            return R.segment_moments_to_faces(sl, gg, bb, 32, 64, 10)
+        for bad in (bins32.long(), bins32[:, :4], bins32[..., :16], bins32.cpu()):
+            with pytest.raises((TypeError, ValueError)):
+                k4(slots, g, bad)
+        assert k4(slots, g).shape == (1, 10, 9)
     with pytest.raises(TypeError):
-        R.segment_moments(slots.float(), g, 32, 64)
+        k4(slots.float(), g)
     with pytest.raises(ValueError):
-        R.segment_moments(slots[:, :4], g, 32, 64)  # slots and g disagree
+        k4(slots[:, :4], g)  # slots and g disagree
     with pytest.raises(ValueError):
         R.fold_slots_to_faces(g[..., :32, :].contiguous(), slots[..., :16], 10)
     kept = torch.zeros((1, 8), dtype=torch.int32, device=card)
@@ -364,19 +416,32 @@ def test_segment_reduce_matches_plain(card, B, cap, chn):
     assert float(got.abs().sum()) > 0
 
 
-def test_segment_moments_past_48kb_matches_plain(card):
+@pytest.mark.parametrize("epilogue", ["store", "fold"])
+def test_segment_moments_past_48kb_matches_plain(card, epilogue):
     """K4 at D = 6, capacity 768 (55 KB of accumulators) and capacity 4096
-    (295 KB: the channels split) within 1e-5 x the sum of magnitudes."""
+    (295 KB: the channels split), and at D = 5, capacity 4096 (the walk's
+    second pass over g takes 2 channels) within 1e-5 x the sum of
+    magnitudes: the store epilogue against its plain version, the fold
+    epilogue (random face ids in [-1, 3408) a slot) against the plain
+    composition."""
     gen = torch.Generator(device=card).manual_seed(0)
-    for cap in (768, 4096):
+    F = 3408
+    for cap, D in ((768, 6), (4096, 6), (4096, 5)):
         slots = torch.randint(-1, cap, (2, 56, 1024), device=card, generator=gen,
                               dtype=torch.int32)
-        g = torch.randn((2, 56, 1024, 6), device=card, generator=gen)
-        got = R.segment_moments(slots, g, cap, 224)
-        want = R.segment_moments_plain(slots, g, cap, 224)
+        g = torch.randn((2, 56, 1024, D), device=card, generator=gen)
         scale = R.segment_sum(slots, R.moment_rows(g, 224).abs(), cap)
+        if epilogue == "store":
+            got = R.segment_moments(slots, g, cap, 224)
+            want = R.segment_moments_plain(slots, g, cap, 224)
+        else:
+            bins = torch.randint(-1, F, (2, 56, cap), device=card, generator=gen,
+                                 dtype=torch.int32)
+            got = R.segment_moments_to_faces(slots, g, bins, cap, 224, F)
+            want = R.segment_moments_to_faces_plain(slots, g, bins, cap, 224, F)
+            scale = R.fold_slots_to_faces_plain(scale, bins, F)
         torch.cuda.synchronize()
-        assert ((got - want).abs() <= 1e-5 * scale + 1e-30).all(), cap
+        assert ((got - want).abs() <= 1e-5 * scale + 1e-30).all(), (cap, D)
 
 
 def test_rasterize_wide_attributes_on_the_card(card):
