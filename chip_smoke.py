@@ -62,11 +62,14 @@ Phases (any failure exits non-zero):
     (the fold on random face ids) against their plain versions, within
     1e-5 x the sum of magnitudes;
  4i. the scheduled inference rasters on the main path's faces (b64, the
-    face region through Renderer._face_geometry), capacity 384: K9
+    face region through Renderer._face_geometry), capacity 384, all three
+    on K1's culled walk over records read through their ids: K9
     raster_fused_groups at tps 8 and 16 bitwise equal to its plain version
-    and to K1b; K10 raster_fused_groups_local (count-sorted, tile-local
-    records) bitwise equal to its plain version and to K1b by the tie rule,
-    normals within 2e-4 + 1e-3 x |n|; K11 raster_chunkskip at (chunk, cap)
+    (the merged schedule's group walk) and to K1b; K10
+    raster_fused_groups_local (count-sorted tiles, records rebased to
+    tile-local coordinates in its staging) bitwise equal to its plain
+    version and to K1b by the tie rule, normals within 2e-4 + 1e-3 x |n|;
+    K11 raster_chunkskip (its chunk-id lists, 32 faces a step) at (chunk, cap)
     = (8, 128), (16, 96), (32, 64) on the Morton-ordered face list with the
     original ids, bitwise equal to its plain version and to K1 by the tie
     rule, nothing dropped; at cap 4 chunks are dropped, the kept list is
@@ -144,13 +147,15 @@ Phases (any failure exits non-zero):
  7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
     K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches;
     each row's `device_ms` beside its `ms`),
-    with K1's and K3's bounds (K9-K11 take K1's) counted from this run's
-    inputs as the work their function needs (the face-pixel pairs in the
-    faces' boxes, the binned records read once), the count of every slot
-    against every pixel and the face-warp tests the culls of K1, K3, K6 and
-    K8 keep printed beside them; K7's bound counts the slots, the payload
-    rows of slots in [0, C) and the output, with the count that reads every
-    row and the share of rows read beside it; K4's row is its fold
+    with the rasters' bounds counted from this run's inputs as the work
+    their function needs (the face-pixel pairs in the faces' boxes, the
+    binned records read once; K9 and K10 take K1b's, K11 the records of
+    every binned chunk, which it must read), the count of every slot
+    against every pixel and the face-warp tests the culls of K1, K3, K6,
+    K8, K10 and K11 (at each chunk size) keep printed beside them; K7's
+    bound counts the slots, the payload rows of slots in [0, C) and the
+    output, with the count that reads every row and the share of rows
+    read beside it; K4's row is its fold
     epilogue's (the slots, g at the pixels with a live slot, the bins of
     the slots a live pixel reached, the face table), with the store's time,
     the count that reads every bin and the per-slot route's bound (K4 +
@@ -334,6 +339,30 @@ def culled_work(kept, bins, raw, image_size, boxes=None):
         work["warp_tests_all"] = steps * R.V3_CHUNK * 8
         work["warp_tests_kept"] = int((meet & real[..., None]).sum())
     return work
+
+
+def chunk_work(counts, clist, records, face_verts, chunk, image_size):
+    """K11's work on its inputs (`chunkskip_inputs`), as `culled_work`
+    counts it: its chunk lists laid out as the kernel stages them, 32 faces
+    a step (slot f of step c the face f % chunk of list entry c * 32 /
+    chunk + f / chunk), its cull boxes `cull_boxes` of the padded faces with
+    the padding faces' (id -1) empty, as the kernel stages them."""
+    import torch
+    from smirk_tpu_torch.render import rasterizer as R
+
+    B, Tp, cap = clist.shape
+    entry = torch.arange(cap, device=clist.device)[:, None]
+    ids = clist[..., None] * chunk + torch.arange(chunk, device=clist.device)
+    ids = torch.where(entry < counts[..., None, None], ids, -1).reshape(B, Tp, cap * chunk)
+    pad = (-cap * chunk) % R.V3_CHUNK
+    if pad:
+        ids = torch.cat([ids, ids.new_full((B, Tp, pad), -1)], dim=2)
+    raw = torch.stack(R._bbox_and_priority(face_verts, image_size)[:4], -1)
+    empty = torch.tensor([math.inf, -math.inf, math.inf, -math.inf], device=clist.device)
+    boxes = torch.where((records[..., 12] < 0)[..., None], empty,
+                        R.cull_boxes(face_verts, image_size))
+    kept = (counts * chunk + R.V3_CHUNK - 1) // R.V3_CHUNK
+    return culled_work(kept, ids, raw, image_size, boxes)
 
 
 def kept_share(work) -> str:
@@ -915,20 +944,22 @@ def main(argv=None) -> int:
         k9, k9_err = {}, 0.0
         for tps in (8, 16):
             b9, c9 = R._pad_tiles_to(bins, counts, tps)
-            r9 = R._gather_recs(records, b9.reshape(B, -1)).contiguous()
-            out9 = R.raster_fused_groups(c9, r9, S, TX, tps)
-            plain9 = R.raster_fused_groups_plain(c9, r9, S, TX, tps)
+            kw9 = dict(image_size=S, tiles_x=TX, tps=tps)
+            out9 = R.raster_fused_groups(c9, b9, records, face_verts, **kw9)
+            plain9 = R.raster_fused_groups_plain(c9, b9, records, **kw9)
             torch.cuda.synchronize()
             # against phase 4's K1b render: the tiles past Tp pad the groups
             for nm, a, b, c in zip(("p2f", "zbuf", "nx", "ny", "nz"), out9, plain9, k1b):
-                check(torch.equal(a, b), f"K9 {nm} == plain at tps {tps} (bitwise)")
+                check(torch.equal(a, b), f"K9 {nm} == plain (the group walk) at tps {tps} "
+                      "(bitwise)")
                 check(torch.equal(a[:, :Tp], c), f"K9 {nm} == K1b at tps {tps} (bitwise, "
                       f"{c9.shape[1] - Tp} padding tiles)")
                 k9_err = max(k9_err, float((a.double() - b.double()).abs().max()))
-            k9[tps] = (c9, r9, R.group_windows(c9, CPT, tps))
-        c10, r10, inv10 = R.sorted_tiles(records, *R._pad_tiles_to(bins, counts, 8), S)
-        out10 = R.raster_fused_groups_local(c10, r10, S, 8)
-        plain10 = R.raster_fused_groups_plain(c10, r10, S, TX, 8, local=True)
+            k9[tps] = (c9, b9, R.group_windows(c9, CPT, tps))
+        c10, b10, o10, inv10 = R.sort_tiles_order(*R._pad_tiles_to(bins, counts, 8))
+        kw10 = dict(image_size=S, tiles_x=TX, tps=8)
+        out10 = R.raster_fused_groups_local(c10, b10, o10, records, face_verts, **kw10)
+        plain10 = R.raster_fused_groups_local_plain(c10, b10, o10, records, **kw10)
         torch.cuda.synchronize()
         k10_err = 0.0
         for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), out10, plain10):
@@ -951,14 +982,16 @@ def main(argv=None) -> int:
         k11, k11_err = {}, 0.0
         for ch, cap11 in ((8, 128), (16, 96), (32, 64)):
             while True:
-                c11, l11, r11, d11 = R.chunkskip_inputs(fv_perm, fn_perm, S, ch, cap11, perm_t)
+                c11, l11, r11, f11, d11 = R.chunkskip_inputs(fv_perm, fn_perm, S, ch, cap11,
+                                                             perm_t)
                 if int(d11.max()) == 0:
                     break
                 log(f"    chunk {ch}: {int(d11.sum())} chunks dropped at cap {cap11}; "
                     f"raising the cap to {cap11 * 2}")
                 cap11 *= 2
-            out11 = R.raster_chunkskip(c11, l11, r11, S, TX, ch)
-            plain11 = R.raster_chunkskip_plain(c11, l11, r11, S, TX, ch)
+            kw11 = dict(image_size=S, tiles_x=TX, chunk=ch)
+            out11 = R.raster_chunkskip(c11, l11, r11, f11, **kw11)
+            plain11 = R.raster_chunkskip_plain(c11, l11, r11, **kw11)
             torch.cuda.synchronize()
             for nm, a, b in zip(("p2f", "zbuf", "nx", "ny", "nz"), out11, plain11):
                 check(torch.equal(a, b), f"K11 {nm} == plain at chunk {ch}, cap {cap11} "
@@ -967,12 +1000,13 @@ def main(argv=None) -> int:
             img11 = [R._tiles_to_image(o, S) for o in out11[:2]]
             bad11 = tie_mismatches(img11[0], k1_img[0], img11[1], k1_img[1], face_verts, S)
             log(f"    K11 chunk {ch}, cap {cap11}: {int(c11.sum())} binned chunks "
-                f"(max {int(c11.max())} per tile), {bad11} tie pixels against K1")
-            k11[ch] = (c11, l11, r11, out11)
+                f"(max {int(c11.max())} per tile; lists ending in a partial step: "
+                f"{int(((c11 * ch) % 32 != 0).sum())}), {bad11} tie pixels against K1")
+            k11[ch] = (c11, l11, r11, f11, out11)
         # a truncated cap drops the farthest chunks; the nearest still wins
-        c8, l8, _, out8 = k11[8]
-        ct, lt, rt, dt = R.chunkskip_inputs(fv_perm, fn_perm, S, 8, 4, perm_t)
-        outt = R.raster_chunkskip(ct, lt, rt, S, TX, 8)
+        c8, l8, _, _, out8 = k11[8]
+        ct, lt, rt, ft, dt = R.chunkskip_inputs(fv_perm, fn_perm, S, 8, 4, perm_t)
+        outt = R.raster_chunkskip(ct, lt, rt, ft, image_size=S, tiles_x=TX, chunk=8)
         check(int(dt.min()) > 0, f"cap 4 drops chunks (min {int(dt.min())}, max "
               f"{int(dt.max())} per image)")
         pos = torch.arange(4, device=dev)
@@ -1413,20 +1447,21 @@ def main(argv=None) -> int:
         res["k8_plain_ms"] = cuda_ms(
             lambda: R.raster_bins_coverage_plain(counts_t, bins_t, fv9, S), 3, 1)
         for tps in (8, 16):
-            c9, r9, _ = k9[tps]
-            kernel_ms(f"k9_tps{tps}_ms", 
-                lambda c9=c9, r9=r9, tps=tps: R.raster_fused_groups(c9, r9, S, TX, tps), 50)
-        res["k9_plain_ms"] = cuda_ms(
-            lambda: R.raster_fused_groups_plain(k9[8][0], k9[8][1], S, TX, 8), 5, 1)
-        kernel_ms("k10_ms", lambda: R.raster_fused_groups_local(c10, r10, S, 8), 50)
-        res["k10_plain_ms"] = cuda_ms(
-            lambda: R.raster_fused_groups_plain(c10, r10, S, TX, 8, local=True), 5, 1)
-        for ch, (c11, l11, r11, _) in k11.items():
-            kernel_ms(f"k11_ch{ch}_ms", 
-                lambda c11=c11, l11=l11, r11=r11, ch=ch: R.raster_chunkskip(
-                    c11, l11, r11, S, TX, ch), 50)
-        res["k11_plain_ms"] = cuda_ms(
-            lambda: R.raster_chunkskip_plain(*k11[8][:3], S, TX, 8), 5, 1)
+            c9, b9, _ = k9[tps]
+            kernel_ms(f"k9_tps{tps}_ms", lambda c9=c9, b9=b9, tps=tps: R.raster_fused_groups(
+                c9, b9, records, face_verts, image_size=S, tiles_x=TX, tps=tps), 50)
+        res["k9_plain_ms"] = cuda_ms(lambda: R.raster_fused_groups_plain(
+            k9[8][0], k9[8][1], records, image_size=S, tiles_x=TX, tps=8), 5, 1)
+        kernel_ms("k10_ms", lambda: R.raster_fused_groups_local(
+            c10, b10, o10, records, face_verts, **kw10), 50)
+        res["k10_plain_ms"] = cuda_ms(lambda: R.raster_fused_groups_local_plain(
+            c10, b10, o10, records, **kw10), 5, 1)
+        for ch, (c11, l11, r11, f11, _) in k11.items():
+            kernel_ms(f"k11_ch{ch}_ms", lambda c11=c11, l11=l11, r11=r11, f11=f11, ch=ch:
+                      R.raster_chunkskip(c11, l11, r11, f11, image_size=S, tiles_x=TX,
+                                         chunk=ch), 50)
+        res["k11_plain_ms"] = cuda_ms(lambda: R.raster_chunkskip_plain(
+            *k11[8][:3], image_size=S, tiles_x=TX, chunk=8), 5, 1)
         # the whole inference raster calls, binning and records included
         whole = {
             "compact": lambda: R.rasterize_normals_fused(face_verts, face_normals, S, cap,
@@ -1580,11 +1615,18 @@ def main(argv=None) -> int:
     # the kept counts that stand where K2 stood: counts read, kept and
     # overflow written
     windows_bytes = B * Tp * 4 * 2 + B * 4
-    # K9-K11 compute K1b's and K1's function on the same faces, so their
-    # bounds are those; what their schedules walk past it is printed below
+    # K9 and K10 compute K1b's function on the same faces (K9's bound is
+    # K1b's); K10 culls with the rebase's boxes. K11 computes K1's
+    # z-buffer over its chunk lists: its bound counts the pairs in the boxes
+    # of the binned chunks' faces and every record of those chunks, which it
+    # must read. What the plain schedules walk past the function is printed
+    # below.
     s9, e9 = k9[8][2]
     s10, e10 = R.group_windows(c10, CPT, 8)
-    k11_faces = int(k11[8][0].sum()) * 8
+    work10 = culled_work(kept_p, bins, raw, S, R.cull_boxes_local(face_verts, S))
+    k10_bms, k10_by = culled_bound(work10, n_tiles, 5, 3)
+    work11 = {ch: chunk_work(*k11[ch][:4], ch, S) for ch in k11}
+    k11_bounds = {ch: culled_bound(w, n_tiles, 5, 3) for ch, w in work11.items()}
     src = "smirk_tpu_torch/csrc/"
     line = {"kernels": [
         {"name": "compact_faces", "route": "folded into K1/K3 staging",
@@ -1673,13 +1715,13 @@ def main(argv=None) -> int:
          "launches": sched_launches["raster_fused_groups_local"], "max_abs_err": k10_err,
          "ms": res["k10_ms"], "device_ms": dev_ms["k10_ms"],
          "plain_ms": res["k10_plain_ms"],
-         "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
+         "bound_ms": k10_bms, "bound_by": k10_by, "library_ms": None},
         {"name": "raster_chunkskip", "route": "cuda", "source": src + "raster_chunkskip.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1863",
          "launches": sched_launches["raster_chunkskip"], "max_abs_err": k11_err,
          "ms": res["k11_ch8_ms"], "device_ms": dev_ms["k11_ch8_ms"],
          "plain_ms": res["k11_plain_ms"],
-         "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None},
+         "bound_ms": k11_bounds[8][0], "bound_by": k11_bounds[8][1], "library_ms": None},
     ]}
     for k in line["kernels"]:
         assert all(isinstance(k[f], (int, float)) and math.isfinite(k[f])
@@ -1719,7 +1761,7 @@ def main(argv=None) -> int:
         log(f"    {nm} bound {bms:.4f} ms ({by}: {w['box_pairs']} face-pixel pairs in the "
             f"faces' boxes x {OPS_PER_FACE_PIXEL}, {w['binned_faces']} binned faces); "
             f"every slot against every pixel {old_bms:.4f} ms ({w['chunk_steps']} chunk "
-            "steps x 32 x 1024 pixels); K9 and K10 take K1b's bound, K11 K1's; "
+            "steps x 32 x 1024 pixels); K9 takes K1b's bound and walk; "
             f"face-warp tests the cull keeps {kept_share(w)}")
     log(f"    bounds: K6 {k6_bms:.4f} ms ({k6_by}, {work6['box_pairs']} face-pixel pairs "
         f"in the faces' boxes x {OPS_PER_FACE_PIXEL}, {work6['binned_faces']} binned "
@@ -1741,10 +1783,20 @@ def main(argv=None) -> int:
             f"in the faces' boxes x {OPS_PER_FACE_PIXEL}, {w['binned_faces']} binned faces); "
             f"the unculled count's bound {old_bms:.4f} ms ({w['chunk_steps']} chunk steps x "
             f"32 x 1024 pixels); face-warp tests the cull keeps {kept_share(w)}")
-    log(f"    schedules past the function's work: K9 walks {int((e9 - s9).sum())} chunk "
-        f"steps at tps 8 and K10 {int((e10 - s10).sum())}, against K1b's {win_p} (bound "
-        f"{k1b_bms:.4f} ms); K11 {k11_faces} face-tile tests at chunk 8, against K1's "
-        f"{win_c * 32} (bound {k1_bms:.4f} ms)")
+    log(f"    K10 bound {k10_bms:.4f} ms ({k10_by}); face-warp tests its cull (the "
+        f"rebase's 128u boxes) keeps {kept_share(work10)}")
+    for ch, w in work11.items():
+        log(f"    K11 chunk {ch} bound {k11_bounds[ch][0]:.4f} ms ({k11_bounds[ch][1]}: "
+            f"{w['box_pairs']} face-pixel pairs in the faces' boxes x {OPS_PER_FACE_PIXEL}, "
+            f"{w['binned_faces']} records of the binned chunks); every slot against every "
+            f"pixel {raster_bound(w['chunk_steps'], n_tiles, 5, 3, B, Tp)[0]:.4f} ms "
+            f"({w['chunk_steps']} steps of 32 faces); face-warp tests the cull keeps "
+            f"{kept_share(w)}; "
+            f"{res[f'k11_ch{ch}_ms']:.4f} [{dev_ms[f'k11_ch{ch}_ms']:.4f}] ms {card}")
+    log(f"    the plain schedules past the function's work: the group walk of K9 and "
+        f"K10 {int((e9 - s9).sum())} and {int((e10 - s10).sum())} chunk steps at tps 8, "
+        f"against K1b's {win_p}; K9 at tps 16 {res['k9_tps16_ms']:.4f} "
+        f"[{dev_ms['k9_tps16_ms']:.4f}] ms {card}")
     log(json.dumps(line))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,162 +6,130 @@
 // smirk_tpu/render/rasterizer.py. There the binning selects chunks of a
 // spatially ordered face list instead of faces, and each tile fetches its
 // chunks from the full per-image record table held in VMEM: no record
-// gather, no compact plan, no chunk compaction. Here a block owns one 8x128
-// tile of one image, 256 threads x 4 pixels, as K1:
-//   * the block walks clist[b, t, :counts[b, t]] in list order (near-to-far
-//     chunk priority); chunk cid is the CH consecutive records at row
-//     cid*CH of the image's table (B, F, 32), CH one of 4, 8, 16, 32;
-//   * one step stages up to 32 faces, 32/CH consecutive list entries, in
-//     shared memory (4 KB, one float4 load per thread), so an 8-face chunk
-//     does not cost a barrier of its own;
-//   * each thread tests the staged faces in list-then-slot order and keeps
-//     a face only if it is inside, real (id lane >= 0: the off-screen
-//     padding faces carry -1) and strictly nearer: the TPU kernel's rule,
-//     near chunk first and first slot within a chunk;
-//   * the winner's id lane (the original face id where the caller gave
-//     one) and normal planes are read once, at the end.
+// gather, no compact plan, no chunk compaction. Its price is face tests:
+// every face of a binned chunk is tested against every pixel, even where
+// one member alone overlaps the tile. Here a block owns one 8x128 tile of
+// one image and runs K1's walk (walk_faces in window_raster.cuh) over the
+// tile's list clist[b, t, :counts[b, t]] (counts clamped to [0, cap]), 32
+// faces a step: the 32 / CH list entries from c * 32 / CH on, slot f face
+// list[c * 32 / CH + f / CH] * CH + f % CH of the image's table (B, F, 32),
+// CH one of 4, 8, 16, 32 (a template parameter). The last step of a list
+// whose count x CH is no multiple of 32 is partial; its empty slots stage
+// the kill record and an empty box. The walk stages each step's records
+// one step ahead, computes each face's cull box from the vertices of the
+// padded, Morton-ordered faces (rasterizer.cull_boxes, exact for the
+// records' edge lanes), gives the off-screen padding faces (id -1 in lane
+// 12, degenerate boxes that would never be culled) an empty box, and lets
+// each warp test only the faces whose box meets its 16x8 rectangle, in
+// list-then-slot order with a strict < as the plain version: the nearer
+// chunk first, then the first slot. The winner's staged slot is turned back
+// into its table row at the end, and lane 12 (the original face id) and
+// the normal planes are read from it.
 // Every affine form is evaluated as ((a*x) + (b*y)) + c with __fmul_rn /
 // __fadd_rn and the pixel centres with __fdiv_rn, as in K1, so the results
-// are bitwise equal to the plain PyTorch version on the card.
+// are bitwise equal to the plain PyTorch version, which tests every face.
 //
-// Bound on H100: fp32 operations, ~16 per face-pixel test over the faces
-// that the function needs, K1's windows, since it computes K1's z-buffer.
-// The schedule walks more: sum(counts) x CH x 1024 pairs, every face of a
-// binned chunk, even where only one member overlaps the tile. The table is
-// 3408 x 128 B = 436 KB per image, 27.9 MB at batch 64, under the 50 MB
-// L2: the kernel relies on that for speed (each image's table is read by
-// its ~56 tiles, and after the first touch those reads hit L2), not for
-// correctness.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// Bound on H100: K1's function, the same z-buffer: the face-pixel pairs
+// inside each binned face's box (16 fp32 operations a pair) against the
+// records of every binned chunk read once (the kernel must read them all:
+// at CH = 8 about twice K1's binned faces) and the outputs, bytes-bound at
+// ~0.03 ms at b64, 224 px. The table is 3408 x 128 B = 436 KB per image,
+// 27.9 MB at b64, under the 50 MB L2, so a record read by several tiles
+// is mostly an L2 hit. The cull brings the face-warp tests down to about
+// K1's; what is left is K1's latency over walks of ~5 steps a tile.
+#include "window_raster.cuh"
 
 namespace {
 
-constexpr int kTileRows = 8;
-constexpr int kTileCols = 128;
-constexpr int kTilePix = kTileRows * kTileCols;  // 1024
-constexpr int kStage = 32;                        // faces staged per step
-constexpr int kLanes = 32;                        // floats per record
-constexpr int kRecF4 = kLanes / 4;                // float4 per record: 8
-constexpr int kThreads = 256;                     // = kStage * kRecF4
-constexpr int kPixPerThread = kTilePix / kThreads;  // 4
-constexpr float kBigZ = 1e10f;
+using namespace smirk_raster;
 
-__device__ __forceinline__ float affine(float a, float b, float c, float x,
-                                        float y) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(a, x), __fmul_rn(b, y)), c);
-}
+// Slot f of step c: the f % CH-th face of list entry c * 32 / CH + f / CH
+// (-1 past the tile's count).
+template <int CH>
+struct ChunkIds {
+  const int32_t* list;
+  int count;
+  __device__ __forceinline__ int operator()(int c, int face) const {
+    const int e = c * (kChunk / CH) + face / CH;
+    return e < count ? list[e] * CH + face % CH : -1;
+  }
+};
 
-__device__ __forceinline__ float ndc(int i, int size) {
-  const float s = (float)size;
-  return __fdiv_rn(__fsub_rn(__fadd_rn(__fmul_rn(2.0f, (float)i), 1.0f), s), s);
-}
-
-__global__ void __launch_bounds__(kThreads)
-raster_chunkskip_kernel(const int32_t* __restrict__ counts,  // (B, Tp)
-                        const int32_t* __restrict__ clist,   // (B, Tp, cap)
-                        const float* __restrict__ recs,      // (B, F, 32)
+// 5 blocks an SM: K1's minimum (tools/torch_launch_bounds_sweep.py
+// --kernel chunkskip)
+template <int CH>
+__global__ void __launch_bounds__(kThreads, 5)
+raster_chunkskip_kernel(const int32_t* __restrict__ counts,     // (B, Tp)
+                        const int32_t* __restrict__ clist,      // (B, Tp, cap)
+                        const float* __restrict__ records,      // (B, F, 32)
+                        const float* __restrict__ face_verts,   // (B, F, 3, 3)
                         int32_t* __restrict__ p2f, float* __restrict__ zbuf,
                         float* __restrict__ nx, float* __restrict__ ny,
-                        float* __restrict__ nz, int Tp, int cap, int F, int CH,
-                        int H, int W, int TX) {
-  __shared__ float4 s_rec[kStage * kRecF4];  // 32 records, 4 KB
-  __shared__ int s_row[kStage];              // table row of each staged face
+                        float* __restrict__ nz, int Tp, int cap, int F, int H,
+                        int W, int TX, float grid_radius) {
+  __shared__ float4 s_chunk[kChunk * kQuarters];  // 256 float4 = 4 KB
+  __shared__ float4 s_box[kChunk];                // 512 B
   const int t = blockIdx.x;
   const int b = blockIdx.y;
   const int tile = b * Tp + t;
-  const int n = counts[tile];
-  const int32_t* list = clist + (size_t)tile * cap;
+  const int count = min(max(counts[tile], 0), cap);
+  const int n = (count * CH + kChunk - 1) / kChunk;  // steps of 32 faces
   const int ty = t / TX;
   const int tx = t % TX;
-  const float* img_recs = recs + (size_t)b * F * kLanes;
-  const float4* img_f4 = reinterpret_cast<const float4*>(img_recs);
-  const int per_step = kStage / CH;  // chunks per step
+  const ChunkIds<CH> ids{clist + (size_t)tile * cap, count};
+  const float* img = records + (size_t)b * F * kLanes;
+  const Tagged stage{};
 
-  float xs[kPixPerThread], ys[kPixPerThread], best[kPixPerThread];
-  int win[kPixPerThread];
-#pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const int p = threadIdx.x + k * kThreads;
-    xs[k] = ndc(p % kTileCols + tx * kTileCols, W);
-    ys[k] = ndc(p / kTileCols + ty * kTileRows, H);
-    best[k] = kBigZ;
-    win[k] = -1;
-  }
-
-  const float* s = reinterpret_cast<const float*>(s_rec);
-  for (int c0 = 0; c0 < n; c0 += per_step) {
-    const int n_faces = min(per_step, n - c0) * CH;
-    __syncthreads();  // the previous step's records have been read
-    {
-      const int f = threadIdx.x / kRecF4;  // staged face of this thread's float4
-      if (f < n_faces) {
-        const int row = list[c0 + f / CH] * CH + f % CH;
-        s_rec[threadIdx.x] = img_f4[(size_t)row * kRecF4 + threadIdx.x % kRecF4];
-        if (threadIdx.x % kRecF4 == 0) s_row[f] = row;
-      }
-    }
-    __syncthreads();
-    for (int f = 0; f < n_faces; ++f) {
-      const float* r = s + f * kLanes;
-      const float a0 = r[0], b0 = r[1], d0 = r[2];
-      const float a1 = r[3], b1 = r[4], d1 = r[5];
-      const float a2 = r[6], b2 = r[7], d2 = r[8];
-      const float za = r[9], zb = r[10], zc = r[11];
-      const bool real = r[12] >= 0.0f;
-      const int row = s_row[f];
-#pragma unroll
-      for (int k = 0; k < kPixPerThread; ++k) {
-        const float e0 = affine(a0, b0, d0, xs[k], ys[k]);
-        const float e1 = affine(a1, b1, d1, xs[k], ys[k]);
-        const float e2 = affine(a2, b2, d2, xs[k], ys[k]);
-        const float z = affine(za, zb, zc, xs[k], ys[k]);
-        if (real && e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f && z < best[k]) {
-          best[k] = z;
-          win[k] = row;
-        }
-      }
-    }
-  }
+  Pixels px = tile_pixels(tx, ty, W, H);
+  walk_faces(ids, stage, reinterpret_cast<const float4*>(img),
+             face_verts + (size_t)b * F * 9, n, F, (float)W, grid_radius,
+             warp_rect(tx, ty, threadIdx.x / 32), s_chunk, s_box, px);
 
 #pragma unroll
-  for (int k = 0; k < kPixPerThread; ++k) {
-    const size_t o = (size_t)tile * kTilePix + threadIdx.x + k * kThreads;
-    if (best[k] < kBigZ) {
-      const float* r = img_recs + (size_t)win[k] * kLanes;
-      p2f[o] = (int32_t)r[12];
-      zbuf[o] = best[k];
-      nx[o] = affine(r[16], r[19], r[22], xs[k], ys[k]);
-      ny[o] = affine(r[17], r[20], r[23], xs[k], ys[k]);
-      nz[o] = affine(r[18], r[21], r[24], xs[k], ys[k]);
-    } else {
-      p2f[o] = -1;
-      zbuf[o] = kBigZ;
-      nx[o] = 0.0f;
-      ny[o] = 0.0f;
-      nz[o] = 0.0f;
-    }
-  }
+  for (int k = 0; k < kPixPerThread; ++k)
+    store_fused(ids, stage, img, px, k, (size_t)tile * kTilePix + tile_pixel(k), p2f,
+                zbuf, nx, ny, nz);
+}
+
+template <int CH>
+void launch(dim3 grid, cudaStream_t stream, const void* counts, const void* clist,
+            const void* records, const void* face_verts, void* p2f, void* zbuf, void* nx,
+            void* ny, void* nz, int Tp, int cap, int F, int H, int W, int TX,
+            float grid_radius) {
+  raster_chunkskip_kernel<CH><<<grid, kThreads, 0, stream>>>(
+      (const int32_t*)counts, (const int32_t*)clist, (const float*)records,
+      (const float*)face_verts, (int32_t*)p2f, (float*)zbuf, (float*)nx, (float*)ny,
+      (float*)nz, Tp, cap, F, H, W, TX, grid_radius);
 }
 
 }  // namespace
 
 extern "C" {
 
-int smirk_raster_chunkskip(const void* counts, const void* clist, const void* recs,
-                           void* p2f, void* zbuf, void* nx, void* ny, void* nz,
-                           int B, int Tp, int cap, int F, int CH, int H, int W,
-                           int TX, int device, void* stream) {
+int smirk_raster_chunkskip(const void* counts, const void* clist, const void* records,
+                           const void* face_verts, void* p2f, void* zbuf, void* nx,
+                           void* ny, void* nz, int B, int Tp, int cap, int F, int CH,
+                           int H, int W, int TX, float grid_radius, int device,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (B == 0 || Tp == 0) return 0;
   if ((CH != 4 && CH != 8 && CH != 16 && CH != 32) || F % CH != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid(Tp, B);
-  raster_chunkskip_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)counts, (const int32_t*)clist, (const float*)recs,
-      (int32_t*)p2f, (float*)zbuf, (float*)nx, (float*)ny, (float*)nz, Tp, cap,
-      F, CH, H, W, TX);
+  if (B == 0 || Tp == 0) return 0;
+  const dim3 grid(Tp, B);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (CH == 4)
+    launch<4>(grid, s, counts, clist, records, face_verts, p2f, zbuf, nx, ny, nz, Tp, cap,
+              F, H, W, TX, grid_radius);
+  else if (CH == 8)
+    launch<8>(grid, s, counts, clist, records, face_verts, p2f, zbuf, nx, ny, nz, Tp, cap,
+              F, H, W, TX, grid_radius);
+  else if (CH == 16)
+    launch<16>(grid, s, counts, clist, records, face_verts, p2f, zbuf, nx, ny, nz, Tp,
+               cap, F, H, W, TX, grid_radius);
+  else
+    launch<32>(grid, s, counts, clist, records, face_verts, p2f, zbuf, nx, ny, nz, Tp,
+               cap, F, H, W, TX, grid_radius);
   return (int)cudaGetLastError();
 }
 

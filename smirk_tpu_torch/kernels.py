@@ -68,15 +68,14 @@ LIBRARIES = {
         "smirk_raster_bins_coverage": [_P] * 5 + [_I] * 8 + [_F, _I, _P],
     }),
     "raster_groups": ("raster_groups.cu", {
-        # counts, recs, p2f, zbuf, nx, ny, nz,
-        # B, Tp, C, tps, per_pass, local, H, W, TX, device, stream
-        "smirk_raster_fused_groups": [_P] * 7 + [_I] * 10 + [_P],
-        "smirk_max_shared_optin": [_I],  # device
+        # counts, bins, order, records, face_verts, p2f, zbuf, nx, ny, nz,
+        # B, Tp, C, F, H, W, TX, local, grid radius, device, stream
+        "smirk_raster_fused_groups": [_P] * 10 + [_I] * 8 + [_F, _I, _P],
     }),
     "raster_chunkskip": ("raster_chunkskip.cu", {
-        # counts, clist, recs, p2f, zbuf, nx, ny, nz,
-        # B, Tp, cap, F, CH, H, W, TX, device, stream
-        "smirk_raster_chunkskip": [_P] * 8 + [_I] * 9 + [_P],
+        # counts, clist, records, face_verts, p2f, zbuf, nx, ny, nz,
+        # B, Tp, cap, F, CH, H, W, TX, grid radius, device, stream
+        "smirk_raster_chunkskip": [_P] * 9 + [_I] * 8 + [_F, _I, _P],
     }),
 }
 

@@ -33,13 +33,17 @@ Pipeline (`rasterize_normals_fused`):
    order on ties), and evaluate its normal planes at the pixel.
    `compact_faces_plain` states K2's contract for the checks.
 The padded layout has two scheduled variants: `merged` (K9,
-`raster_fused_groups`: every tile of a group of `tps` walks to the group's
-largest bin) and `sort_tiles` (K10, `raster_fused_groups_local`: tiles
-count-sorted, records rebased to tile-local coordinates, outputs
-un-permuted). `rasterize_normals_chunkskip` bins fixed chunks of a
+`raster_fused_groups`, whose contract is the merged schedule: every tile
+of a group of `tps` walks to the group's largest bin) and `sort_tiles`
+(K10, `raster_fused_groups_local`: tiles count-sorted, records rebased to
+tile-local coordinates, outputs un-permuted). Both kernels read the
+records through the bins as K1 does and walk each tile's own chunks (the
+group's further chunks hold kill records only); K10 rebases each record
+as it stages it. `rasterize_normals_chunkskip` bins fixed chunks of a
 (Morton-ordered, `spatial_face_order`) face list instead of faces
 (`bin_chunks`) and walks each tile's chunk list over the image's full
-record table (K11, `raster_chunkskip`): no plan.
+record table (K11, `raster_chunkskip`, with K1's staging and cull): no
+plan.
 `set_backface_cull` drops one winding at the binning stage.
 
 The coverage rasters: `rasterize_coverage_jnp` (all pairs, plain
@@ -710,70 +714,45 @@ def group_windows(counts: torch.Tensor, cpt: int, tps: int):
     return starts, (starts + n).to(torch.int32)
 
 
-def raster_fused_groups_plain(counts, recs, image_size: int, tiles_x: int, tps: int,
-                              local: bool = False):
-    """Plain version of K9 (local=False) and K10 (local=True): every tile
-    of a group of `tps` walks chunk k = 0 .. ceil(group max count / 32) - 1
-    of its padded bin (`group_windows`), then `_fused_plain`. counts (B,Tp)
-    int32, Tp a multiple of tps; recs (B, Tp*C, 32) f32 -> as
-    `raster_fused_windows_plain`."""
-    starts, ends = group_windows(counts, recs.shape[1] // counts.shape[1] // V3_CHUNK, tps)
-    return _fused_plain(starts, ends, recs, image_size, tiles_x, local=local)
+def raster_fused_groups_plain(counts, bins, records, *, image_size: int, tiles_x: int,
+                              tps: int):
+    """Plain version of K9, the merged schedule: every tile of a group of
+    `tps` walks chunk k = 0 .. ceil(group max count / 32) - 1 of its padded
+    bin (`group_windows`, counts clamped to [0, C]), its chunks past its own
+    count kill records, then `_fused_plain`. counts (B,Tp) int32, Tp a
+    multiple of tps; bins (B,Tp,C) int32; records (B,F,32) f32 ->
+    as `raster_fused_windows_plain`."""
+    B, Tp, C = bins.shape
+    starts, ends = group_windows(counts.clamp(0, C), C // V3_CHUNK, tps)
+    return _fused_plain(starts, ends, _gather_recs(records, bins.reshape(B, Tp * C)),
+                        image_size, tiles_x)
 
 
-def _launch_groups(name: str, counts, recs, image_size: int, tiles_x: int, tps: int,
-                   local: bool):
-    """Check the arguments of K9/K10 and launch the kernel -> (p2f, zbuf,
-    nx, ny, nz) (B,Tp,1024)."""
-    dev = recs.device
-    _check_cuda("counts", counts, torch.int32, 2, dev)
-    _check_cuda("recs", recs, torch.float32, 3, dev)
-    B, Tp = counts.shape
-    if (tps < 1 or Tp % tps or recs.shape[0] != B or recs.shape[2] != RECF_LANES
-            or recs.shape[1] % (Tp * V3_CHUNK)):
-        raise ValueError(f"{name}: inconsistent shapes counts {tuple(counts.shape)} "
-                         f"recs {tuple(recs.shape)} tps {tps}")
-    if recs.data_ptr() % 16:
-        raise ValueError(f"{name}: recs must be 16-byte aligned")
-    capacity = recs.shape[1] // Tp
-    outs = _fused_outputs(B, Tp, dev)
-    lib = kernels.library("raster_groups")
-    limit = lib.smirk_max_shared_optin(dev.index)
-    if limit <= 0:
-        raise RuntimeError("could not read the device's shared memory limit")
-    # tiles staged at once: each takes 4 KB of records + 8 KB of per-pixel
-    # state; a group larger than that runs in passes
-    per_pass = min(tps, limit // (V3_CHUNK * RECF_LANES * 4 + TILE_PIX * 8))
-    rc = lib.smirk_raster_fused_groups(
-        counts.data_ptr(), recs.data_ptr(), *(o.data_ptr() for o in outs),
-        B, Tp, capacity, tps, per_pass, int(local), image_size, image_size, tiles_x,
-        dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, name)
-    return outs
-
-
-def raster_fused_groups(counts, recs, image_size: int, tiles_x: int, tps: int):
-    """K9: the merged z-buffer over groups of `tps` tiles on the padded
-    layout + the winner's normals; counts (B,Tp) int32 (Tp a multiple of
-    tps), recs (B, Tp*C, 32) f32 each tile's padded bin of records (kill
-    rows past its count) -> as `raster_fused_windows_plain`, bitwise equal
-    to K1 on the padded windows.
+def raster_fused_groups(counts, bins, records, face_verts, *, image_size: int,
+                        tiles_x: int, tps: int):
+    """K9: the merged schedule's z-buffer + the winner's normals on the
+    padded layout. counts (B,Tp) int32 (Tp a multiple of tps), bins (B,Tp,C)
+    int32, records (B,F,32) f32 (`fused_records`), face_verts (B,F,3,3) f32
+    (the faces the records were built from; the kernel culls with them) ->
+    as `raster_fused_groups_plain`, bitwise equal to K1 on the padded
+    windows. The arguments after face_verts are keyword-only, so that the
+    old call (counts, recs, image_size, tiles_x, tps) raises.
 
     Replaces `_raster_kernel_v6` (smirk_tpu/render/rasterizer.py). Bound on
-    H100: K1b's fp32 operations, the same z-buffer; the schedule tests tps
-    x the group's chunk count per group, more than that. Design: one block
-    per (group, image); every tile of the group steps through the same
-    chunk index up to the group's maximum, each step staging the group's
-    tps x 4 KB of records in shared memory (past 48 KB by opt-in) with the
-    per-pixel nearest depth and winner beside them. CPU tensors take the
-    plain version.
+    H100: K1b's, the same function on the same faces. Design: K1's walk
+    (csrc/window_raster.cuh), one block per (tile, image), the records read
+    through the bins and staged one chunk ahead with each face's cull box,
+    each tile walking its own ceil(count / 32) chunks: the group's further
+    chunks, which the TPU schedule walks, hold kill records only. CPU
+    tensors take the plain version, which walks them and tests every face.
     """
-    if recs.device.type == "cpu":
-        return raster_fused_groups_plain(counts, recs, image_size, tiles_x, tps)
-    if recs.device.type != "cuda":
-        raise ValueError(f"raster_fused_groups: unsupported device {recs.device}")
-    outs = _launch_groups("raster_fused_groups", counts, recs, image_size, tiles_x,
-                          tps, False)
+    if records.device.type == "cpu":
+        return raster_fused_groups_plain(counts, bins, records, image_size=image_size,
+                                         tiles_x=tiles_x, tps=tps)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_fused_groups: unsupported device {records.device}")
+    outs = _launch_groups("raster_fused_groups", counts, bins, None, records, face_verts,
+                          image_size, tiles_x, tps)
     raster_fused_groups.launches += 1
     return outs
 
@@ -781,23 +760,72 @@ def raster_fused_groups(counts, recs, image_size: int, tiles_x: int, tps: int):
 raster_fused_groups.launches = 0
 
 
-def raster_fused_groups_local(counts, recs, image_size: int, tps: int):
-    """K10: K9 over tile-local records (`_tilelocal_adjust`), whose tiles
-    may come in any order (count-sorted by `rasterize_normals_fused`):
-    every tile takes the first tile's pixel centres, so the kernel never
-    needs a tile's position. -> as `raster_fused_windows_plain`, in the
-    tiles' given order.
+def _launch_groups(name, counts, bins, order, records, face_verts, image_size: int,
+                   tiles_x: int, tps: int):
+    """Check the inputs of K9 (order None) or K10 on the card and launch ->
+    (p2f, zbuf, nx, ny, nz) (B,Tp,1024)."""
+    dev = records.device
+    B, Tp, C, F = _check_read_through(name, counts, bins, records, face_verts, RECF_LANES)
+    if tps < 1 or Tp % tps:
+        raise ValueError(f"{name}: {Tp} tiles are not a multiple of tps {tps}")
+    if order is not None:
+        _check_cuda("order", order, torch.int32, 2, dev)
+        if tuple(order.shape) != (B, Tp):
+            raise ValueError(f"{name}: order {tuple(order.shape)} is not {(B, Tp)}")
+    outs = _fused_outputs(B, Tp, dev)
+    rc = kernels.library("raster_groups").smirk_raster_fused_groups(
+        counts.data_ptr(), bins.data_ptr(), None if order is None else order.data_ptr(),
+        records.data_ptr(), face_verts.data_ptr(), *(o.data_ptr() for o in outs),
+        B, Tp, C, F, image_size, image_size, tiles_x, int(order is not None),
+        _cull_grid_radius(image_size), dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, name)
+    return outs
 
-    Replaces `_raster_kernel_v6tl` (smirk_tpu/render/rasterizer.py). Bound
-    and design: K9's, the same CUDA source with the tile-local flag. CPU
-    tensors take the plain version.
+
+def raster_fused_groups_local_plain(counts, bins, order, records, *, image_size: int,
+                                    tiles_x: int, tps: int):
+    """Plain version of K10: the merged schedule (`group_windows`, counts
+    clamped to [0, C]) over count-sorted tiles whose bins' records are
+    rebased to tile-local coordinates (`_tilelocal_adjust`, row t at tile
+    order[t]), at the first tile's pixel centres. counts (B,Tp) int32 and
+    bins (B,Tp,C) int32 in the sorted order, order (B,Tp) int32, records
+    (B,F,32) f32 -> as `raster_fused_windows_plain`, in the sorted order."""
+    B, Tp, C = bins.shape
+    recs = _gather_recs(records, bins.reshape(B, Tp * C)).reshape(B, Tp, C, RECF_LANES)
+    recs = _tilelocal_adjust(recs, order, image_size, tiles_x)
+    starts, ends = group_windows(counts.clamp(0, C), C // V3_CHUNK, tps)
+    return _fused_plain(starts, ends, recs.reshape(B, Tp * C, RECF_LANES), image_size,
+                        tiles_x, local=True)
+
+
+def raster_fused_groups_local(counts, bins, order, records, face_verts, *,
+                              image_size: int, tiles_x: int, tps: int):
+    """K10: K9 over count-sorted tiles (`sort_tiles_order`), each evaluated
+    on its records rebased to tile-local coordinates at the pixel centres
+    of the image's first tile. counts (B,Tp) int32, bins (B,Tp,C) int32,
+    both in the sorted order; order (B,Tp) int32 (row t is tile order[t]
+    of the image); records (B,F,32) f32; face_verts (B,F,3,3) f32 -> as
+    `raster_fused_groups_local_plain`, in the sorted order. The arguments
+    after face_verts are keyword-only; the old call (counts, recs,
+    image_size, tps) raises.
+
+    Replaces `_raster_kernel_v6tl` (smirk_tpu/render/rasterizer.py). Bound:
+    K9's. Design: K9's source with the tile-local flag; the kernel rebases
+    each staged record, and the winner's normal planes, with
+    `_tilelocal_adjust`'s arithmetic, so no rebased copy of the records is
+    built; its cull boxes take the rebase's margin (`cull_boxes_local`) and
+    the warp rectangles the tile's real position. CPU tensors take the
+    plain version.
     """
-    if recs.device.type == "cpu":
-        return raster_fused_groups_plain(counts, recs, image_size, 1, tps, local=True)
-    if recs.device.type != "cuda":
-        raise ValueError(f"raster_fused_groups_local: unsupported device {recs.device}")
-    outs = _launch_groups("raster_fused_groups_local", counts, recs, image_size, 1,
-                          tps, True)
+    if records.device.type == "cpu":
+        return raster_fused_groups_local_plain(counts, bins, order, records,
+                                               image_size=image_size, tiles_x=tiles_x,
+                                               tps=tps)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_fused_groups_local: unsupported device {records.device}")
+    outs = _launch_groups("raster_fused_groups_local", counts, bins, order, records,
+                          face_verts, image_size, tiles_x, tps)
     raster_fused_groups_local.launches += 1
     return outs
 
@@ -830,20 +858,31 @@ def _tilelocal_adjust(recs, tids, image_size: int, tx_tiles: int):
     return out
 
 
-def sorted_tiles(records, bins, counts, image_size: int):
-    """K10's inputs: the tiles ordered by descending count (stable), so that
+def sort_tiles_order(bins, counts):
+    """K10's tile order: the tiles by descending count (stable), so that
     each group of tps tiles is count-homogeneous and padding tiles (count
-    0) come last, and their padded bins' records rebased to tile-local
-    coordinates. records (B,F,32), bins (B,Tp,C), counts (B,Tp) -> (sorted
-    counts (B,Tp) int32, recs (B, Tp*C, 32) contiguous, inverse order
-    (B,Tp): output row inv[b, t] of the sorted raster is tile t)."""
-    B, Tp, C = bins.shape
+    0) come last. bins (B,Tp,C), counts (B,Tp) -> (sorted counts (B,Tp)
+    int32, sorted bins (B,Tp,C) int32, order (B,Tp) int32: row t is tile
+    order[t], inverse order (B,Tp): output row inv[b, t] of the sorted
+    raster is tile t)."""
     order = torch.argsort(-counts, dim=1, stable=True)
-    bins = torch.gather(bins, 1, order[..., None].expand_as(bins))
+    return (torch.gather(counts, 1, order),
+            torch.gather(bins, 1, order[..., None].expand_as(bins)).contiguous(),
+            order.to(torch.int32), torch.argsort(order, dim=1))
+
+
+def sorted_tiles(records, bins, counts, image_size: int):
+    """The packed route to K10's function, as the TPU takes it, for checks:
+    `sort_tiles_order`, then the sorted bins' records gathered and rebased
+    to tile-local coordinates. records (B,F,32), bins (B,Tp,C), counts
+    (B,Tp) -> (sorted counts (B,Tp) int32, recs (B, Tp*C, 32) contiguous,
+    inverse order (B,Tp)); `_fused_plain(*group_windows(...), recs,
+    local=True)` over them equals K10 over the read-through inputs."""
+    B, Tp, C = bins.shape
+    counts, bins, order, inv = sort_tiles_order(bins, counts)
     recs = _gather_recs(records, bins.reshape(B, Tp * C)).reshape(B, Tp, C, RECF_LANES)
     recs = _tilelocal_adjust(recs, order, image_size, -(-image_size // TILE_COLS))
-    return (torch.gather(counts, 1, order), recs.reshape(B, Tp * C, RECF_LANES).contiguous(),
-            torch.argsort(order, dim=1))
+    return counts, recs.reshape(B, Tp * C, RECF_LANES).contiguous(), inv
 
 
 # ---------------------------------------------------------------------------
@@ -868,13 +907,14 @@ def rasterize_normals_fused(
 
     compact: chunk budget of the compact layout (rounded up to 8; K1);
     None = the padded layout, where each tile walks its own bin: K1 on its
-    own window, or with `merged` K9 (every tile of a group of `tps` walks
-    to the group's maximum), or with `sort_tiles` K10 (tiles count-sorted,
-    tile-local records, outputs un-permuted). compact wins over merged;
-    sort_tiles with compact raises ValueError. tps (default `MERGED_TPS`,
-    8) pads the tile axis of the merged and sorted rasters to a multiple;
-    the other layouts ignore it. overflow counts compact chunks
-    dropped past the budget (0 on the padded layout).
+    own window, or with `merged` K9 (the merged schedule, whose contract
+    walks every tile of a group of `tps` to the group's maximum), or with
+    `sort_tiles` K10 (tiles count-sorted, tile-local records, outputs
+    un-permuted); K9 and K10 read the records through the bins. compact
+    wins over merged; sort_tiles with compact raises ValueError. tps
+    (default `MERGED_TPS`, 8) pads the tile axis of the merged and sorted
+    rasters to a multiple; the other layouts ignore it. overflow counts
+    compact chunks dropped past the budget (0 on the padded layout).
     """
     _check_capacity(capacity)
     if sort_tiles and compact is not None:
@@ -886,22 +926,21 @@ def rasterize_normals_fused(
     tx = -(-image_size // TILE_COLS)
     records = fused_records(face_verts, face_normals)
     tps = MERGED_TPS if tps is None else tps
+    face_verts = face_verts.contiguous()
     if sort_tiles:
-        bins, counts = _pad_tiles_to(bins, counts, tps)
-        counts, recs, inv_order = sorted_tiles(records, bins, counts, image_size)
-        outs = raster_fused_groups_local(counts, recs, image_size, tps)
+        counts, bins, order, inv_order = sort_tiles_order(*_pad_tiles_to(bins, counts, tps))
+        outs = raster_fused_groups_local(counts, bins, order, records, face_verts,
+                                         image_size=image_size, tiles_x=tx, tps=tps)
         outs = [torch.gather(o, 1, inv_order[..., None].expand_as(o)) for o in outs]
         overflow = torch.zeros((counts.shape[0],), dtype=torch.int32, device=counts.device)
     elif merged and compact is None:
         bins, counts = _pad_tiles_to(bins, counts, tps)
-        B, Tp = counts.shape
-        recs = _gather_recs(records, bins.reshape(B, Tp * capacity)).contiguous()
-        outs = raster_fused_groups(counts, recs, image_size, tx, tps)
-        overflow = torch.zeros((B,), dtype=torch.int32, device=counts.device)
+        outs = raster_fused_groups(counts, bins, records, face_verts,
+                                   image_size=image_size, tiles_x=tx, tps=tps)
+        overflow = torch.zeros((counts.shape[0],), dtype=torch.int32, device=counts.device)
     else:
         kept, overflow = _windows(counts, compact)
-        outs = raster_fused_windows(kept, bins, records, face_verts.contiguous(),
-                                    image_size, tx)
+        outs = raster_fused_windows(kept, bins, records, face_verts, image_size, tx)
     p2f = _tiles_to_image(outs[0], image_size)
     zbuf = _tiles_to_image(outs[1], image_size)
     normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
@@ -916,8 +955,9 @@ def rasterize_normals_fused(
 # Bins fixed CH-face chunks of a spatially ordered face list instead of
 # faces: the per-tile top-k is over NC = F/CH keys, and the kernel reads
 # each binned chunk from the image's full record table, so there is no
-# record gather and no compact plan. The price is face tests: every
-# face of a binned chunk is tested even if one member overlaps the tile.
+# record gather and no compact plan. The price is records: every face of
+# a binned chunk is staged even if one member overlaps the tile (the
+# kernel's warp cull keeps the tests of the others from costing more).
 # ---------------------------------------------------------------------------
 
 
@@ -987,55 +1027,64 @@ def bin_chunks(face_verts: torch.Tensor, image_size: int, chunk: int, cap: int):
 CHUNKSKIP_CHUNKS = (4, 8, 16, 32)  # the chunk sizes K11 takes
 
 
-def raster_chunkskip_plain(counts, clist, recs, image_size: int, tiles_x: int,
+def raster_chunkskip_plain(counts, clist, recs, *, image_size: int, tiles_x: int,
                            chunk: int):
     """Plain version of K11: tile t walks the chunk ids clist[b, t,
-    :counts[b, t]] in order, each the `chunk` consecutive records at row
-    cid*chunk of its image's table recs (B,F,32); `_fused_plain`'s rule and
-    outputs. -> as `raster_fused_windows_plain`."""
-    zeros = torch.zeros_like(counts)
-    return _fused_plain(zeros, counts, recs, image_size, tiles_x, clist=clist,
-                        chunk=chunk)
+    :counts[b, t]] in order (counts clamped to [0, cap]), each the `chunk`
+    consecutive records at row cid*chunk of its image's table recs
+    (B,F,32), testing every face; `_fused_plain`'s rule and outputs. -> as
+    `raster_fused_windows_plain`."""
+    counts = counts.clamp(0, clist.shape[2])
+    return _fused_plain(torch.zeros_like(counts), counts, recs, image_size, tiles_x,
+                        clist=clist, chunk=chunk)
 
 
-def raster_chunkskip(counts, clist, recs, image_size: int, tiles_x: int, chunk: int):
+def raster_chunkskip(counts, clist, recs, face_verts, *, image_size: int, tiles_x: int,
+                     chunk: int):
     """K11: per-tile z-buffer over a list of chunk ids into the image's full
     record table + the winner's normals; counts (B,Tp) int32, clist
-    (B,Tp,cap) int32, recs (B,F,32) f32 with F a multiple of chunk ->
-    as `raster_fused_windows_plain`.
+    (B,Tp,cap) int32, recs (B,F,32) f32 with F a multiple of chunk,
+    face_verts (B,F,3,3) f32 (the padded faces the records were built from;
+    the kernel culls with them) -> as `raster_chunkskip_plain`. The
+    arguments after face_verts are keyword-only, so that the old call
+    (counts, clist, recs, image_size, tiles_x, chunk) raises.
 
     Replaces `_raster_kernel_v8` (smirk_tpu/render/rasterizer.py). Bound on
-    H100: K1's fp32 operations, the same z-buffer; the schedule tests count
-    x chunk faces per tile, more than that. Design: K1's, one block per
-    (tile, image), 256 threads x 4 pixels, the records read straight from
-    the full table (~436 KB per image at F = 3408, held in L2 across the
-    image's tiles), 32 faces of consecutive chunks staged in shared memory
-    per step. CPU tensors take the plain version.
+    H100: K1's function on the same faces, with the records of every binned
+    chunk read once. Design: K1's walk (csrc/window_raster.cuh), one block
+    per (tile, image), over the tile's chunk-id list, 32 faces (32 / chunk
+    list entries) a step, each record read from the full table and staged
+    one step ahead with its face's cull box (`cull_boxes`; the padding
+    faces, id -1, an empty one), each warp testing only the faces whose box
+    meets its 16x8 rectangle, in list-then-slot order. CPU tensors take the
+    plain version, which tests every face.
     """
     if recs.device.type == "cpu":
-        return raster_chunkskip_plain(counts, clist, recs, image_size, tiles_x, chunk)
+        return raster_chunkskip_plain(counts, clist, recs, image_size=image_size,
+                                      tiles_x=tiles_x, chunk=chunk)
     if recs.device.type != "cuda":
         raise ValueError(f"raster_chunkskip: unsupported device {recs.device}")
     dev = recs.device
     _check_cuda("counts", counts, torch.int32, 2, dev)
     _check_cuda("clist", clist, torch.int32, 3, dev)
     _check_cuda("recs", recs, torch.float32, 3, dev)
+    _check_cuda("face_verts", face_verts, torch.float32, 4, dev)
     B, Tp = counts.shape
+    F = recs.shape[1]
     if (chunk not in CHUNKSKIP_CHUNKS or tuple(clist.shape[:2]) != (B, Tp)
-            or recs.shape[0] != B or recs.shape[2] != RECF_LANES
-            or recs.shape[1] % chunk):
+            or recs.shape[0] != B or recs.shape[2] != RECF_LANES or F % chunk
+            or tuple(face_verts.shape) != (B, F, 3, 3)):
         raise ValueError("raster_chunkskip: inconsistent shapes "
                          f"counts {tuple(counts.shape)} clist {tuple(clist.shape)} "
-                         f"recs {tuple(recs.shape)} chunk {chunk} (one of "
-                         f"{CHUNKSKIP_CHUNKS})")
+                         f"recs {tuple(recs.shape)} face_verts {tuple(face_verts.shape)} "
+                         f"chunk {chunk} (one of {CHUNKSKIP_CHUNKS})")
     if recs.data_ptr() % 16:
         raise ValueError("raster_chunkskip: recs must be 16-byte aligned")
     outs = _fused_outputs(B, Tp, dev)
-    lib = kernels.library("raster_chunkskip")
-    rc = lib.smirk_raster_chunkskip(
-        counts.data_ptr(), clist.data_ptr(), recs.data_ptr(),
-        *(o.data_ptr() for o in outs), B, Tp, clist.shape[2], recs.shape[1], chunk,
-        image_size, image_size, tiles_x, dev.index,
+    rc = kernels.library("raster_chunkskip").smirk_raster_chunkskip(
+        counts.data_ptr(), clist.data_ptr(), recs.data_ptr(), face_verts.data_ptr(),
+        *(o.data_ptr() for o in outs), B, Tp, clist.shape[2], F, chunk, image_size,
+        image_size, tiles_x, _cull_grid_radius(image_size), dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "raster_chunkskip")
     raster_chunkskip.launches += 1
@@ -1050,7 +1099,8 @@ def chunkskip_inputs(face_verts, face_normals, image_size: int, chunk: int, cap:
     """K11's inputs: F padded to a multiple of `chunk` with off-screen faces
     of id -1 (zero normals), the records with lane 12 the face ids
     (default the face index), and `bin_chunks`. -> (counts (B,Tp), clist
-    (B,Tp,cap), records (B,F_pad,32) contiguous, dropped (B,))."""
+    (B,Tp,cap), records (B,F_pad,32) contiguous, face_verts (B,F_pad,3,3)
+    contiguous, the padded faces K11 culls with, dropped (B,))."""
     B, F0 = face_verts.shape[:2]
     fv, pad = _pad_faces_offscreen(face_verts, chunk)
     fn = face_normals
@@ -1063,7 +1113,7 @@ def chunkskip_inputs(face_verts, face_normals, image_size: int, chunk: int, cap:
     records = face_records_shaded(fv, fn)
     records[..., 12] = torch.cat([ids, ids.new_full((pad,), -1.0)])[None]
     clist, counts, dropped = bin_chunks(fv, image_size, chunk, cap)
-    return counts, clist, records.contiguous(), dropped
+    return counts, clist, records.contiguous(), fv.contiguous(), dropped
 
 
 def rasterize_normals_chunkskip(
@@ -1085,10 +1135,10 @@ def rasterize_normals_chunkskip(
     face index. dropped counts overlapping chunks past `cap`. Ties between
     chunks go to the nearer chunk, so they may resolve to another (equally
     near) face than the face-binned rasters."""
-    counts, clist, records, dropped = chunkskip_inputs(
+    counts, clist, records, fv, dropped = chunkskip_inputs(
         face_verts, face_normals, image_size, chunk, cap, face_ids)
-    outs = raster_chunkskip(counts, clist, records, image_size,
-                            -(-image_size // TILE_COLS), chunk)
+    outs = raster_chunkskip(counts, clist, records, fv, image_size=image_size,
+                            tiles_x=-(-image_size // TILE_COLS), chunk=chunk)
     p2f = _tiles_to_image(outs[0], image_size)
     zbuf = _tiles_to_image(outs[1], image_size)
     normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
@@ -1238,6 +1288,11 @@ def cull_boxes(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
     near-degenerate faces fail the condition and are tested everywhere.
     K8's cross-product form, whose rounding grows with the pixel's
     distance from the face, has a margin of its own: `cull_boxes_bins`."""
+    return _affine_cull_boxes(face_verts, image_size, _CULL_ROUNDING)
+
+
+def _affine_cull_boxes(face_verts: torch.Tensor, image_size: int, rounding: float):
+    """`cull_boxes` at a margin of `rounding` (x u) -> (B,F,4)."""
     x, y, xmin, xmax, ymin, ymax, ext, r = _face_boxes(face_verts, image_size)
     xj, yj, xk, yk = x.roll(-1, -1), y.roll(-1, -1), x.roll(-2, -1), y.roll(-2, -1)
     m = (((yj - yk).abs() + (xk - xj).abs()) * r + (xj * yk).abs()
@@ -1245,8 +1300,38 @@ def cull_boxes(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
     x0, y0 = x[..., 0], y[..., 0]
     x1, y1, x2, y2 = x[..., 1], y[..., 1], x[..., 2], y[..., 2]
     denom = (y1 - y2) * x0 + (x2 - x1) * y0 + (x1 * y2 - y1 * x2)  # face_records'
-    exact = denom.abs() > _CULL_ROUNDING * m * (4.0 * ext + 1.0)
+    exact = denom.abs() > rounding * m * (4.0 * ext + 1.0)
     return _boxes_where(exact, xmin, xmax, ymin, ymax)
+
+
+# 128u: the margin of K10's rebased forms (cull_boxes_local), 4x cull_boxes'
+_LOCAL_CULL_ROUNDING = 128 * 2.0 ** -24
+
+
+def cull_boxes_local(face_verts: torch.Tensor, image_size: int) -> torch.Tensor:
+    """K10's per-face cull boxes -> (B,F,4) f32: `cull_boxes`' boxes with a
+    margin of 128u in place of 32u, for edge tests on records rebased to
+    tile-local coordinates (`_tilelocal_adjust`). K10
+    (csrc/raster_groups.cu) computes the same boxes in its staging and
+    tests them against the warp rectangles at the tile's real position.
+
+    Why the margin covers the rebase. K10 evaluates e' = fl(s1 + c'),
+    s1 = fl(fl(a xl) + fl(b yl)) at the first tile's pixel centre (xl, yl)
+    and c' = fl(c + fl(fl(a dx) + fl(b dy))), (dx, dy) the offset of the
+    tile's origin, against E = a (xl + dx) + b (yl + dy) + c in exact
+    arithmetic on the same fp32 values; xl + dx lies within u (|xl| +
+    |dx|) of the pixel's exact centre. The last rounding keeps e''s sign,
+    so what can flip it is at most 2u P + 3u Q + u |c|, P = |a||xl| +
+    |b||yl| and Q = |a||dx| + |b||dy|, to first order. Every local centre
+    is a pixel centre of the grid, so |xl|, |yl| <= R, and dx, dy <= R + 1
+    <= 2R (R >= 1 `cull_boxes`' radius). With the coefficients' own
+    rounding and the centre's, the error is below ~12u M (M as in
+    `cull_boxes`), where `cull_boxes` bounds the unrebased form's by ~4u M
+    (its final rounding also keeps the sign): three times as much, and a
+    margin of 128u M (4 ext + 1) keeps `cull_boxes`' headroom over it.
+    Slivers and near-degenerate faces fail the condition and are tested
+    everywhere, as there."""
+    return _affine_cull_boxes(face_verts, image_size, _LOCAL_CULL_ROUNDING)
 
 
 # 512u = 2^-15: K8's cull margin (cull_boxes_bins), 4x the bound it derives

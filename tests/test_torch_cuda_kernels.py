@@ -479,25 +479,30 @@ def test_rasterize_wide_attributes_on_the_card(card):
 @pytest.mark.parametrize("size,B,cap,tps", [(64, 2, 96, 8), (224, 3, 384, 8),
                                             (224, 2, 384, 16), (224, 1, 384, 24)])
 def test_group_kernels_match_plain(card, size, B, cap, tps):
-    """K9 bitwise equal to its plain version and to K1 on the padded
-    windows (tps 16 takes 192 KB of shared memory by opt-in, tps 24 runs
-    in passes); K10 bitwise equal to its plain version on count-sorted
-    tile-local records."""
+    """K9 bitwise equal to its plain version, the merged schedule (every
+    tile of a group walked to the group's largest count), and to K1 on the
+    padded windows; K10 bitwise equal to its plain version on count-sorted
+    tiles, whose records it rebases to tile-local coordinates as it stages
+    them, and to the packed route (`sorted_tiles`)."""
     fv, fn = _face_region(card, B, size, 5)
+    fv = fv.contiguous()
     TX = -(-size // R.TILE_COLS)
-    bins, counts = R.bin_faces_flat(fv, size, cap)
-    bins, counts = R._pad_tiles_to(bins, counts, tps)
-    recs = R._gather_recs(R.fused_records(fv, fn), bins.reshape(B, -1)).contiguous()
+    bins, counts = R._pad_tiles_to(*R.bin_faces_flat(fv, size, cap), tps)
+    records = R.fused_records(fv, fn)
+    kw = dict(image_size=size, tiles_x=TX, tps=tps)
     R.reset_launch_counts()
-    k9 = R.raster_fused_groups(counts, recs, size, TX, tps)
-    k1b = R.raster_fused_windows(R._windows(counts, None)[0], bins, R.fused_records(fv, fn),
-                                 fv.contiguous(), size, TX)
-    for a, b, c in zip(k9, R.raster_fused_groups_plain(counts, recs, size, TX, tps), k1b):
+    k9 = R.raster_fused_groups(counts, bins, records, fv, **kw)
+    k1b = R.raster_fused_windows(R._windows(counts, None)[0], bins, records, fv, size, TX)
+    for a, b, c in zip(k9, R.raster_fused_groups_plain(counts, bins, records, **kw), k1b):
         assert torch.equal(a, b) and torch.equal(a, c)
-    sc, srecs, _ = R.sorted_tiles(R.fused_records(fv, fn), bins, counts, size)
-    k10 = R.raster_fused_groups_local(sc, srecs, size, tps)
-    for a, b in zip(k10, R.raster_fused_groups_plain(sc, srecs, size, TX, tps, local=True)):
-        assert torch.equal(a, b)
+    sc, sb, order, _ = R.sort_tiles_order(bins, counts)
+    k10 = R.raster_fused_groups_local(sc, sb, order, records, fv, **kw)
+    pc, precs, _ = R.sorted_tiles(records, bins, counts, size)
+    packed = R._fused_plain(*R.group_windows(pc, bins.shape[2] // 32, tps), precs, size, TX,
+                            local=True)
+    for a, b, c in zip(k10, R.raster_fused_groups_local_plain(sc, sb, order, records, **kw),
+                       packed):
+        assert torch.equal(a, b) and torch.equal(a, c)
     torch.cuda.synchronize()
     assert (R.raster_fused_groups.launches, R.raster_fused_groups_local.launches) == (1, 1)
     assert float((k9[0] >= 0).float().mean()) > 0.02
@@ -514,12 +519,12 @@ def test_chunkskip_kernel_matches_plain(card, size, B, chunk, cap):
     r = Renderer(bundle, image_size=size, device="cpu")
     perm = R.spatial_face_order(np.asarray(bundle["v_template"])[r.kept_vertices],
                                 r.faces.numpy())
-    counts, clist, recs, dropped = R.chunkskip_inputs(fv[:, perm], fn[:, perm], size,
-                                                      chunk, cap, perm)
-    TX = -(-size // R.TILE_COLS)
+    counts, clist, recs, fvp, dropped = R.chunkskip_inputs(fv[:, perm], fn[:, perm], size,
+                                                           chunk, cap, perm)
+    kw = dict(image_size=size, tiles_x=-(-size // R.TILE_COLS), chunk=chunk)
     R.reset_launch_counts()
-    got = R.raster_chunkskip(counts, clist, recs, size, TX, chunk)
-    for a, b in zip(got, R.raster_chunkskip_plain(counts, clist, recs, size, TX, chunk)):
+    got = R.raster_chunkskip(counts, clist, recs, fvp, **kw)
+    for a, b in zip(got, R.raster_chunkskip_plain(counts, clist, recs, **kw)):
         assert torch.equal(a, b)
     torch.cuda.synchronize()
     assert R.raster_chunkskip.launches == 1
@@ -528,15 +533,75 @@ def test_chunkskip_kernel_matches_plain(card, size, B, chunk, cap):
         assert int(dropped.min()) > 0
 
 
+def test_culled_schedule_kernels_match_plain_on_slivers(card):
+    """K9 (tps 8), K10 and K11 at each chunk size (4, 8, 16, 32; the faces
+    padded to a multiple of it, lists ending in a partial step) bitwise
+    equal to their plain versions, which test every face, on the sliver
+    batch, whose thinnest faces the cull boxes leave unbounded."""
+    S, cap = 224, 512
+    fv, normals = _sliver_faces(card, S=S, F=2997)
+    TX = -(-S // R.TILE_COLS)
+    assert bool(torch.isinf(R.cull_boxes_local(fv, S)[..., 0]).any())
+    bins, counts = R._pad_tiles_to(*R.bin_faces_flat(fv, S, cap), 8)
+    records = R.fused_records(fv, normals)
+    kw = dict(image_size=S, tiles_x=TX, tps=8)
+    R.reset_launch_counts()
+    for a, b in zip(R.raster_fused_groups(counts, bins, records, fv, **kw),
+                    R.raster_fused_groups_plain(counts, bins, records, **kw)):
+        assert torch.equal(a, b)
+    sc, sb, order, _ = R.sort_tiles_order(bins, counts)
+    for a, b in zip(R.raster_fused_groups_local(sc, sb, order, records, fv, **kw),
+                    R.raster_fused_groups_local_plain(sc, sb, order, records, **kw)):
+        assert torch.equal(a, b)
+    for chunk in R.CHUNKSKIP_CHUNKS:
+        cap11 = -(-fv.shape[1] // chunk)  # every chunk: nothing dropped
+        counts11, clist, recs, fvp, dropped = R.chunkskip_inputs(fv, normals, S, chunk, cap11)
+        assert int(dropped.max()) == 0 and fvp.shape[1] > fv.shape[1]
+        if chunk < 32:
+            assert bool(((counts11 * chunk) % 32 != 0).any())  # a partial last step
+        kw11 = dict(image_size=S, tiles_x=TX, chunk=chunk)
+        got = R.raster_chunkskip(counts11, clist, recs, fvp, **kw11)
+        for a, b in zip(got, R.raster_chunkskip_plain(counts11, clist, recs, **kw11)):
+            assert torch.equal(a, b)
+        assert float((got[0] >= 0).float().mean()) > 0.05
+    torch.cuda.synchronize()
+    assert (R.raster_fused_groups.launches, R.raster_fused_groups_local.launches,
+            R.raster_chunkskip.launches) == (1, 1, 4)
+
+
 def test_schedule_wrappers_reject_bad_arguments(card):
+    """K9 and K10 refuse a tile count that is no multiple of tps, a wrong
+    dtype and a wrong order; K11 a chunk size it does not take, records
+    that are no multiple of it and face vertices that do not match the
+    records; the old positional forms of all three raise."""
     counts = torch.zeros((1, 8), dtype=torch.int32, device=card)
+    bins = torch.full((1, 8, 32), -1, dtype=torch.int32, device=card)
+    order = torch.arange(8, dtype=torch.int32, device=card)[None]
     recs = torch.zeros((1, 8 * 32, 32), device=card)
+    fv = torch.zeros((1, 8 * 32, 3, 3), device=card)
+    kw = dict(image_size=64, tiles_x=1, tps=8)
     with pytest.raises(ValueError):
-        R.raster_fused_groups(counts, recs, 64, 1, 3)  # 8 tiles not a multiple of 3
+        R.raster_fused_groups(counts, bins, recs, fv, image_size=64, tiles_x=1, tps=3)
     with pytest.raises(TypeError):
-        R.raster_fused_groups_local(counts.float(), recs, 64, 8)
+        R.raster_fused_groups_local(counts.float(), bins, order, recs, fv, **kw)
+    with pytest.raises(TypeError):
+        R.raster_fused_groups_local(counts, bins, order.long(), recs, fv, **kw)
+    with pytest.raises(ValueError):
+        R.raster_fused_groups_local(counts, bins, order[:, :4].contiguous(), recs, fv, **kw)
+    with pytest.raises(TypeError):
+        R.raster_fused_groups(counts, recs, 64, 1, 8)
+    with pytest.raises(TypeError):
+        R.raster_fused_groups_local(counts, recs, 64, 8)
     clist = torch.zeros((1, 8, 4), dtype=torch.int32, device=card)
+    kw11 = dict(image_size=64, tiles_x=1)
     with pytest.raises(ValueError):
-        R.raster_chunkskip(counts, clist, recs, 64, 1, 6)  # chunk not in 4, 8, 16, 32
+        R.raster_chunkskip(counts, clist, recs, fv, chunk=6, **kw11)  # not 4, 8, 16, 32
     with pytest.raises(ValueError):
-        R.raster_chunkskip(counts, clist, recs[:, :250].contiguous(), 64, 1, 8)
+        R.raster_chunkskip(counts, clist, recs[:, :250].contiguous(), fv, chunk=8, **kw11)
+    with pytest.raises(ValueError):
+        R.raster_chunkskip(counts, clist, recs, fv[:, :128].contiguous(), chunk=8, **kw11)
+    with pytest.raises(TypeError):
+        R.raster_chunkskip(counts, clist, recs, 64, 1, 8)
+    out = R.raster_chunkskip(counts, clist, recs, fv, chunk=8, **kw11)
+    torch.cuda.synchronize()
+    assert int(out[0].max()) == -1

@@ -100,7 +100,10 @@ def culled_fused_walk(kept, bins, records, boxes, size, tx):
 @pytest.mark.parametrize("scene", ["head", "slivers"])
 def test_fused_records_carry_face_records_edge_lanes(scene):
     """fused_records' lanes 0-11 (edges, depth) are face_records', bitwise:
-    on the head's face region, and on slivers and near-degenerate faces."""
+    on the head's face region, and on slivers and near-degenerate faces;
+    so are the chunk-skip records' (K11's, which cull with `cull_boxes` of
+    the padded faces `chunkskip_inputs` returns beside them) where the
+    faces are padded."""
     if scene == "head":
         _, fv, fn = head(2, 224, 0)
     else:
@@ -110,6 +113,10 @@ def test_fused_records_carry_face_records_edge_lanes(scene):
         fn = torch.tensor(rng.normal(size=tuple(fv.shape)), dtype=torch.float32)
         assert bool(torch.isinf(R.cull_boxes(fv, 224)[..., 0]).any())
     assert torch.equal(R.fused_records(fv, fn)[..., :12], R.face_records(fv)[..., :12])
+    fv, fn = fv[:, :-3], fn[:, :-3]  # F a multiple of no chunk size
+    _, _, recs, fvp, _ = R.chunkskip_inputs(fv, fn, 224, 8, 4)
+    assert fvp.shape[1] > fv.shape[1] and torch.equal(fvp[:, :fv.shape[1]], fv)
+    assert torch.equal(recs[..., :12], R.face_records(fvp)[..., :12])
 
 
 @pytest.mark.parametrize("compact", ["auto", None])

@@ -51,7 +51,17 @@ each time is CUDA events around --iters calls. The kernels:
             four scalar atomics. Probes at the op path's shapes: every bin
             -1 (the bins read alone), zero rows (the rows read, no atomic).
             A variant whose source line an older tree lacks is listed under
-            "variants_absent".
+            "variants_absent";
+    groups  K9 raster_fused_groups (csrc/raster_groups.cu): the inference
+            faces, batch 64, 224 px, capacity 384, the tiles padded to tps
+            8, checked against the merged schedule's plain version;
+    groups_local
+            K10 raster_fused_groups_local (the same source, the tile-local
+            flag) on the count-sorted tiles of the same faces;
+    chunkskip
+            K11 raster_chunkskip (csrc/raster_chunkskip.cu): chip_smoke.py's
+            Morton-ordered face region of the same faces with the original
+            ids, at (chunk, cap) (8, 128), (16, 96) and (32, 64).
 
     python3 tools/torch_launch_bounds_sweep.py --kernel fused
 
@@ -92,7 +102,9 @@ TARGETS = {"planes": ("raster_planes", 32, {}), "fused": ("raster_fused", 64, {}
                "scalar atomics": (
                    "atomicAdd(reinterpret_cast<float4*>(dst), v);",
                    "atomicAdd(dst, v.x); atomicAdd(dst + 1, v.y); atomicAdd(dst + 2, v.z); "
-                   "atomicAdd(dst + 3, v.w);")})}
+                   "atomicAdd(dst + 3, v.w);")}),
+           "groups": ("raster_groups", 64, {}), "groups_local": ("raster_groups", 64, {}),
+           "chunkskip": ("raster_chunkskip", 64, {})}
 MINIMA = (None, 4, 5, 6, 7)
 # K7's blocks hold 24.6 KB and K4's 15.5 KB at C = 384, D = 3: 8 fit an SM
 MORE_MINIMA = {"reduce": (8,), "moments": (8,), "fold": (8,)}
@@ -200,6 +212,17 @@ def main(argv=None) -> int:
             records = R.fused_records(fv, fn)
             call = (lambda: R.raster_fused_windows(kept, bins, records, fv, S, TX))
             plain = R.raster_fused_windows_plain(kept, bins, records, S, TX)
+        elif args.kernel in ("groups", "groups_local"):
+            records = R.fused_records(fv, fn)
+            b9, c9 = R._pad_tiles_to(bins, counts, 8)
+            kw = dict(image_size=S, tiles_x=TX, tps=8)
+            if args.kernel == "groups":
+                call = (lambda: R.raster_fused_groups(c9, b9, records, fv, **kw))
+                plain = R.raster_fused_groups_plain(c9, b9, records, **kw)
+            else:
+                sc, sb, order, _ = R.sort_tiles_order(b9, c9)
+                call = (lambda: R.raster_fused_groups_local(sc, sb, order, records, fv, **kw))
+                plain = R.raster_fused_groups_local_plain(sc, sb, order, records, **kw)
         elif args.kernel == "bins":
             fv9 = fv.reshape(B, -1, 9).contiguous()
             call = (lambda: R.raster_bins_coverage(counts, bins, fv9, S))
@@ -211,8 +234,23 @@ def main(argv=None) -> int:
             records = R.coverage_records(fv)
             call = (lambda: R.raster_coverage_windows(kept, bins, records, fv, S, TX))
             plain = R.raster_coverage_windows_plain(kept, bins, records, S, TX)
-        calls = {args.kernel: call}
-        checks = {args.kernel: lambda got: all(torch.equal(a, b) for a, b in zip(got, plain))}
+        if args.kernel == "chunkskip":
+            # chip_smoke.py's phase 4i: the Morton-ordered face region
+            tmpl = np.asarray(bundle["v_template"])[renderer.kept_vertices]
+            perm = torch.as_tensor(R.spatial_face_order(tmpl, renderer.faces.cpu().numpy()),
+                                   device=fv.device)
+            calls, checks = {}, {}
+            for ch, cap11 in ((8, 128), (16, 96), (32, 64)):
+                args11 = R.chunkskip_inputs(fv[:, perm], fn[:, perm], S, ch, cap11, perm)[:4]
+                kw11 = dict(image_size=S, tiles_x=TX, chunk=ch)
+                want11 = R.raster_chunkskip_plain(*args11[:3], **kw11)
+                calls[f"chunk {ch}"] = (lambda a=args11, kw=kw11: R.raster_chunkskip(*a, **kw))
+                checks[f"chunk {ch}"] = (lambda got, want=want11: all(
+                    torch.equal(a, b) for a, b in zip(got, want)))
+        else:
+            calls = {args.kernel: call}
+            checks = {args.kernel: lambda got: all(torch.equal(a, b)
+                                                   for a, b in zip(got, plain))}
         if args.kernel in ("reduce", "fold"):
             slots = R.image_to_tiles(R._tiles_to_image(plain[2], S), S).contiguous()
             payload = torch.randn(tuple(slots.shape) + (36,), device=slots.device,
