@@ -122,6 +122,27 @@ Phases (any failure exits non-zero):
     b64 faces of phase 4i: coverage > 5 %, every output finite, nothing
     dropped, K9, K10 and K11 launched, and pix_to_face against the
     default compact render by the tie rule;
+ 5e. the reconstruct path through `Predictor(use_generator=True)
+    .reconstruct` at full width (the default Config, the generator at 32
+    features / 5 ResNet blocks), b64: seeded 480x640 uint8 frames, each
+    with the main path's 105 landmarks_mp mapped into it at the scale
+    that makes the scale-1.4 crop 1.5 x 224 px (a downscale to 224 px),
+    so that the hull covers the rendered face: every output finite,
+    coverage > 5 %, no raster overflow, K1 launched and none of K3, K4 or
+    K6; the masked image equal
+    to the crop outside the dilated hull and the render and 0 inside,
+    except at the hints; `SmirkSystem.reconstruct` on the card against the
+    port's CPU run on 8 images with the same infer outputs and injected
+    draws (masked images agreeing on >= 99.9 % of pixels, the
+    reconstructions within 1e-4 on the images whose masks agree); the
+    device's warp (1e-3 on the 0-255 scale) and hull (exactly) against the
+    numpy copies; reconstruct_ms_batch / reconstruct_fps (5 windows of 5
+    calls, host clock), the call split (crop + hull, infer, sampling +
+    mask, generator, host copy-back) with CUDA events, the host's crop
+    matrices and hulls on the host clock, the bytes copied in and out and
+    the generator's FLOPs (forward hooks) and rate. It runs after the
+    timings of phase 6, so that those run on the process state the phases
+    before them leave;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -146,6 +167,7 @@ Phases (any failure exits non-zero):
     a call that cannot be captured fails the run);
  7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
     K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches;
+    K1's launches those of the main path and of the reconstruct call;
     each row's `device_ms` beside its `ms`),
     with the rasters' bounds counted from this run's inputs as the work
     their function needs (the face-pixel pairs in the faces' boxes, the
@@ -192,6 +214,13 @@ TRAIN_WINDOWS, TRAIN_STEPS = 3, 5
 INFER_B = 64  # bench.py's inference batch
 GRAPH_CALLS = 20  # calls a kernel row's CUDA graph replays for its device time
 TRAIN_B = 32  # the training recipe's batch
+# the reconstruct path: frames (H, W) the landmark crop downscales to 224 px,
+# the crop's side in the frame over 224, the images the card is held
+# against the CPU on, and its timing windows x calls
+FRAME_HW = (480, 640)
+CROP_OVER_S = 1.5
+RECON_CPU_B = 8
+RECON_WINDOWS, RECON_CALLS = 5, 5
 # tolerances of the float-order-dependent checks: K4 and K5 within 1e-5 x
 # the sum of the magnitudes of their terms; the end-to-end gradient within
 # 1e-4 x its kappa^2-weighted magnitudes (rasterizer.dense_gradient_and_
@@ -523,6 +552,13 @@ def conv_flops_of_step(system, batch, parity, gen):
     forward hooks on every Conv2d / ConvTranspose2d of the encoder and the
     generator: each call's forward, plus one forward's worth for the input
     gradient and one for the weight gradient where autograd takes them."""
+    return conv_flops((system.encoder, system.generator),
+                      lambda: system.train_step(batch, parity, gen))
+
+
+def conv_flops(modules, fn):
+    """Convolution FLOPs of fn(), counted as `conv_flops_of_step` says on
+    the convolutions of `modules`."""
     import torch
 
     total = [0.0]
@@ -538,10 +574,10 @@ def conv_flops_of_step(system, batch, parity, gen):
         total[0] += fwd * (1 + (grads and x.requires_grad) + (grads and m.weight.requires_grad))
 
     handles = [m.register_forward_hook(hook)
-               for mod in (system.encoder, system.generator) for m in mod.modules()
+               for mod in modules for m in mod.modules()
                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d))]
     try:
-        system.train_step(batch, parity, gen)
+        fn()
     finally:
         for h in handles:
             h.remove()
@@ -565,6 +601,189 @@ def train_stages(system, batch, parity, gen):
     torch.cuda.synchronize()
     system._eval_mode()
     return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
+
+
+def reconstruct_phase(bundle, encoder_state, out, B, S, card):
+    """Phase 5e: the reconstruct path at full width on the main path's
+    encoder weights and landmarks (`out`, the main path's outputs) ->
+    the kernels' launch counts of one Predictor.reconstruct call."""
+    import numpy as np
+    import torch
+
+    from smirk_tpu_torch import Predictor
+    from smirk_tpu_torch.config import Config
+    from smirk_tpu_torch.data import transforms as T
+    from smirk_tpu_torch.masking import masking as masking_lib
+    from smirk_tpu_torch.render import rasterizer as R
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    FH, FW = FRAME_HW
+    log(f"[5e] reconstruct path: Predictor(use_generator=True).reconstruct at b{B}, "
+        f"{FH}x{FW} uint8 frames -> {S} px crops, fp32, generator 32 features / 5 blocks")
+    pred_rec = Predictor(use_generator=True, bundle=bundle)  # the card
+    sys_rec = pred_rec.system
+    sys_rec.encoder.load_state_dict(encoder_state)
+    dev = sys_rec.device
+    n_upper, _ = sys_rec._reconstruct_budget()
+    # seeded frames; each frame's landmarks are the main path's 105
+    # landmarks_mp (NDC) mapped into the frame about its centre, at the
+    # scale that makes the 1.4 x bbox crop CROP_OVER_S x 224 px: the crop is
+    # a downscale and the hull covers the rendered face
+    frames = np.random.default_rng(5).integers(0, 256, (B, FH, FW, 3), dtype=np.uint8)
+    lmk_ndc = out["landmarks_mp"][..., :2]
+    bbox = np.ptp(lmk_ndc, axis=1).mean() * S / 2  # mean side in the render's pixels
+    lmk_scale = CROP_OVER_S * S / (1.4 * bbox)
+    lmks = lmk_ndc * (S / 2 * lmk_scale) + np.float32([FW / 2, FH / 2])
+    tforms, kpts = T.crop_tforms(lmks, S)
+    crop_side = (S - 1) / np.hypot(tforms[:, 0, 0], tforms[:, 0, 1])
+    log(f"    {lmks.shape[1]} landmarks a frame, the render's at x{lmk_scale:.3f}; crop "
+        f"side {crop_side.min():.1f}-"
+        f"{crop_side.max():.1f} px of the frame -> {S} px")
+    check(crop_side.min() > S, "the crop is a downscale")
+    R.reset_launch_counts()
+    rec = pred_rec.reconstruct(frames, lmks, seed=0)
+    torch.cuda.synchronize()
+    rec_launches = {k.__name__: k.launches for k in R.KERNELS}
+    log(f"    launches on the reconstruct path: {rec_launches}")
+    check(rec_launches["raster_fused_windows"] > 0 and all(
+        rec_launches[k.__name__] == 0 for k in (
+            R.raster_planes_windows, R.segment_moments_to_faces, R.segment_moments,
+            R.raster_coverage_windows)),
+        "the reconstruct path launched K1, and none of K3, K4 (either epilogue) or K6")
+    for k, v in rec.items():
+        check(np.isfinite(v).all(), f"{k} {v.shape} finite")
+    for k in ("cropped_img", "masked_img", "reconstructed_img", "rendered_img"):
+        check(rec[k].shape == (B, S, S, 3), f"{k} shape {(B, S, S, 3)}")
+    cov_r = float(rec["rendered_mask"].mean())
+    check(cov_r > 0.05, f"reconstruct render coverage {cov_r:.4f} > 0.05")
+    check(int(rec["raster_overflow"].max()) == 0, "reconstruct raster_overflow == 0")
+    # outside the dilated hull and the render the masked image is the crop,
+    # inside it is 0, except where a hint landed (at most n_upper a image)
+    with torch.inference_mode():
+        hull_r = T.convex_hull_mask(kpts, (S, S), dev)[..., None]
+        hole = ((1 - masking_lib._dilate(1 - hull_r, sys_rec.config.train.mask_dilation_radius))
+                * (1 - torch.from_numpy(rec["rendered_mask"]).to(dev))).cpu().numpy()[..., 0]
+    outside = hole == 1
+    hinted = np.where(outside, (rec["masked_img"] != rec["cropped_img"]).any(-1),
+                      (rec["masked_img"] != 0).any(-1)).sum((1, 2))
+    check(hinted.max() <= n_upper and hinted.sum() > 0,
+          f"masked == crop outside the dilated hull and the render, 0 inside, but at "
+          f"the hints ({int(hinted.min())}-{int(hinted.max())} pixels a image <= "
+          f"{n_upper}); {outside.mean() * 100:.1f} % of pixels outside")
+    hull_share = float(1 - hull_r.mean())
+    log(f"    the hull covers {hull_share * 100:.1f} % of the crop")
+
+    log(f"    SmirkSystem.reconstruct on the card vs the port's CPU run: {RECON_CPU_B} "
+        "images, the same infer outputs and injected draws")
+    NC = RECON_CPU_B
+    with torch.inference_mode():
+        imgs_c, kpts_c = pred_rec._crop(frames[:NC], lmks[:NC])
+        hull_c = T.convex_hull_mask(kpts_c, (S, S), dev)[..., None]
+        out_c = sys_rec.infer(imgs_c)
+        g_c = torch.Generator(device=dev).manual_seed(3)
+        draws_c = {
+            "u": torch.rand((NC, n_upper), generator=g_c, device=dev),
+            "bary": masking_lib.random_barycentric((NC, n_upper), g_c, dev),
+            "rsing": torch.randint(0, 2, (NC,), generator=g_c, device=dev) * 2 - 1,
+            "rscale": torch.rand((NC,), generator=g_c, device=dev),
+            "noise": torch.randn((NC, S, S, 3), generator=g_c, device=dev),
+            "drop_centers": torch.bernoulli(torch.full((NC, S, S, 1), 0.01, device=dev),
+                                            generator=g_c),
+        }
+        m_card, r_card = sys_rec.reconstruct(out_c, imgs_c, hull_c, draws=draws_c)
+    sys_cpu = SmirkSystem(Config(), bundle, device="cpu")
+    sys_cpu.encoder.load_state_dict(sys_rec.encoder.state_dict())
+    sys_cpu.generator.load_state_dict(sys_rec.generator.state_dict())
+
+    def to_cpu(d):
+        return {k: v.cpu() for k, v in d.items()}
+
+    m_cpu, r_cpu = sys_cpu.reconstruct(to_cpu(out_c), imgs_c.cpu(), hull_c.cpu(),
+                                       draws=to_cpu(draws_c))
+    px_agree = ((m_card.cpu() - m_cpu).abs() <= 1e-6).all(-1)
+    img_agree = px_agree.all(-1).all(-1)
+    check(float(px_agree.float().mean()) >= 0.999 and bool(img_agree.any()),
+          f"masked images agree (1e-6) on {float(px_agree.float().mean()) * 100:.4f} % >= "
+          f"99.9 % of pixels; {int(img_agree.sum())} of {NC} images wholly")
+    rec_err = float((r_card.cpu() - r_cpu)[img_agree].abs().max())
+    check(rec_err <= 1e-4, f"reconstructed_img card vs cpu max |diff| {rec_err:.2e} <= 1e-4 "
+          "on the images whose masks agree")
+
+    log("    the device's warp and hull against the numpy copies on the same frames")
+    with torch.inference_mode():
+        w_card = T.warp_affine(torch.from_numpy(frames).to(dev).float(), tforms,
+                               (S, S)).cpu().numpy()
+        h_card = T.convex_hull_mask(kpts, (S, S), dev).cpu().numpy()
+    w_np = np.stack([T.warp_affine_np(f.astype(np.float32), m, (S, S))
+                     for f, m in zip(frames, tforms)])
+    warp_err = float(np.abs(w_card - w_np).max())
+    check(warp_err <= 1e-3, f"warp card vs numpy max |diff| {warp_err:.2e} <= 1e-3 (0-255)")
+    h_np = np.stack([T.convex_hull_mask_np(k, (S, S)) for k in kpts])
+    check(np.array_equal(h_card, h_np), f"hull masks card == numpy ({B} images)")
+
+    rec_w = timed_windows(lambda: pred_rec.reconstruct(frames, lmks), RECON_WINDOWS,
+                          RECON_CALLS)
+    rec_ms = statistics.median(rec_w)
+
+    def split_once():
+        """Predictor.reconstruct's steps with CUDA events between them."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        ev[0].record()
+        imgs_s, kp_s = pred_rec._crop(frames, lmks)
+        hull_s = T.convex_hull_mask(kp_s, (S, S), dev)[..., None]
+        ev[1].record()
+        out_s = sys_rec.infer(imgs_s)
+        ev[2].record()
+        masked_s = sys_rec.masked_input(out_s, imgs_s, hull_s,
+                                        torch.Generator(device=dev).manual_seed(0))
+        ev[3].record()
+        with torch.inference_mode():
+            recon_s = sys_rec.generator(torch.cat([out_s["rendered_img"], masked_s], -1))
+        ev[4].record()
+        pred_rec._to_numpy({"cropped_img": imgs_s, **out_s, "masked_img": masked_s,
+                            "reconstructed_img": recon_s})
+        ev[5].record()
+        torch.cuda.synchronize()
+        return [ev[i].elapsed_time(ev[i + 1]) for i in range(5)]
+
+    split_once()
+    splits = [split_once() for _ in range(5)]
+    split_names = ("crop_hull", "infer", "sampling_mask", "generator", "host_copy_back")
+    split_med = {n: statistics.median(s[i] for s in splits) for i, n in enumerate(split_names)}
+    # inside crop_hull: the host's crop matrices and hulls (host clock)
+    host_ms = {"crop_matrices": [], "hulls": []}
+    for _ in range(5):
+        t = time.perf_counter()
+        _, kp_h = T.crop_tforms(lmks, S)
+        host_ms["crop_matrices"].append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        [T._hull_of(k) for k in kp_h]
+        host_ms["hulls"].append((time.perf_counter() - t) * 1e3)
+    host_med = {k: statistics.median(v) for k, v in host_ms.items()}
+    gen_flops = conv_flops((sys_rec.generator,), lambda: pred_rec.reconstruct(frames, lmks))
+    gen_tflops_s = gen_flops / split_med["generator"] / 1e9
+    bytes_in = frames.nbytes
+    bytes_out = sum(v.nbytes for v in rec.values())
+    log(f"    reconstruct_ms_batch{B} median {rec_ms:.3f} over {RECON_WINDOWS} windows of "
+        f"{RECON_CALLS} calls (min {rec_w[0]:.3f}, max {rec_w[-1]:.3f}, spread "
+        f"{spread(rec_w):.1f} %)  reconstruct_fps {B / rec_ms * 1e3:.1f} {card}")
+    log(f"    reconstruct call split (CUDA events, median of 5, ms): " + ", ".join(
+        f"{n} {v:.3f}" for n, v in split_med.items())
+        + f"; sum {sum(split_med.values()):.3f} {card}")
+    log(f"    inside crop_hull, host clock (median of 5): crop matrices "
+        f"{host_med['crop_matrices']:.3f} ms, hulls {host_med['hulls']:.3f} ms; the call "
+        f"copies {bytes_in / 1e6:.1f} MB in and {bytes_out / 1e6:.1f} MB out")
+    log(f"    generator: {gen_flops / 1e12:.4f} TFLOP a batch (forward hooks) in "
+        f"{split_med['generator']:.3f} ms = {gen_tflops_s:.2f} TFLOP/s, "
+        f"{gen_tflops_s / (PEAK_FP32_FLOPS / 1e12) * 100:.1f} % of the fp32 peak {card}")
+    log("    " + json.dumps({"reconstruct_ms_batch": rec_ms,
+                             "reconstruct_fps": B / rec_ms * 1e3,
+                             "reconstruct_batch": B,
+                             "reconstruct_spread_pct": spread(rec_w),
+                             "split_ms": split_med, "host_ms": host_med,
+                             "generator_tflop": gen_flops / 1e12,
+                             "bytes_in": bytes_in, "bytes_out": bytes_out}))
+    return rec_launches
 
 
 def main(argv=None) -> int:
@@ -1554,6 +1773,11 @@ def main(argv=None) -> int:
         f"{occ['budget']} (headroom {occ['headroom']:.3f}); mean "
         f"{float(occupied.float().mean()):.1f}")
 
+    # ---------------- 5e. the reconstruct path ----------------
+    # after the timings of [6], so that they run on the process state of
+    # the phases before them; its launches are counted with their own reset
+    rec_launches = reconstruct_phase(bundle, system.encoder.state_dict(), out, B, S, card)
+
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())
     win_p = int(kept_p.sum())
@@ -1639,7 +1863,8 @@ def main(argv=None) -> int:
          "library_ms": res["k2_library_ms"]},
         {"name": "raster_fused_windows", "route": "cuda", "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1331",
-         "launches": launches["raster_fused_windows"], "max_abs_err": k1_err,
+         "launches": launches["raster_fused_windows"] + rec_launches["raster_fused_windows"],
+         "max_abs_err": k1_err,
          "ms": res["k1_ms"], "device_ms": dev_ms["k1_ms"],
          "plain_ms": res["k1_plain_ms"],
          "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None},

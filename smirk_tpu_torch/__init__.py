@@ -12,8 +12,12 @@ Layout:
                         and differentiable), renderer
   masking/, losses/     mesh-anchored pixel hints and masks; the losses
   csrc/                 CUDA kernels (sm_90a), built by kernels.py
-  train/                SmirkSystem: infer and the two-path train_step
-  api.py                Predictor
+  train/                SmirkSystem: infer, reconstruct and the two-path
+                        train_step
+  data/                 the landmark crop (batched warp) and hull mask
+  utils/                weight conversion, visualisation, MJPEG-AVI IO
+  cli/                  the image and video demos, the mediapipe wrapper
+  api.py                Predictor (resize or landmark crop; reconstruct)
 """
 
 __version__ = "0.1.0"

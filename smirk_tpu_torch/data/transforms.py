@@ -1,0 +1,311 @@
+"""Image and keypoint transforms of the crop and hull-mask path (a copy of
+what the reconstruct path needs from smirk_tpu/data/transforms.py).
+
+  * `estimate_similarity` (Umeyama), `crop_face_tform` (the scale-1.4
+    landmark-bbox crop), `transform_points`, `arcface_tform` and
+    `MEDIAPIPE_INDICES`: numpy, as in the JAX package;
+  * `warp_affine`: B images through B forward matrices, on the images'
+    device, in torch: the JAX package's `ndimage.affine_transform(order=1,
+    mode="grid-constant")` (bilinear, samples outside the image blend with
+    zero) or order 0 (nearest, zero outside), coordinates in float64;
+  * `convex_hull_mask`: each point set's hull (Andrew's monotone chain) on
+    the host, the pixel-centre half-plane fill batched on the device in
+    int64, exact since the points are truncated to int32 first;
+  * `crop_faces`: `crop_tforms` (each image's crop matrix and landmarks)
+    and `warp_affine`, clipped and divided as the JAX package's callers do.
+
+`warp_affine_np` and `convex_hull_mask_np` state the same functions in
+numpy for one image; they are the oracles the device versions are checked
+against on the card. The augmentation of the training data pipeline
+(`augment`, the hue and Lab helpers, CLAHE) is not copied.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from smirk_tpu_torch.device import resolve_device
+
+ARCFACE_DST = np.array(
+    [[38.2946, 51.6963], [73.5318, 51.5014], [56.0252, 71.7366],
+     [41.5493, 92.3655], [70.7299, 92.2041]],
+    dtype=np.float32,
+)
+
+# 105-of-478 mediapipe landmark subset matching the FLAME mediapipe
+# embedding (also stored in the embedding npz)
+MEDIAPIPE_INDICES = [
+    276, 282, 283, 285, 293, 295, 296, 300, 334, 336, 46, 52, 53,
+    55, 63, 65, 66, 70, 105, 107, 249, 263, 362, 373, 374, 380,
+    381, 382, 384, 385, 386, 387, 388, 390, 398, 466, 7, 33, 133,
+    144, 145, 153, 154, 155, 157, 158, 159, 160, 161, 163, 173, 246,
+    168, 6, 197, 195, 5, 4, 129, 98, 97, 2, 326, 327, 358,
+    0, 13, 14, 17, 37, 39, 40, 61, 78, 80, 81, 82, 84,
+    87, 88, 91, 95, 146, 178, 181, 185, 191, 267, 269, 270, 291,
+    308, 310, 311, 312, 314, 317, 318, 321, 324, 375, 402, 405, 409,
+    415,
+]
+
+# int64 elements of one block of the hull fill's half-plane tests
+_FILL_BLOCK_ELEMS = 1 << 25
+
+
+def estimate_similarity(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """Umeyama least-squares similarity (rotation+scale+translation).
+
+    src/dst (N,2) -> 3x3 homogeneous matrix mapping src -> dst. Matches
+    skimage SimilarityTransform.estimate.
+    """
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    sc, dc = src - mu_s, dst - mu_d
+    cov = dc.T @ sc / len(src)
+    U, S, Vt = np.linalg.svd(cov)
+    d = np.sign(np.linalg.det(U) * np.linalg.det(Vt))
+    D = np.diag([1.0, d])
+    R = U @ D @ Vt
+    var_s = (sc**2).sum() / len(src)
+    scale = np.trace(np.diag(S) @ D) / var_s
+    t = mu_d - scale * R @ mu_s
+    M = np.eye(3)
+    M[:2, :2] = scale * R
+    M[:2, 2] = t
+    return M
+
+
+def crop_face_tform(
+    landmarks: np.ndarray, scale: float, image_size: int
+) -> np.ndarray:
+    """Landmark-bbox-centered square crop -> 3x3 similarity matrix."""
+    left, right = landmarks[:, 0].min(), landmarks[:, 0].max()
+    top, bottom = landmarks[:, 1].min(), landmarks[:, 1].max()
+    old_size = (right - left + bottom - top) / 2
+    center = np.array([right - (right - left) / 2.0, bottom - (bottom - top) / 2.0])
+    size = int(old_size * scale)
+    src = np.array(
+        [
+            [center[0] - size / 2, center[1] - size / 2],
+            [center[0] - size / 2, center[1] + size / 2],
+            [center[0] + size / 2, center[1] - size / 2],
+        ]
+    )
+    dst = np.array([[0, 0], [0, image_size - 1], [image_size - 1, 0]])
+    return estimate_similarity(src, dst)
+
+
+def transform_points(M: np.ndarray, pts: np.ndarray) -> np.ndarray:
+    """Apply 3x3 homogeneous matrix to (N,2) points."""
+    homo = np.hstack([pts[:, :2], np.ones((len(pts), 1))])
+    return (homo @ M.T)[:, :2]
+
+
+def arcface_tform(landmarks_fan: np.ndarray, image_size: int = 112) -> np.ndarray:
+    """5-point similarity to the ArcFace template. landmarks_fan: (68,2);
+    returns 3x3 matrix."""
+    lmk5 = landmarks_fan[[36, 45, 32, 48, 54]].astype(np.float64).copy()
+    lmk5[0] = (landmarks_fan[36] + landmarks_fan[39]) / 2
+    lmk5[1] = (landmarks_fan[42] + landmarks_fan[45]) / 2
+    ratio = image_size / 112.0
+    dst = ARCFACE_DST * ratio
+    return estimate_similarity(lmk5, dst)
+
+
+# ------------------------------ warp ------------------------------
+
+
+def _source_coords(Minv, xo, yo):
+    """Input coordinates (ix, iy) of every output pixel, out(p) = in(Minv p):
+    (..., OH, OW) float64 for Minv (..., 3, 3), the output's pixel columns
+    xo (OW,) and rows yo (OH, 1)."""
+    m = [[Minv[..., i, j][..., None, None] for j in range(3)] for i in range(2)]
+    ix = m[0][0] * xo + (m[0][1] * yo + m[0][2])
+    iy = m[1][0] * xo + (m[1][1] * yo + m[1][2])
+    return ix, iy
+
+
+def warp_affine(images: torch.Tensor, Ms, out_shape: Tuple[int, int],
+                order: int = 1) -> torch.Tensor:
+    """Warp each image with its FORWARD 3x3 matrix (out(p) = img(M^-1 p)).
+
+    images (B,H,W,C) on any device; Ms (B,3,3) (numpy or a tensor) ->
+    (B,OH,OW,C) float32 on the images' device. order 1: bilinear over the
+    image extended by zeros (grid-constant: a sample near the border blends
+    with zero, it is not clamped); order 0: nearest (floor(v + 0.5)), zero
+    outside. Coordinates and the blend are float64.
+    """
+    if order not in (0, 1):
+        raise ValueError(f"order must be 0 or 1, got {order}")
+    B, H, W, C = images.shape
+    OH, OW = out_shape
+    dev = images.device
+    Minv = torch.as_tensor(np.linalg.inv(np.asarray(
+        Ms.cpu() if torch.is_tensor(Ms) else Ms, np.float64)), device=dev)
+    if Minv.shape != (B, 3, 3):
+        raise ValueError(f"Ms must be ({B}, 3, 3), got {tuple(Minv.shape)}")
+    ix, iy = _source_coords(Minv, torch.arange(OW, dtype=torch.float64, device=dev),
+                            torch.arange(OH, dtype=torch.float64, device=dev)[:, None])
+    flat = images.reshape(B, H * W, C)
+
+    def tap(x, y):  # (B,OH,OW) integral float64 coords -> float64 values, 0 outside
+        valid = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+        idx = (y.clamp(0, H - 1) * W + x.clamp(0, W - 1)).long().reshape(B, -1, 1)
+        v = torch.gather(flat, 1, idx.expand(-1, -1, C)).reshape(B, OH, OW, C)
+        return torch.where(valid[..., None], v.to(torch.float64), 0.0)
+
+    if order == 0:
+        return tap(torch.floor(ix + 0.5), torch.floor(iy + 0.5)).to(torch.float32)
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    fx, fy = (ix - x0)[..., None], (iy - y0)[..., None]
+    out = ((1 - fx) * (1 - fy) * tap(x0, y0) + fx * (1 - fy) * tap(x0 + 1, y0)
+           + (1 - fx) * fy * tap(x0, y0 + 1) + fx * fy * tap(x0 + 1, y0 + 1))
+    return out.to(torch.float32)
+
+
+def warp_affine_np(image: np.ndarray, M: np.ndarray, out_shape: Tuple[int, int],
+                   order: int = 1) -> np.ndarray:
+    """`warp_affine` of one (H,W,C) image in numpy (the oracle of the device
+    version): the same coordinates, taps and zero extension."""
+    img = np.asarray(image, np.float32)
+    H, W, C = img.shape
+    OH, OW = out_shape
+    ix, iy = _source_coords(np.linalg.inv(np.asarray(M, np.float64)),
+                            np.arange(OW, dtype=np.float64),
+                            np.arange(OH, dtype=np.float64)[:, None])
+
+    def tap(x, y):
+        valid = (x >= 0) & (x < W) & (y >= 0) & (y < H)
+        v = img[np.clip(y, 0, H - 1).astype(np.int64), np.clip(x, 0, W - 1).astype(np.int64)]
+        return np.where(valid[..., None], v.astype(np.float64), 0.0)
+
+    if order == 0:
+        return tap(np.floor(ix + 0.5), np.floor(iy + 0.5)).astype(np.float32)
+    x0, y0 = np.floor(ix), np.floor(iy)
+    fx, fy = (ix - x0)[..., None], (iy - y0)[..., None]
+    out = ((1 - fx) * (1 - fy) * tap(x0, y0) + fx * (1 - fy) * tap(x0 + 1, y0)
+           + (1 - fx) * fy * tap(x0, y0 + 1) + fx * fy * tap(x0 + 1, y0 + 1))
+    return out.astype(np.float32)
+
+
+# ------------------------------ hull mask ------------------------------
+
+
+def _convex_hull(pts: np.ndarray) -> np.ndarray:
+    """Andrew's monotone chain; returns CCW hull (y-down image coords). The
+    JAX package's `_convex_hull` on integer points, run on Python ints (its
+    numpy scalars cost ~1 ms a 105-point set)."""
+    pts = sorted(set(map(tuple, np.asarray(pts).tolist())))  # np.unique's order
+    if len(pts) <= 2:
+        return np.array(pts).reshape(-1, 2)
+
+    def half(seq):
+        out = []
+        for p in seq:
+            while len(out) >= 2:
+                a, b = out[-2], out[-1]
+                if (b[0] - a[0]) * (p[1] - a[1]) - (b[1] - a[1]) * (p[0] - a[0]) <= 0:
+                    out.pop()
+                else:
+                    break
+            out.append(p)
+        return out
+
+    lower = half(pts)
+    upper = half(pts[::-1])
+    return np.array(lower[:-1] + upper[:-1])
+
+
+def _hull_of(points: np.ndarray) -> np.ndarray:
+    """Hull vertices (n,2) int64 of one point set, its coordinates
+    truncated to int32 first (the reference create_mask's cast)."""
+    return _convex_hull(np.asarray(points)[:, :2].astype(np.int32).astype(np.int64))
+
+
+def convex_hull_mask(points: Sequence[np.ndarray], shape: Tuple[int, int],
+                     device=None) -> torch.Tensor:
+    """(B,H,W) float32 masks on `device` (None: the CUDA card, raising
+    without one; "cpu" the CPU), 1 outside the
+    convex hull of each image's points, 0 inside (hull region zeroed, the
+    reference create_mask polarity): a pixel is inside when its centre
+    lies on one side of, or on, every hull edge. Fewer than 3 hull vertices
+    (fewer than 3 unique points, or all on a line) -> all ones."""
+    device = resolve_device(device)
+    hulls = [_hull_of(p) for p in points]
+    B, (H, W) = len(hulls), shape
+    E = max([len(h) for h in hulls] + [1])
+    # edges (x0, y0, x1, y1); padding edges have length 0, e == 0 at every
+    # pixel, and so test nothing
+    edges = np.zeros((B, E, 4), np.int64)
+    filled = np.zeros(B, bool)
+    for b, h in enumerate(hulls):
+        if len(h) < 3:
+            continue
+        filled[b] = True
+        edges[b, :len(h), :2] = h
+        edges[b, :len(h), 2:] = np.roll(h, -1, axis=0)
+        edges[b, len(h):] = np.concatenate([h[0], h[0]])
+    edges = torch.as_tensor(edges, device=device)
+    xx = torch.arange(W, device=device, dtype=torch.int64)[None, None, None, :]
+    yy = torch.arange(H, device=device, dtype=torch.int64)[None, None, :, None]
+    pos = torch.ones((B, H, W), dtype=torch.bool, device=device)
+    neg = torch.ones_like(pos)
+    step = max(1, _FILL_BLOCK_ELEMS // max(1, B * H * W))
+    for e0 in range(0, E, step):
+        x0, y0, x1, y1 = (edges[:, e0:e0 + step, i, None, None] for i in range(4))
+        e = (xx - x0) * (y1 - y0) - (yy - y0) * (x1 - x0)  # (B,e,H,W)
+        pos &= (e >= 0).all(1)
+        neg &= (e <= 0).all(1)
+    inside = (pos | neg) & torch.as_tensor(filled, device=device)[:, None, None]
+    return torch.where(inside, 0.0, 1.0)
+
+
+def convex_hull_mask_np(points: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+    """`convex_hull_mask` of one point set in numpy (the oracle of the
+    device version; the JAX package's numpy fill)."""
+    hull = _hull_of(points)
+    if len(hull) < 3:
+        return np.ones(shape, np.float32)
+    H, W = shape
+    yy, xx = np.mgrid[0:H, 0:W]
+    pos = np.ones((H, W), bool)
+    neg = np.ones((H, W), bool)
+    n = len(hull)
+    for i in range(n):
+        x0, y0 = hull[i]
+        x1, y1 = hull[(i + 1) % n]
+        e = (xx - x0) * (y1 - y0) - (yy - y0) * (x1 - x0)
+        pos &= e >= 0
+        neg &= e <= 0
+    mask = np.ones(shape, np.float32)
+    mask[pos | neg] = 0.0
+    return mask
+
+
+def crop_tforms(landmarks: np.ndarray, image_size: int,
+                scale: float = 1.4) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-image crop matrices and the landmarks mapped into the crop:
+    landmarks (B,K,>=2) -> ((B,3,3) float64, (B,K,2) float32)."""
+    landmarks = np.asarray(landmarks)
+    tforms = np.stack([crop_face_tform(k[:, :2], scale=scale, image_size=image_size)
+                       for k in landmarks])
+    kpts = np.stack([transform_points(m, k[:, :2]) for m, k in zip(tforms, landmarks)])
+    return tforms, kpts.astype(np.float32)
+
+
+def div_exact(x: torch.Tensor, d: float) -> torch.Tensor:
+    """x / d, correctly rounded on every device (a CUDA division by a Python
+    scalar multiplies by its reciprocal)."""
+    return x / torch.full((), d, dtype=x.dtype, device=x.device)
+
+
+def crop_faces(images: torch.Tensor, landmarks: np.ndarray, image_size: int):
+    """The scale-1.4 landmark-bbox crop of a batch on its device, as the JAX
+    package computes it: clip(warp(images), 0, 255) / 255. images (B,H,W,C)
+    float32 on the 0-255 scale; landmarks (B,K,>=2) in their pixels ->
+    ((B,S,S,C) float32 in [0,1], (B,3,3) crop matrices, (B,K,2) float32
+    landmarks in the crop's pixels)."""
+    tforms, kpts = crop_tforms(landmarks, image_size)
+    crop = warp_affine(images, tforms, (image_size, image_size)).clamp(0, 255)
+    return div_exact(crop, 255.0), tforms, kpts

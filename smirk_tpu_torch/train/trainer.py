@@ -3,7 +3,10 @@ serving path and the two-path training step (port of
 smirk_tpu/train/trainer.py).
 
 `SmirkSystem.infer` is the serving path: image batch -> FLAME parameters,
-geometry and the fused render. `train_step` is one training iteration:
+geometry and the fused render; `reconstruct` takes infer's outputs on to
+the analysis-by-neural-synthesis image (mesh-anchored pixel hints, the
+hull-masked input, the fuse generator). `train_step` is one training
+iteration:
 
   * path 1 (`_loss1`): encoders (train-mode batch norm on all three) ->
     FLAME -> the differentiable render -> landmark, regularization and,
@@ -36,7 +39,10 @@ Differences from the JAX package, by design:
     draws as tensors (`draws=`) so that a test can hand over the JAX
     package's;
   * only the parameters that train require gradients: sub-encoders that
-    `optimize_*` leaves off take no Adam state and no weight gradient.
+    `optimize_*` leaves off take no Adam state and no weight gradient;
+  * `reconstruct` runs the system's own generator (the JAX package passes
+    its variables) with a torch.Generator or injected draws (`draws=`) in
+    place of the key.
 """
 from __future__ import annotations
 
@@ -139,6 +145,19 @@ def augment_draws(n: int, D: int, n_templates: int, n_eyelid: int,
         "jitter_scale3": uni(r, 1), "jitter3": nrm(r, D),
         "eyelid3": uni(r, n_eyelid),
     }
+
+
+def point_budget(rsing: torch.Tensor, rscale: torch.Tensor, n_upper: int,
+                 mul: float) -> torch.Tensor:
+    """The reconstruct path's per-image point budget: int(n_upper / mul *
+    r ** rsing), r = rscale * (mul - 1) + 1, in float32 as the JAX package
+    computes it. rsing (B,) +-1, rscale (B,) uniform draws in [0, 1) ->
+    (B,) int32. r ** -1 is taken as the correctly rounded 1 / r: that
+    gives the JAX package's budget for every float32 draw in [0, 1)
+    (torch.pow misses it on two of them)."""
+    r = rscale.to(torch.float32) * (mul - 1) + 1
+    p = torch.where(rsing > 0, r, torch.reciprocal(r))
+    return ((n_upper / mul) * p).to(torch.int32)
 
 
 class _no_param_grad:
@@ -610,3 +629,65 @@ class SmirkSystem:
             inference=True,
         )
         return {**enc_out, **flame_out, **rend}
+
+    def _reconstruct_budget(self):
+        """(n_upper, mul): the sampled points and the budget's spread."""
+        c, S = self.config, self.config.image_size
+        mul = float(c.train.mask_ratio_mul)
+        return int(float(c.train.mask_ratio) * mul * S * S), mul
+
+    @torch.inference_mode()
+    def masked_input(self, infer_out: Mapping[str, torch.Tensor], img, hull,
+                     generator: Optional[torch.Generator] = None,
+                     draws: Optional[Mapping[str, torch.Tensor]] = None) -> torch.Tensor:
+        """The generator's masked input of `reconstruct`: n_upper = mask_ratio
+        x mask_ratio_mul x S^2 mesh points sampled on infer's transformed
+        vertices, the first `point_budget` of them per image copied as
+        pixel hints, the hull-masked image with noisy hints and 11x11
+        dropout (compose_mask, extra noise, random mask 0.01, the config's
+        dilation radius) -> (B,S,S,3).
+
+        draws: optional tensors in place of `generator`'s draws: `u` and
+        `bary` (or `coords`) for the sampler, `rsing` (B,) +-1 and `rscale`
+        (B,) in [0, 1) for the budget, `noise` and `drop_centers` for the
+        mask."""
+        c = self.config
+        draws = draws or {}
+        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        hull = torch.as_tensor(hull, dtype=torch.float32, device=self.device)
+        B = img.shape[0]
+        n_upper, mul = self._reconstruct_budget()
+        npoints, _ = masking_lib.sample_mesh_points(
+            infer_out["transformed_vertices"], self.flame.faces,
+            self.face_probabilities, n_upper, c.image_size,
+            coords=draws.get("coords"), incidence=self.flame_incidence,
+            generator=generator, u=draws.get("u"), bary=draws.get("bary"))
+        rsing = draws.get("rsing")
+        if rsing is None:
+            rsing = torch.randint(0, 2, (B,), generator=generator, device=self.device) * 2 - 1
+        rscale = draws.get("rscale")
+        if rscale is None:
+            rscale = torch.rand((B,), generator=generator, device=self.device)
+        extra = masking_lib.transfer_pixels(
+            img, npoints, npoints, valid_count=point_budget(rsing, rscale, n_upper, mul))
+        return masking_lib.compose_mask(
+            img, hull, extra, dilation_radius=c.train.mask_dilation_radius,
+            rendered_mask=infer_out["rendered_mask"], extra_noise=True,
+            random_mask=0.01, generator=generator, noise=draws.get("noise"),
+            drop_centers=draws.get("drop_centers"))
+
+    @torch.inference_mode()
+    def reconstruct(self, infer_out: Mapping[str, torch.Tensor], img, hull,
+                    generator: Optional[torch.Generator] = None,
+                    draws: Optional[Mapping[str, torch.Tensor]] = None):
+        """Analysis-by-neural-synthesis reconstruction from `infer`'s
+        outputs: the fuse generator (eval mode) on [render | masked input]
+        (`masked_input`). img (B,S,S,3) in [0,1]; hull (B,S,S,1) with 1 =
+        background. -> (masked_img, reconstructed_img)."""
+        if self.generator is None:
+            raise ValueError("reconstruct needs the fuse generator "
+                             "(arch.enable_fuse_generator)")
+        masked = self.masked_input(infer_out, img, hull, generator, draws)
+        self.generator.eval()
+        recon = self.generator(torch.cat([infer_out["rendered_img"], masked], dim=-1))
+        return masked, recon

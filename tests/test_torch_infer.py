@@ -139,8 +139,8 @@ def test_predictor_checkpoint_encode_render(bundle, images, jax_run, tmp_path):
     out_big = pred(big)
     assert out_big["rendered_img"].shape == (2, S, S, 3)
     assert np.isfinite(out_big["vertices"]).all()
-    with pytest.raises(NotImplementedError, match="landmark cropping"):
-        pred(images, landmarks=np.zeros((B, 68, 2)))
+    with pytest.raises(ValueError, match="landmarks batch"):
+        pred(images, landmarks=np.zeros((B + 1, 68, 2)))
 
 
 # input (H, W) -> model size: down, up, one axis kept, strong and odd ratios
