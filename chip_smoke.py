@@ -143,6 +143,30 @@ Phases (any failure exits non-zero):
     the generator's FLOPs (forward hooks) and rate. It runs after the
     timings of phase 6, so that those run on the process state the phases
     before them leave;
+ 5f. the training CLI (`smirk_tpu_torch.cli.train.main`, in this process)
+    at full width with --synthetic: the recipe's values as dotted overrides
+    (no YAML file: the card's machine has no PyYAML), b32, one epoch of 4
+    steps, a checkpoint every 2 steps, 8 loader workers, no image panels
+    (no PIL there), the port's `assets.load_all` patched to the recentred
+    procedural head: the loader alone (images/s, the card idle), then the
+    CLI: every metrics.jsonl record finite, last_state.pt and model_0.pt
+    written, every step launched K1, K3 and K4's fold and neither K5 nor
+    K4's store (counts reset before each step), the CLI's steps/s beside
+    [6]'s train_step time; `Predictor(checkpoint=model_0.pt)` at b64
+    launches K1; a second run with SMIRK_FAULT_INJECT_STEP=3 salvages
+    last_state.pt at step 3 and a third with resume_state= resumes there
+    and finishes the epoch; two systems restored from the salvaged file
+    take the same two steps within 1e-3 relative;
+ 5g. the bench line: `python -m smirk_tpu_torch.bench` as a child process
+    under a deadline: a provisional line first, then a final line with
+    every field finite and tf32 false, printed here;
+ 5h. F1: with both global TF32 flags True, `SmirkSystem.infer` at b64
+    reads them False inside (a pre-hook) and equals a call with them False
+    bitwise (within 1e-6 if cuDNN picks another algorithm, reported); the
+    same call with the pin bypassed (TF32) differs by more; the globals
+    read True after the pinned call; then, the globals False, the pin's own
+    cost: pinned and bypassed infer in alternating windows. Phases 5f-5h
+    run after 5e;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -221,6 +245,15 @@ FRAME_HW = (480, 640)
 CROP_OVER_S = 1.5
 RECON_CPU_B = 8
 RECON_WINDOWS, RECON_CALLS = 5, 5
+# the training CLI (phase 5f): steps of its one epoch, loader workers, the
+# loader probe's batches (two a worker: a worker collates whole batches,
+# so an epoch of fewer keeps some idle), and the tolerance of two resumes
+# from one checkpoint on the card (K4's fold and cuDNN's weight gradients
+# may sum in another order); the bench line's deadline (phase 5g)
+CLI_STEPS, CLI_WORKERS = 4, 8
+PROBE_BATCHES = 2 * CLI_WORKERS
+CLI_RESUME_RTOL = 1e-3
+BENCH_DEADLINE_S = 420
 # tolerances of the float-order-dependent checks: K4 and K5 within 1e-5 x
 # the sum of the magnitudes of their terms; the end-to-end gradient within
 # 1e-4 x its kappa^2-weighted magnitudes (rasterizer.dense_gradient_and_
@@ -485,21 +518,6 @@ def sliver_faces(dev, S, B=2, F=3000):
     fv = torch.tensor(np.concatenate([xy, rng.uniform(9, 11, (B, F, 3, 1))], -1),
                       dtype=torch.float32, device=dev)
     return fv, torch.tensor(rng.normal(size=(B, F, 3, 3)), dtype=torch.float32, device=dev)
-
-
-def train_batch(B, S, seed):
-    """bench.py's synthetic training batch."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    return {
-        "img": rng.random((B, S, S, 3), np.float32),
-        "landmarks_fan": rng.uniform(-1, 1, (B, 68, 2)).astype(np.float32),
-        "flag_landmarks_fan": np.ones((B,), bool),
-        "landmarks_mp": rng.uniform(-1, 1, (B, 105, 2)).astype(np.float32),
-        "mask": (rng.random((B, S, S, 1)) > 0.5).astype(np.float32),
-        "img_mica": np.zeros((B, 112, 112, 3), np.float32),
-    }
 
 
 # kernel-name fragments -> class, first match wins (for the train profile)
@@ -786,6 +804,265 @@ def reconstruct_phase(bundle, encoder_state, out, B, S, card):
     return rec_launches
 
 
+def train_cli_phase(bundle, images, S, train_ms, card):
+    """Phase 5f: `smirk_tpu_torch.cli.train.main` in this process at full
+    width (the recipe's values as dotted overrides, no YAML: the card's
+    machine has no PyYAML), --synthetic, b32, 4 steps, 8 loader workers (a
+    loader starts no more workers than its epoch has batches), the port's
+    `assets.load_all` patched to the recentred procedural head, and one
+    direct `make_visualizations` (the machine has no PIL to write the
+    grid) -> {"loader_images_s", "cli_steps_s", "launches"} (K1, K3 and
+    K4's fold summed over the steps)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from smirk_tpu_torch import Predictor, assets
+    from smirk_tpu_torch.api import load_checkpoint
+    from smirk_tpu_torch.bench import train_batch
+    from smirk_tpu_torch.cli import train as train_cli
+    from smirk_tpu_torch.config import load_config
+    from smirk_tpu_torch.data.pipeline import load_dataloaders
+    from smirk_tpu_torch.render import rasterizer as R
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+    from smirk_tpu_torch.utils import checkpoint as ckpt
+
+    log(f"[5f] training CLI: smirk_tpu_torch.cli.train --synthetic at b{TRAIN_B}, {S} px, "
+        f"fp32, generator 32 features / 5 blocks, cycle on, {CLI_WORKERS} loader workers")
+    root = tempfile.mkdtemp(prefix="smirk_cli_")
+    recipe = {"image_size": S, "arch.num_shape": 300, "arch.num_expression": 50,
+              "arch.enable_fuse_generator": True, "train.mask_ratio": 0.01,
+              "train.mask_dilation_radius": 10, "train.Ke": 1,
+              "train.loss_weights.cycle_loss": 1.0, "train.batch_size": TRAIN_B,
+              "train.samples_per_epoch": CLI_STEPS * TRAIN_B, "train.num_epochs": 1,
+              "train.ckpt_every_steps": 2, "train.num_workers": CLI_WORKERS,
+              "train.visualize_every": 0, "train.save_every": 1,
+              "train.log_losses_every": 1}
+
+    def args(logdir, **extra):
+        return ["--synthetic"] + [f"{k}={v}" for k, v in
+                                  dict(recipe, **{"train.log_path": logdir}, **extra).items()]
+
+    def records(logdir):
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    steps = []
+    step_fn, load_all = SmirkSystem.train_step, assets.load_all
+
+    def counted_step(self, *a, **kw):
+        R.reset_launch_counts()
+        out = step_fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        steps.append({k.__name__: k.launches for k in R.KERNELS})
+        return out
+
+    SmirkSystem.train_step = counted_step
+    assets.load_all = lambda *a, **kw: bundle
+    try:
+        # the loader alone, the card idle: a warm epoch of PROBE_BATCHES
+        # (two a worker), then a timed one
+        config = load_config(None, tuple(args(os.path.join(root, "probe"))[1:]))
+        synth_len = os.environ.get("SMIRK_SYNTH_LEN")
+        os.environ["SMIRK_SYNTH_LEN"] = str(PROBE_BATCHES * TRAIN_B)
+        try:
+            loader, _ = load_dataloaders(config, synthetic=True, pin_memory=True)
+        finally:
+            if synth_len is None:
+                del os.environ["SMIRK_SYNTH_LEN"]
+            else:
+                os.environ["SMIRK_SYNTH_LEN"] = synth_len
+        for _ in loader:  # spawns the workers and warms them
+            pass
+        t = time.perf_counter()
+        n_img = sum(int(b["img"].shape[0]) for b in loader)
+        loader_s = time.perf_counter() - t
+        loader_ips = n_img / loader_s
+        del loader
+        log(f"    the loader alone: {n_img} images in {loader_s:.3f} s = {loader_ips:.1f} "
+            f"images/s ({CLI_WORKERS} workers, {PROBE_BATCHES} batches, the card idle; "
+            f"{CLI_WORKERS * 1e3 / loader_ips:.1f} ms a sample a worker); a b{TRAIN_B} step "
+            f"needs {TRAIN_B / (train_ms[0] / 1e3):.1f} (p0) / "
+            f"{TRAIN_B / (train_ms[1] / 1e3):.1f} (p1) images/s at [6]'s train_step times "
+            f"{train_ms[0]:.3f} / {train_ms[1]:.3f} ms {card}")
+
+        run1 = os.path.join(root, "run1")
+        t = time.perf_counter()
+        train_cli.main(args(run1))
+        cli_s = time.perf_counter() - t
+        recs = records(run1)
+        check(all(math.isfinite(v) for r in recs for v in r.values() if isinstance(v, float)),
+              f"every metrics.jsonl record finite ({len(recs)} records)")
+        train_recs = [r for r in recs if r["phase"] == "train"]
+        check([r["global_step"] for r in train_recs] == list(range(1, CLI_STEPS + 1)),
+              f"{CLI_STEPS} train steps logged")
+        for f in ("last_state.pt", "model_0.pt", "config.json"):
+            check(os.path.isfile(os.path.join(run1, f)), f"{f} written")
+        check(len(steps) == CLI_STEPS and all(
+            all(st[k.__name__] > 0 for k in (R.raster_fused_windows, R.raster_planes_windows,
+                                             R.segment_moments_to_faces))
+            and st["fold_slots_to_faces"] == 0 and st["segment_moments"] == 0
+            for st in steps),
+            f"every CLI step launched K1, K3 and K4's fold, and neither K5 nor K4's store "
+            f"({steps[0]})")
+        launches = {k: sum(st[k] for st in steps) for k in steps[0]}
+        t_steps = [r["t"] for r in train_recs]
+        cli_sps = (len(t_steps) - 1) / max(t_steps[-1] - t_steps[0], 1e-9)
+        log(f"    the CLI: {CLI_STEPS} steps + 2 val batches + 3 checkpoint saves in "
+            f"{cli_s:.3f} s (worker spawn and set-up included; {CLI_STEPS} train and 2 val "
+            f"workers for the epoch's batches); steps 1 -> {CLI_STEPS} at "
+            f"{cli_sps:.3f} steps/s ({1e3 / cli_sps:.1f} ms a step, a checkpoint save "
+            f"inside) against [6]'s train_step {train_ms[0]:.3f} / {train_ms[1]:.3f} ms {card}")
+
+        pred = Predictor(checkpoint=os.path.join(run1, "model_0.pt"), bundle=bundle)
+        R.reset_launch_counts()
+        out = pred(images)
+        torch.cuda.synchronize()
+        check(R.raster_fused_windows.launches > 0 and all(
+            np.isfinite(v).all() for v in out.values()),
+            f"Predictor(checkpoint=model_0.pt) at b{images.shape[0]}: K1 launched, every "
+            "output finite")
+        enc_file, _ = load_checkpoint(os.path.join(run1, "model_0.pt"))
+        check(all(torch.equal(v.cpu(), enc_file[k])
+                  for k, v in pred.system.encoder.state_dict().items()),
+              "the Predictor's encoder is model_0.pt's")
+        del pred
+
+        run2 = os.path.join(root, "run2")
+        os.environ["SMIRK_FAULT_INJECT_STEP"] = "3"
+        try:
+            train_cli.main(args(run2))
+            raise AssertionError("the fault at step 3 did not fire")
+        except RuntimeError as e:
+            check("SMIRK_FAULT_INJECT_STEP=3" in str(e), f"run 2 crashed: {e}")
+        finally:
+            del os.environ["SMIRK_FAULT_INJECT_STEP"]
+        salvaged = os.path.join(run2, "last_state.pt")
+        check(torch.load(salvaged, weights_only=True)["step"] == 3,
+              "run 2 salvaged last_state.pt at step 3")
+        saved_copy = os.path.join(root, "salvaged.pt")
+        shutil.copyfile(salvaged, saved_copy)
+
+        train_cli.main(args(run2, resume_state=saved_copy))
+        resumed = [r["global_step"] for r in records(run2)
+                   if r["phase"] == "train" and r["global_step"] > 3]
+        check(resumed == list(range(4, 4 + CLI_STEPS)),
+              f"run 3 resumed at step 3 and finished the epoch (steps {resumed})")
+        check(torch.load(salvaged, weights_only=True)["step"] == 3 + CLI_STEPS,
+              f"run 3's last_state.pt at step {3 + CLI_STEPS}")
+
+        # the resume on the card: two systems restored from the salvaged file
+        # take the same two steps on one batch; K4's fold and cuDNN's weight
+        # gradients may sum in another order, so within CLI_RESUME_RTOL
+        batch = train_batch(TRAIN_B, S, 1)
+        runs = []
+        for _ in range(2):
+            s_ = SmirkSystem(config, bundle)
+            ckpt.restore_state(s_, saved_copy)
+            steps_ = [s_.train_step(batch, p) for p in (3, 4)]
+            runs.append([m for m, _ in steps_])
+        worst = max(abs(a[k] - b[k]) / (abs(b[k]) + 1e-6)
+                    for a, b in zip(*runs) for k in b)
+        check(worst <= CLI_RESUME_RTOL,
+              f"two restores of the salvaged state, two steps each: metrics within "
+              f"{CLI_RESUME_RTOL:g} relative (worst {worst:.3g})")
+        # the visualizations of the cycle step (parity 3: the generator
+        # frozen), as visualize_every would draw them
+        viz = s_.make_visualizations(batch, steps_[0][1])
+        torch.cuda.synchronize()
+        panels = {k: tuple(v.shape) for k, v in viz.items() if v is not None}
+        check(all(bool(torch.isfinite(v).all()) for v in viz.values() if v is not None)
+              and "2nd_path" in panels and "rendered_img_base" in panels,
+              f"make_visualizations: every panel finite ({panels})")
+        del s_, steps_, viz
+        return {"loader_images_s": loader_ips, "cli_steps_s": cli_sps, "launches": launches}
+    finally:
+        SmirkSystem.train_step = step_fn
+        assets.load_all = load_all
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def bench_phase(card):
+    """Phase 5g: `python -m smirk_tpu_torch.bench` as a child process ->
+    its final line (checked: a provisional line first, every field present
+    and finite, tf32 false)."""
+    import os
+
+    import torch
+
+    from smirk_tpu_torch.bench import FIELDS, WORKLOADS
+
+    log(f"[5g] the bench line: python -m smirk_tpu_torch.bench (deadline "
+        f"{BENCH_DEADLINE_S} s)")
+    torch.cuda.empty_cache()
+    env = dict(os.environ, SMIRK_BENCH_DEADLINE_S=str(BENCH_DEADLINE_S))
+    proc = subprocess.run([sys.executable, "-m", "smirk_tpu_torch.bench"], capture_output=True,
+                          text=True, env=env, timeout=BENCH_DEADLINE_S + 30,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    check(len(lines) >= 2 and lines[0].get("provisional") is True,
+          "the bench printed a provisional line first")
+    final = lines[-1]
+    if proc.returncode != 0:
+        log(proc.stderr[-2000:])
+    fields = [f for w in WORKLOADS for f in FIELDS[w]]
+    check(proc.returncode == 0 and final["provisional"] is False and all(
+        isinstance(final.get(f), (int, float)) and math.isfinite(final[f]) for f in fields),
+        f"the bench's final line has every field finite (rc {proc.returncode})")
+    check(final["tf32"] is False, "the bench line reads tf32: false")
+    log("    bench line: " + json.dumps(final))
+    return final
+
+
+def f1_phase(system, img):
+    """Phase 5h: F1 on the card. With both global TF32 flags True,
+    `SmirkSystem.infer` equals (bitwise) a call with them False; the same
+    call with the pin bypassed runs TF32 and differs by more; the globals
+    read True after the pinned call."""
+    import torch
+
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    log(f"[5h] F1: SmirkSystem.infer at b{img.shape[0]} with the global TF32 flags "
+        "True vs False; the pin bypassed")
+    keys = ("expression_params", "shape_params", "vertices", "rendered_img")
+
+    def flags(v):
+        torch.backends.cudnn.allow_tf32 = v
+        torch.backends.cuda.matmul.allow_tf32 = v
+
+    seen = []
+    hook = system.encoder.register_forward_pre_hook(lambda m, a: seen.append(
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    try:
+        flags(False)
+        off = system.infer(img)
+        flags(True)
+        seen.clear()
+        on = system.infer(img)
+        check(seen == [(False, False)], f"inside the pinned call both flags read False ({seen})")
+        check((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+              == (True, True), "the globals read True after the pinned call")
+        unpinned = SmirkSystem.infer.__wrapped__(system, img)  # fp32_math bypassed
+        torch.cuda.synchronize()
+        d_pin = max(float((on[k] - off[k]).abs().max()) for k in keys)
+        if all(torch.equal(on[k], off[k]) for k in keys):
+            log(f"  ok: infer with the globals True == with them False, bitwise "
+                f"({', '.join(keys)})")
+        else:  # cuDNN chose another algorithm: held within 1e-6 instead
+            check(d_pin <= 1e-6, f"NOT bitwise: infer with the globals True vs False "
+                  f"max |diff| {d_pin:.3g} <= 1e-6")
+        d_tf32 = max(float((unpinned[k] - off[k]).abs().max()) for k in keys)
+        check(d_tf32 > max(d_pin, 1e-6), f"the pin bypassed (TF32) differs by more: max "
+              f"|diff| {d_tf32:.3g}")
+    finally:
+        hook.remove()
+        flags(False)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -799,7 +1076,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
-        from smirk_tpu_torch import Predictor, kernels
+        from smirk_tpu_torch import Predictor, bench, kernels
         from smirk_tpu_torch.assets import procedural_bundle
         from smirk_tpu_torch.render import rasterizer as R
     except ImportError as e:
@@ -1342,7 +1619,7 @@ def main(argv=None) -> int:
     log(f"[5b] training path: SmirkSystem.train_step at b{TB}, {S} px, fp32, "
         "both parities")
     tsys = SmirkSystem(Config(), bundle)  # the card
-    tbatch = train_batch(TB, S, 0)
+    tbatch = bench.train_batch(TB, S, 0)  # bench.py's synthetic batch
     gen_t = torch.Generator(device=dev).manual_seed(0)
     enc0 = {n: p.detach().clone() for n, p in tsys.encoder.named_parameters()}
     gen0 = [p.detach().clone() for p in tsys.generator.parameters()]
@@ -1777,6 +2054,11 @@ def main(argv=None) -> int:
     # after the timings of [6], so that they run on the process state of
     # the phases before them; its launches are counted with their own reset
     rec_launches = reconstruct_phase(bundle, system.encoder.state_dict(), out, B, S, card)
+    # ---------------- 5f-5h. the training CLI, the bench line, F1 ----------------
+    cli_info = train_cli_phase(bundle, images, S, train_ms, card)
+    log("    " + json.dumps(cli_info))
+    bench_phase(card)
+    f1_phase(system, img)
 
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())

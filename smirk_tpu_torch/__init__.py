@@ -12,12 +12,17 @@ Layout:
                         and differentiable), renderer
   masking/, losses/     mesh-anchored pixel hints and masks; the losses
   csrc/                 CUDA kernels (sm_90a), built by kernels.py
-  train/                SmirkSystem: infer, reconstruct and the two-path
-                        train_step
-  data/                 the landmark crop (batched warp) and hull mask
-  utils/                weight conversion, visualisation, MJPEG-AVI IO
-  cli/                  the image and video demos, the mediapipe wrapper
+  train/                SmirkSystem: infer, reconstruct, the two-path
+                        train_step, eval_step, make_visualizations (each
+                        in exact fp32: device.fp32_math)
+  data/                 the landmark crop (batched warp) and hull mask;
+                        the training samples, datasets and loader
+  utils/                weight conversion, checkpoints, the metric log,
+                        profiling, visualisation, MJPEG-AVI IO
+  cli/                  the training CLI, the image and video demos, the
+                        mediapipe wrapper
   api.py                Predictor (resize or landmark crop; reconstruct)
+  bench.py              the bench line (infer, train, reconstruct)
 """
 
 __version__ = "0.1.0"

@@ -28,6 +28,7 @@ import torch
 from smirk_tpu_torch import assets
 from smirk_tpu_torch.config import Config
 from smirk_tpu_torch.data import transforms as T
+from smirk_tpu_torch.device import fp32_math
 from smirk_tpu_torch.train.trainer import SmirkSystem
 
 __all__ = ["Predictor"]
@@ -158,7 +159,7 @@ class Predictor:
         self.system = SmirkSystem(
             config or Config(), bundle if bundle is not None else assets.load_all(),
             device=device, raster_compact=raster_compact,
-            backbone_stages=backbone_stages)
+            backbone_stages=backbone_stages, training=False)
         self.use_generator = use_generator and self.system.generator is not None
         load_weights(self.system, checkpoint, self.use_generator)
         self.image_size = self.system.config.image_size
@@ -221,6 +222,7 @@ class Predictor:
         """Full pipeline: FLAME params + geometry + rendered images."""
         return self._to_numpy(self.system.infer(self._prepare(images, landmarks)))
 
+    @fp32_math()
     @torch.inference_mode()
     def encode(self, images, landmarks=None) -> Dict[str, np.ndarray]:
         """Encoder only: FLAME parameters without geometry or rendering."""
@@ -258,6 +260,7 @@ class Predictor:
         return self._to_numpy({"cropped_img": imgs, **out, "masked_img": masked,
                                "reconstructed_img": recon})
 
+    @fp32_math()
     @torch.inference_mode()
     def render_params(self, params: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         """FLAME params (from __call__/encode, possibly edited) -> fresh

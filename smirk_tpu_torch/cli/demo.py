@@ -30,7 +30,8 @@ def build_system(checkpoint: Optional[str], use_generator: bool,
     from smirk_tpu_torch.config import Config
     from smirk_tpu_torch.train.trainer import SmirkSystem
 
-    system = SmirkSystem(Config(), assets.load_all(), device=device, steps_per_epoch=1)
+    system = SmirkSystem(Config(), assets.load_all(), device=device, steps_per_epoch=1,
+                         training=False)
     load_weights(system, checkpoint, use_generator)
     return system
 

@@ -86,8 +86,10 @@ def generator_fn(system):
     """The JAX video demo's generator branch: GEN_POINTS mesh points, all of
     them hints, compose_mask with dilation 10 and its default noise and
     random mask, the generator on [render | masked]."""
+    from smirk_tpu_torch.device import fp32_math
     from smirk_tpu_torch.masking import masking as M
 
+    @fp32_math()
     @torch.inference_mode()
     def run(imgs, out, hulls, seed):
         gen = torch.Generator(device=imgs.device).manual_seed(seed)

@@ -16,8 +16,16 @@ what the reconstruct path needs from smirk_tpu/data/transforms.py).
 
 `warp_affine_np` and `convex_hull_mask_np` state the same functions in
 numpy for one image; they are the oracles the device versions are checked
-against on the card. The augmentation of the training data pipeline
-(`augment`, the hue and Lab helpers, CLAHE) is not copied.
+against on the card.
+
+The training data pipeline's host side, numpy only (the loader's workers
+must not touch the card): `warp_affine_host` (one image; order 1 is
+`warp_affine_np`, order 0 the JAX package's nearest-neighbour copy),
+`augment` (photometric + shift-scale-rotate, the JAX package's op order,
+probabilities and draws from the caller's numpy Generator), with the hue
+rotation, the sRGB <-> Lab helpers, CLAHE (the JAX package's numpy oracle
+of its native code) and `uniform_filter` (scipy's box filter with its
+default reflect boundary, restated without scipy).
 """
 from __future__ import annotations
 
@@ -309,3 +317,263 @@ def crop_faces(images: torch.Tensor, landmarks: np.ndarray, image_size: int):
     tforms, kpts = crop_tforms(landmarks, image_size)
     crop = warp_affine(images, tforms, (image_size, image_size)).clamp(0, 255)
     return div_exact(crop, 255.0), tforms, kpts
+
+
+# ------------------------------ host-side warp ------------------------------
+
+
+def _warp_affine_nearest_np(image: np.ndarray, M: np.ndarray,
+                            out_shape: Tuple[int, int]) -> np.ndarray:
+    """Nearest-neighbour warp, forward matrix M, zero fill outside: scipy's
+    affine_transform(order=0, grid-constant) semantics, floor(v + 0.5)."""
+    img = np.asarray(image, np.float32)
+    H, W = img.shape[:2]
+    OH, OW = out_shape
+    Minv = np.linalg.inv(np.asarray(M, np.float64))
+    xo = np.arange(OW, dtype=np.float64)
+    yo = np.arange(OH, dtype=np.float64)[:, None]
+    ix = np.floor(Minv[0, 0] * xo + Minv[0, 1] * yo + Minv[0, 2] + 0.5)
+    iy = np.floor(Minv[1, 0] * xo + Minv[1, 1] * yo + Minv[1, 2] + 0.5)
+    valid = (ix >= 0) & (ix < W) & (iy >= 0) & (iy < H)
+    ixc = np.clip(ix, 0, W - 1).astype(np.int64)
+    iyc = np.clip(iy, 0, H - 1).astype(np.int64)
+    out = np.where(valid[..., None], img[iyc, ixc], 0.0)
+    return out.astype(np.float32)
+
+
+def warp_affine_host(image: np.ndarray, M: np.ndarray, out_shape: Tuple[int, int],
+                     order: int = 1) -> np.ndarray:
+    """One (H,W,C) image through its FORWARD 3x3 matrix on the host:
+    bilinear over the zero-extended image (order 1, `warp_affine_np`) or
+    nearest (order 0)."""
+    if order == 0:
+        return _warp_affine_nearest_np(image, M, out_shape)
+    return warp_affine_np(image, M, out_shape, order)
+
+
+# ------------------------------ augmentation ------------------------------
+
+
+_LUMA = np.array([0.299, 0.587, 0.114], np.float32)
+
+
+def _rotate_hue(img: np.ndarray, turns: float) -> np.ndarray:
+    """Rotate hue by `turns` of the full circle: rotation about the RGB gray
+    axis u=(1,1,1)/sqrt(3) (R = cI + (1-c)uu^T + s[u]x), the linear-RGB
+    equivalent of torchvision adjust_hue's HSV shift."""
+    a = 2.0 * np.pi * turns
+    c, s = np.cos(a), np.sin(a)
+    cross = np.array([[0, -1, 1], [1, 0, -1], [-1, 1, 0]], np.float32)
+    m = c * np.eye(3, dtype=np.float32) + (1 - c) / 3.0 + (
+        s / np.sqrt(3.0)) * cross
+    return img @ m.T
+
+
+# D65 sRGB <-> XYZ matrices of the cv2 RGB2LAB formula (sRGB-gamma input,
+# the OpenCV convention the reference's albumentations CLAHE goes through)
+_RGB2XYZ = np.array([[0.412453, 0.357580, 0.180423],
+                     [0.212671, 0.715160, 0.072169],
+                     [0.019334, 0.119193, 0.950227]], np.float64)
+_XYZ2RGB = np.linalg.inv(_RGB2XYZ)
+_LAB_EPS = 0.008856
+_LAB_KAPPA = 903.3
+
+
+def _srgb_to_linear(c: np.ndarray) -> np.ndarray:
+    return np.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
+
+
+def _linear_to_srgb(c: np.ndarray) -> np.ndarray:
+    return np.where(c <= 0.0031308, 12.92 * c,
+                    1.055 * np.maximum(c, 0.0) ** (1.0 / 2.4) - 0.055)
+
+
+def _rgb_to_lab(img: np.ndarray):
+    """sRGB float [0,1] -> (L [0,100], a, b), cv2 COLOR_RGB2LAB semantics
+    in float instead of cv2's u8 fixed-point tables."""
+    xyz = _srgb_to_linear(img.astype(np.float64)) @ _RGB2XYZ.T
+    xyz /= np.array([0.950456, 1.0, 1.088754])
+    f = np.where(xyz > _LAB_EPS, np.cbrt(np.maximum(xyz, 0)),
+                 7.787 * xyz + 16.0 / 116.0)
+    L = np.where(xyz[..., 1] > _LAB_EPS,
+                 116.0 * f[..., 1] - 16.0, _LAB_KAPPA * xyz[..., 1])
+    a = 500.0 * (f[..., 0] - f[..., 1])
+    b = 200.0 * (f[..., 1] - f[..., 2])
+    return L, a, b
+
+
+def _lab_to_rgb(L: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    fy = (L + 16.0) / 116.0
+    fx = fy + a / 500.0
+    fz = fy - b / 200.0
+
+    def _inv(f):
+        f3 = f ** 3
+        return np.where(f3 > _LAB_EPS, f3, (f - 16.0 / 116.0) / 7.787)
+
+    yr = np.where(L > _LAB_KAPPA * _LAB_EPS,
+                  ((L + 16.0) / 116.0) ** 3, L / _LAB_KAPPA)
+    xyz = np.stack([_inv(fx) * 0.950456, yr, _inv(fz) * 1.088754], -1)
+    lin = np.clip(xyz @ _XYZ2RGB.T, 0.0, 1.0)
+    return _linear_to_srgb(lin).astype(np.float32)
+
+
+def _clahe_apply_u8(channel: np.ndarray, clip_limit: float,
+                    tiles: Tuple[int, int] = (8, 8)) -> np.ndarray:
+    """CLAHE over a (H,W) uint8 channel, OpenCV's semantics: integer clip
+    limit scaled by the tile area, batch + residual-step redistribution of
+    the excess, bilinear interpolation between the 4 surrounding tile LUTs,
+    reflect-101 right/bottom padding when the size is not tile-divisible."""
+    ch = np.asarray(channel, np.uint8)
+    H, W = ch.shape
+    tx_n, ty_n = int(tiles[0]), int(tiles[1])
+    if W % tx_n == 0 and H % ty_n == 0:
+        src = ch
+    else:
+        pw, ph = tx_n - W % tx_n, ty_n - H % ty_n
+        src = np.pad(ch, ((0, ph), (0, pw)), mode="reflect")
+    PH, PW = src.shape
+    tw, th = PW // tx_n, PH // ty_n
+    area = tw * th
+    clip = max(1, int(clip_limit * area / 256.0)) if clip_limit > 0 else 0
+
+    tiles_v = src.reshape(ty_n, th, tx_n, tw).transpose(0, 2, 1, 3)
+    tile_ids = np.arange(ty_n * tx_n)[:, None, None]
+    idx = tile_ids * 256 + tiles_v.reshape(ty_n * tx_n, th, tw)
+    hist = np.bincount(idx.ravel(), minlength=ty_n * tx_n * 256).reshape(
+        ty_n * tx_n, 256).astype(np.int64)
+    if clip > 0:
+        clipped = np.maximum(hist - clip, 0).sum(1)
+        hist = np.minimum(hist, clip) + (clipped // 256)[:, None]
+        residual = clipped - (clipped // 256) * 256
+        for t in np.nonzero(residual)[0]:
+            r = int(residual[t])
+            step = max(1, 256 // r)
+            hist[t, np.arange(0, 256, step)[:r]] += 1
+    lut = np.rint(np.cumsum(hist, 1) * (255.0 / area))
+    lut = np.clip(lut, 0, 255).reshape(ty_n, tx_n, 256)
+
+    # x * (1/tw), not x/tw: the 1-ulp difference flips floor() at exact
+    # tile boundaries, and cv2 multiplies
+    txf = np.arange(W) * (1.0 / tw) - 0.5
+    tx1 = np.floor(txf).astype(np.int64)
+    xa = txf - tx1
+    tx2 = np.minimum(tx1 + 1, tx_n - 1)
+    tx1 = np.maximum(tx1, 0)
+    tyf = np.arange(H) * (1.0 / th) - 0.5
+    ty1 = np.floor(tyf).astype(np.int64)
+    ya = (tyf - ty1)[:, None]
+    ty2 = np.minimum(ty1 + 1, ty_n - 1)
+    ty1 = np.maximum(ty1, 0)
+    v = ch.astype(np.int64)
+    r1 = ty1[:, None]
+    r2 = ty2[:, None]
+    res = ((lut[r1, tx1[None, :], v] * (1 - xa) +
+            lut[r1, tx2[None, :], v] * xa) * (1 - ya) +
+           (lut[r2, tx1[None, :], v] * (1 - xa) +
+            lut[r2, tx2[None, :], v] * xa) * ya)
+    return np.clip(np.rint(res), 0, 255).astype(np.uint8)
+
+
+def _clahe(img: np.ndarray, clip_limit: float) -> np.ndarray:
+    """CLAHE on the Lab L channel (the reference's albumentations CLAHE,
+    which wraps cv2): sRGB-gamma float Lab, u8 quantization on both ends
+    and of L to L * 255 / 100, as cv2's u8 pipeline."""
+    rgb = np.clip(img, 0.0, 1.0).astype(np.float32)
+    rgb_q = np.rint(rgb * 255.0) / 255.0
+    L, a, b = _rgb_to_lab(rgb_q)
+    l_u8 = np.clip(np.rint(L * (255.0 / 100.0)), 0, 255).astype(np.uint8)
+    l_eq = _clahe_apply_u8(l_u8, clip_limit)
+    out = _lab_to_rgb(l_eq.astype(np.float64) * (100.0 / 255.0), a, b)
+    return (np.rint(out * 255.0) / 255.0).astype(np.float32)
+
+
+def uniform_filter(img: np.ndarray, k: int) -> np.ndarray:
+    """k x k box mean over the two leading axes of an (H,W,C) float32
+    image, each channel alone: scipy's `ndimage.uniform_filter(img,
+    size=(k, k, 1))` with its default mode "reflect" (d c b a | a b c d,
+    numpy's "symmetric"), one axis at a time in float64, rounded to the
+    image's dtype after each axis as scipy does. k odd."""
+    out = np.asarray(img)
+    r = k // 2
+    for axis in (0, 1):
+        pad = [(0, 0)] * out.ndim
+        pad[axis] = (r, r)
+        p = np.pad(out.astype(np.float64), pad, mode="symmetric")
+        n = out.shape[axis]
+        acc = sum(np.take(p, np.arange(i, i + n), axis=axis) for i in range(k))
+        out = (acc / k).astype(img.dtype)
+    return out
+
+
+def augment(
+    rng: np.random.Generator,
+    image: np.ndarray,  # (H,W,3) float [0,1]
+    mask: np.ndarray,  # (H,W) float
+    keypoints: np.ndarray,  # (K,2)
+    keypoints2: np.ndarray,  # (K2,2)
+):
+    """Photometric + shift/scale/rotate augmentation with keypoint sync.
+
+    The reference's albumentations pipeline (base_dataset.py:41-52) at the
+    libraries' default limits, as the JAX package states it:
+    RandomBrightnessContrast(0.5), RandomGamma(0.5), ColorJitter(0.05 x4,
+    0.25), CLAHE(0.255), RGBShift(0.25), Blur(0.1), GaussNoise(0.5),
+    ShiftScaleRotate(0.05/0.1/10deg, border 0, 0.9); the same draws in the
+    same order from `rng`, so one seeded Generator gives the JAX package's
+    sample.
+    """
+    img = image.astype(np.float32)
+
+    if rng.random() < 0.5:  # RandomBrightnessContrast (limits 0.2/0.2)
+        img = img * (1 + rng.uniform(-0.2, 0.2)) + rng.uniform(-0.2, 0.2)
+    if rng.random() < 0.5:  # RandomGamma (gamma_limit 80..120)
+        img = np.clip(img, 0, 1) ** rng.uniform(0.8, 1.2)
+    if rng.random() < 0.25:  # ColorJitter(0.05,0.05,0.05,0.05), random order
+        for op in rng.permutation(4):
+            if op == 0:  # brightness
+                img = img * rng.uniform(0.95, 1.05)
+            elif op == 1:  # contrast: blend with the mean gray
+                f = rng.uniform(0.95, 1.05)
+                img = img * f + float((img @ _LUMA).mean()) * (1 - f)
+            elif op == 2:  # saturation: blend with per-pixel gray
+                f = rng.uniform(0.95, 1.05)
+                gray = (img @ _LUMA)[..., None]
+                img = img * f + gray * (1 - f)
+            else:  # hue
+                img = _rotate_hue(img, rng.uniform(-0.05, 0.05))
+    if rng.random() < 0.255:  # CLAHE (clip_limit U(1,4), 8x8 tiles)
+        img = _clahe(img, rng.uniform(1.0, 4.0))
+    if rng.random() < 0.25:  # RGBShift (shift_limit 20/255 per channel)
+        img = img + rng.uniform(-20.0, 20.0, 3).astype(np.float32) / 255.0
+    if rng.random() < 0.1:  # Blur (box kernel, odd size 3/5/7: an even one
+        # would shift the content half a pixel off the keypoints)
+        k = 2 * int(rng.integers(1, 4)) + 1
+        img = uniform_filter(img, k)
+    if rng.random() < 0.5:  # GaussNoise (var_limit 10..50 on the 255 scale)
+        std = np.sqrt(rng.uniform(10.0, 50.0)) / 255.0
+        img = img + rng.normal(0, std, img.shape)
+    img = np.clip(img, 0, 1).astype(np.float32)
+
+    if rng.random() < 0.9:  # shift-scale-rotate
+        H, W = img.shape[:2]
+        angle = np.deg2rad(rng.uniform(-10, 10))
+        scale = 1 + rng.uniform(-0.1, 0.1)
+        tx = rng.uniform(-0.05, 0.05) * W
+        ty = rng.uniform(-0.05, 0.05) * H
+        c, s = np.cos(angle), np.sin(angle)
+        cx, cy = W / 2, H / 2
+        R = np.array(
+            [[scale * c, -scale * s, 0], [scale * s, scale * c, 0], [0, 0, 1]]
+        )
+        T1 = np.array([[1, 0, -cx], [0, 1, -cy], [0, 0, 1.0]])
+        T2 = np.array([[1, 0, cx + tx], [0, 1, cy + ty], [0, 0, 1.0]])
+        M = T2 @ R @ T1
+        img = warp_affine_host(img, M, (H, W))
+        mask = warp_affine_host(mask[..., None], M, (H, W), order=0)[..., 0]
+        keypoints = transform_points(M, keypoints)
+        keypoints2 = transform_points(M, keypoints2)
+        img = np.clip(img, 0, 1).astype(np.float32)
+
+    return img, mask.astype(np.float32), keypoints.astype(np.float32), \
+        keypoints2.astype(np.float32)

@@ -43,6 +43,10 @@ Differences from the JAX package, by design:
   * `reconstruct` runs the system's own generator (the JAX package passes
     its variables) with a torch.Generator or injected draws (`draws=`) in
     place of the key.
+
+Every entry point (`infer`, `train_step`, `eval_step`, `masked_input`,
+`reconstruct`, `make_visualizations`) runs its convolutions in exact fp32
+(`device.fp32_math`), whatever the process's global TF32 flags say.
 """
 from __future__ import annotations
 
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from smirk_tpu_torch.config import Config
-from smirk_tpu_torch.device import resolve_device
+from smirk_tpu_torch.device import fp32_math, resolve_device
 from smirk_tpu_torch.flame.model import FlameModel
 from smirk_tpu_torch.losses.losses import (
     landmark_mse, masked_landmark_mse, param_regularization,
@@ -184,7 +188,9 @@ class SmirkSystem:
     The encoder and the generator start from a seeded random init; load
     trained weights with their `load_state_dict`. Teachers accept None
     only (not ported); templates (T, >= n_exp) are the FaMoS expression
-    templates, zeros when None.
+    templates, zeros when None. training=False builds a system that only
+    serves (`Predictor`, the demos): it keeps no frozen base-encoder copy,
+    so the base-model regularization and `make_visualizations` raise.
     """
 
     def __init__(
@@ -202,6 +208,7 @@ class SmirkSystem:
         templates: Optional[np.ndarray] = None,
         generator_features: int = 32,
         generator_res_blocks: int = 5,
+        training: bool = True,
     ):
         self.device = resolve_device(device)
         self.config = config
@@ -248,11 +255,11 @@ class SmirkSystem:
         self.templates = to_dev(np.asarray(templates)[:, :c.arch.num_expression],
                                 torch.float32)
         self.num_mask_points = int(c.train.mask_ratio * c.image_size ** 2)
-        self.base_encoder = None
-        if c.train.use_base_model_for_regularization:
-            # the frozen copy of the initial encoder the regularization
-            # pulls toward (the JAX package's TrainState.base_encoder)
-            self.base_encoder = copy.deepcopy(self.encoder).eval().requires_grad_(False)
+        # the frozen copy of the initial encoder (the JAX package's
+        # TrainState.base_encoder): the regularization pulls toward it with
+        # use_base_model_for_regularization; the visualizations render it
+        self.base_encoder = (copy.deepcopy(self.encoder).eval().requires_grad_(False)
+                             if training else None)
 
         # --- optimizers: only the sub-encoders optimize_* enables ---
         flags = {"pose_encoder": c.train.optimize_pose,
@@ -280,6 +287,12 @@ class SmirkSystem:
                                 device=self.device)
             out[k] = t if t.dtype == torch.bool else t.to(torch.float32)
         return out
+
+    def _base_encoder(self) -> torch.nn.Module:
+        if self.base_encoder is None:
+            raise ValueError("this system was built with training=False and keeps no "
+                             "base encoder")
+        return self.base_encoder.eval()
 
     def _cycle_enabled(self) -> bool:
         return (self.config.train.loss_weights.cycle_loss > 0
@@ -325,9 +338,9 @@ class SmirkSystem:
         losses["landmark_loss_mp"] = landmark_mse(
             rend["landmarks_mp"], batch["landmarks_mp"][..., :2])
 
-        if self.base_encoder is not None:
+        if c.train.use_base_model_for_regularization:
             with torch.no_grad():
-                base_out = self.base_encoder(img)
+                base_out = self._base_encoder()(img)
         else:
             base_out = {
                 "expression_params": img.new_zeros((B, c.arch.num_expression)),
@@ -568,6 +581,7 @@ class SmirkSystem:
         values = torch.stack([metrics[k].detach().to(torch.float32) for k in keys])
         return dict(zip(keys, values.tolist()))
 
+    @fp32_math()
     def train_step(self, batch, parity: int, generator: Optional[torch.Generator] = None,
                    draws: Optional[Mapping[str, Mapping[str, object]]] = None):
         """One training iteration -> (metrics {name: float}, aux).
@@ -597,6 +611,7 @@ class SmirkSystem:
         self.step += 1
         return self._floats(metrics), aux
 
+    @fp32_math()
     @torch.no_grad()
     def eval_step(self, batch, generator: Optional[torch.Generator] = None,
                   draws: Optional[Mapping[str, object]] = None):
@@ -612,6 +627,7 @@ class SmirkSystem:
 
     # ------------------------------ inference ------------------------------
 
+    @fp32_math()
     @torch.inference_mode()
     def infer(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
         """(B,S,S,3) f32 NHWC images in [0,1] -> params + geometry + render.
@@ -636,6 +652,7 @@ class SmirkSystem:
         mul = float(c.train.mask_ratio_mul)
         return int(float(c.train.mask_ratio) * mul * S * S), mul
 
+    @fp32_math()
     @torch.inference_mode()
     def masked_input(self, infer_out: Mapping[str, torch.Tensor], img, hull,
                      generator: Optional[torch.Generator] = None,
@@ -676,6 +693,7 @@ class SmirkSystem:
             random_mask=0.01, generator=generator, noise=draws.get("noise"),
             drop_centers=draws.get("drop_centers"))
 
+    @fp32_math()
     @torch.inference_mode()
     def reconstruct(self, infer_out: Mapping[str, torch.Tensor], img, hull,
                     generator: Optional[torch.Generator] = None,
@@ -691,3 +709,43 @@ class SmirkSystem:
         self.generator.eval()
         recon = self.generator(torch.cat([infer_out["rendered_img"], masked], dim=-1))
         return masked, recon
+
+    # ---------------------------- visualization ----------------------------
+
+    @fp32_math()
+    @torch.inference_mode()
+    def make_visualizations(self, batch, aux) -> Dict[str, Optional[torch.Tensor]]:
+        """The training panels that `utils.viz.training_grid` lays out
+        (the JAX package's `make_visualizations`): the step's render,
+        masked input, reconstruction, loss map and landmarks from `aux`
+        (`train_step` / `eval_step`), plus the base encoder's render, the
+        zero-pose / zero-expression render (cam [7, 0, 0]) and, after a
+        cycle step, the cycle path's '2nd_path' stack: for each sample, Ke
+        groups of [augmented render | masked | reconstruction | re-render
+        of the re-encoded parameters]. Every render is the fused inference
+        raster; no MICA panels (the teachers are not ported)."""
+        img = self._batch({"img": batch["img"]})["img"]
+        B = img.shape[0]
+        enc_out = aux["encoder_output"]
+        zero_cam = img.new_tensor([[7.0, 0.0, 0.0]]).expand(B, 3)
+        viz = {k: aux.get(k) for k in ("rendered_img", "masked_img", "reconstructed_img",
+                                       "loss_img", "landmarks_fan", "landmarks_mp")}
+        base_out = self._base_encoder()(img)
+        viz["rendered_img_base"] = self.renderer(
+            self.flame(base_out)["vertices"], base_out["cam"], inference=True)["rendered_img"]
+        zero_flame = self.flame(enc_out, zero_expression=True, zero_pose=True)
+        viz["rendered_img_zero"] = self.renderer(
+            zero_flame["vertices"], zero_cam, inference=True)["rendered_img"]
+        sp = aux.get("second_path")
+        if sp is not None:
+            recon_feats = sp["recon_feats"]
+            rerender = self.renderer(self.flame(recon_feats)["vertices"], recon_feats["cam"],
+                                     inference=True)["rendered_img"]
+            KeB, H, W, C = rerender.shape
+            Ke = KeB // B
+            panels = [sp["rendered_img_2nd"], sp["masked_img_2nd"],
+                      sp["reconstructed_img_2nd"], rerender]
+            # (Ke*B, ...) k-major -> (B, Ke, 4, H, W, C) -> (B*Ke*4, ...)
+            stack = torch.stack([p.reshape(Ke, B, H, W, C).transpose(0, 1) for p in panels], 2)
+            viz["2nd_path"] = stack.reshape(B * Ke * 4, H, W, C)
+        return viz

@@ -14,11 +14,15 @@ state dicts, without importing JAX. The rules invert
   (blocks_0_1 -> blocks.0.1, pose_cam_layers_0 -> pose_cam_layers.0);
   generator blocks take the reference's names (encoder1/conv1 ->
   encoder1.enc1conv1, resnet_blocks_0/norm2 -> resnet_blocks.0.conv_block.6)
+
+`load_raw_state_dict` and `init_backbones_from_state_dicts` (the JAX
+package's `utils/importer.py` counterparts) start the three encoders'
+feature extractors from raw timm `tf_mobilenetv3_*` state dicts.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,3 +96,44 @@ def generator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, tor
     """{'params': ..., 'batch_stats': ...} of the Flax `SmirkGenerator` ->
     state dict for the port's `SmirkGenerator` (reference key names)."""
     return _state_dict_from_jax(variables)
+
+
+def load_raw_state_dict(path: str) -> Dict[str, Any]:
+    """A torch .pt/.tar pickle (loaded on the CPU) or an .npz -> a flat
+    tensor dict; unwraps the common {'state_dict': ...} nesting."""
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            return {k: torch.from_numpy(z[k]) for k in z.files}
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return sd
+
+
+def init_backbones_from_state_dicts(encoder: torch.nn.Module,
+                                    small_sd: Optional[Mapping[str, Any]] = None,
+                                    large_sd: Optional[Mapping[str, Any]] = None) -> None:
+    """ImageNet-pretrained backbone init of a `SmirkEncoder`, in place: raw
+    timm tf_mobilenetv3 state dicts (conv_stem., bn1., blocks.i.j...) onto
+    the feature extractors `{pose,shape,expression}_encoder.encoder` (the
+    small dict onto the pose encoder, the large onto the other two). The
+    heads keep their init; keys the backbone lacks (conv_head, classifier)
+    are ignored, a backbone key the dict lacks keeps its init, and a shape
+    mismatch raises ValueError."""
+    targets = [("pose_encoder", small_sd), ("shape_encoder", large_sd),
+               ("expression_encoder", large_sd)]
+    for name, sd in targets:
+        if sd is None:
+            continue
+        backbone = getattr(encoder, name).encoder
+        own = backbone.state_dict()
+        take = {}
+        for k, v in own.items():
+            if k not in sd:
+                continue
+            t = torch.as_tensor(np.asarray(sd[k]) if not torch.is_tensor(sd[k]) else sd[k])
+            if tuple(t.shape) != tuple(v.shape):
+                raise ValueError(f"shape mismatch for {name}.encoder.{k}: state dict "
+                                 f"{tuple(t.shape)} vs model {tuple(v.shape)}")
+            take[k] = t
+        backbone.load_state_dict(take, strict=False)

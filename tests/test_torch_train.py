@@ -360,12 +360,48 @@ def test_cosine_schedule_and_clip_rule():
             assert not torch.equal(via_torch[0], clipped[0]) or norm < 1e-3
 
 
+def compare_visualizations(jax_system, psys, batch, aux):
+    """`make_visualizations` on a train step's aux against the JAX
+    package's on the same aux, batch and base-encoder weights: the panels
+    the step hands over, and the '2nd_path' stack's layout, exactly; the
+    base-encoder, zero-pose and re-encoded renders within 1e-4 on >= 99 %
+    of their values (an edge pixel can change faces, as in
+    test_torch_infer.py)."""
+    jsys, state, _ = jax_system
+    psys.base_encoder.load_state_dict(encoder_state_dict_from_jax(state.base_encoder))
+    viz = psys.make_visualizations(batch, aux)
+    keep = ("encoder_output", "rendered_img", "masked_img", "reconstructed_img",
+            "loss_img", "landmarks_fan", "landmarks_mp", "second_path")
+    jaux = jax.tree_util.tree_map(lambda x: jnp.asarray(x.detach().numpy()),
+                                  {k: aux.get(k) for k in keep})
+    ref = jsys.make_visualizations(state, {"img": jnp.asarray(batch["img"])}, jaux)
+    assert set(viz) == set(ref)
+    for k in ("rendered_img", "masked_img", "reconstructed_img", "loss_img",
+              "landmarks_fan", "landmarks_mp"):
+        np.testing.assert_array_equal(viz[k].numpy(), np.asarray(ref[k]), err_msg=k)
+    B_, Ke = batch["img"].shape[0], KE
+    got, want = viz["2nd_path"].numpy(), np.asarray(ref["2nd_path"])
+    assert got.shape == want.shape == (B_ * Ke * 4, S, S, 3)
+    passed = np.arange(len(got)) % 4 != 3  # augmented render, masked, reconstruction
+    np.testing.assert_array_equal(got[passed], want[passed])
+    for k, a, b in (("rendered_img_base", viz["rendered_img_base"].numpy(),
+                     ref["rendered_img_base"]),
+                    ("rendered_img_zero", viz["rendered_img_zero"].numpy(),
+                     ref["rendered_img_zero"]),
+                    ("2nd_path re-render", got[~passed], want[~passed])):
+        close = np.abs(a - np.asarray(b)) <= 1e-4
+        assert np.isfinite(a).all() and close.mean() >= 0.99, (k, close.mean())
+    assert float(viz["rendered_img_base"].mean()) > 0  # the renders are not empty
+
+
 def test_train_step_both_parities(bundle, jax_system):
     """A CPU train_step of each parity moves what the JAX package's
     test_train_step_both_parities expects: the expression encoder and the
     generator move, pose and shape (optimize_* off) do not; the encoder's
     Adam steps once on parity 0 and twice on parity 1, the generator's the
-    other way round; the step counter and the batch statistics advance."""
+    other way round; the step counter and the batch statistics advance.
+    The second step's aux drives `make_visualizations` as the JAX
+    package's (`compare_visualizations`)."""
     _, state, _ = jax_system
     psys = port_system(bundle, state)
     batch = make_batch(2, b=4)
@@ -384,6 +420,7 @@ def test_train_step_both_parities(bundle, jax_system):
         assert m["raster_overflow"] == 0 and m["raster_overflow_2nd"] == 0
     assert set(aux1["second_path"]) == {"rendered_img_2nd", "masked_img_2nd",
                                         "reconstructed_img_2nd", "recon_feats"}
+    compare_visualizations(jax_system, psys, batch, aux1)
 
     def moved(prefix):
         return sum(float((p.detach() - enc0[n]).abs().sum())
