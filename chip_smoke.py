@@ -167,6 +167,23 @@ Phases (any failure exits non-zero):
     read True after the pinned call; then, the globals False, the pin's own
     cost: pinned and bypassed infer in alternating windows. Phases 5f-5h
     run after 5e;
+ 5i. serving (after 5h), on the main path's system at b64: `serving.
+    export_inference` on the card (its seconds, the artifact's bytes, K1's
+    custom op once in the graph), `load_inference` (outputs bitwise equal
+    to `SmirkSystem.infer`, also with both global TF32 flags True: the
+    call's fp32 pin; K1 launched once a call; coverage > 5 %, no overflow;
+    on a mismatch the first differing op of the two runs' op traces is
+    printed), the artifact's call time beside [6]'s infer (5 windows of
+    10, on host images and, alternating with infer, on the card's copy);
+    `InferenceServer.predict` on a ragged 100-image request (two chunks,
+    the tail trimmed); the HTTP daemon on a local port with one
+    warm-up and three b64 /predict requests from a client thread: the
+    round trip, images/s and its split (npz encode, the call, npz decode,
+    the socket); `export_reconstruct` (generator 32 features / 5 blocks)
+    bitwise equal to `SmirkSystem.reconstruct` on the same draws,
+    deterministic per seed, its call time beside [5g]'s
+    reconstruct_fp32_ms_batch; a 1-device `export_inference_sharded`
+    equal to the plain artifact and a 2-device one refused on this host;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -191,7 +208,9 @@ Phases (any failure exits non-zero):
     a call that cannot be captured fails the run);
  7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
     K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches;
-    K1's launches those of the main path and of the reconstruct call;
+    K1's launches those of the main path, of the reconstruct call and of
+    the served calls of 5i, its `direct_ms` the launch without the custom
+    op's dispatch;
     each row's `device_ms` beside its `ms`),
     with the rasters' bounds counted from this run's inputs as the work
     their function needs (the face-pixel pairs in the faces' boxes, the
@@ -1063,6 +1082,297 @@ def f1_phase(system, img):
         flags(False)
 
 
+def op_trace(fn):
+    """The ATen ops `fn` dispatches that compute floating outputs (no
+    views, copies or lifted constants), in order, each with the float64
+    sums of those outputs (a mismatch's diagnosis)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if not getattr(func, "is_view", False) and not any(
+                    w in name for w in ("lift_fresh", "alias", "detach", "copy")):
+                sums = [float(t.double().sum()) for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor) and t.is_floating_point()]
+                if sums:
+                    self.ops.append((name, sums))
+            return out
+
+    with Log() as log_:
+        fn()
+    return log_.ops
+
+
+def first_differing_op(fn_a, fn_b) -> str:
+    """Where two runs that should compute the same thing part: the first
+    non-view op whose name or output sums differ."""
+    a, b = op_trace(fn_a), op_trace(fn_b)
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x[0] != y[0]:
+            return f"op {i}: the sequences part, {x[0]} vs {y[0]}"
+        if x[1] != y[1]:
+            return f"op {i}: {x[0]} outputs differ (sums {x[1]} vs {y[1]})"
+    return f"no op differs in the first {min(len(a), len(b))} ({len(a)} vs {len(b)} ops)"
+
+
+def serving_phase(system, images, img, infer_w, bench_line, card):
+    """Phase 5i: the serving path at full width on the card, on the main
+    path's system (seeded weights, the default Config, its seeded
+    generator) -> the K1 launches of the served calls and a JSON-able
+    summary."""
+    import os
+    import shutil
+    import tempfile
+
+    from smirk_tpu_torch import kernels
+
+    # the artifacts (~0.1 GB) go to a scratch directory of the checkout's
+    # build directory (listed in .gitignore), removed at the end
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="serving_", dir=kernels.BUILD_DIR)
+    try:
+        return _serving_phase(system, images, img, infer_w, bench_line, card, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _serving_phase(system, images, img, infer_w, bench_line, card, tmp):
+    import io
+    import os
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from smirk_tpu_torch import serving
+    from smirk_tpu_torch.render import rasterizer as R
+
+    B, S = img.shape[0], img.shape[1]
+    log(f"[5i] serving: export_inference / load_inference at b{B}, InferenceServer, the "
+        f"HTTP daemon, export_reconstruct, the sharded export {card}")
+    res = {}
+    t_phase = time.perf_counter()
+    path = serving.export_inference(system, os.path.join(tmp, "inf"), batch_size=B)
+    res["export_s"] = time.perf_counter() - t_phase
+    t = time.perf_counter()
+    call = serving.load_inference(path)
+    res["load_s"] = time.perf_counter() - t
+    meta = call.meta
+    nodes = [n for n in call.modules[0].graph.nodes
+             if R.K1_OP.replace("::", ".") in str(n.target)]
+    res["artifact_bytes"] = meta["bytes"]
+    log(f"    export_inference: {res['export_s']:.2f} s, {meta['bytes'] / 1e6:.1f} MB, "
+        f"platforms {meta['platforms']}, torch {meta['torch']}; load_inference "
+        f"{res['load_s']:.2f} s")
+    check(len(nodes) == 1, f"the exported graph calls {R.K1_OP} once ({len(nodes)})")
+    want = system.infer(img)
+    launches = 0
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+        R.reset_launch_counts()
+        got = call(images)
+        torch.cuda.synchronize()
+        launches += R.raster_fused_windows.launches
+        check(R.raster_fused_windows.launches == 1,
+              f"a served call (TF32 globals {tf32}) launched K1 once "
+              f"({R.raster_fused_windows.launches})")
+        differ = [k for k in serving.OUTPUT_KEYS if not torch.equal(got[k], want[k])]
+        if differ:
+            log(f"    NOT bitwise ({differ}); the first differing op: " + first_differing_op(
+                lambda: call(img), lambda: system.infer(img)))
+        check(not differ, f"served outputs == SmirkSystem.infer, bitwise, TF32 globals {tf32}")
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cov = float(got["rendered_mask"].mean())
+    check(cov > 0.05 and int(got["raster_overflow"].max()) == 0,
+          f"served coverage {cov:.4f} > 0.05, raster_overflow == 0")
+
+    # the artifact on host images (what a server pays: the 38.5 MB copy in
+    # included), and on the card's copy in windows that alternate with
+    # infer's (the graph against the module's Python on the same input)
+    art_w = timed_windows(lambda: call(images), 5, 10)
+    dev_w, inf_w = [], []
+    for _ in range(5):
+        dev_w += timed_windows(lambda: call(img), 1, 10)
+        inf_w += timed_windows(lambda: system.infer(img), 1, 10)
+    dev_w, inf_w = sorted(dev_w), sorted(inf_w)
+    res.update(artifact_ms=statistics.median(art_w), artifact_spread_pct=spread(art_w),
+               artifact_on_card_ms=statistics.median(dev_w),
+               artifact_on_card_spread_pct=spread(dev_w),
+               infer_alternating_ms=statistics.median(inf_w),
+               infer_alternating_spread_pct=spread(inf_w))
+    log(f"    artifact call ms/batch{B} on host images median {res['artifact_ms']:.3f} over 5 "
+        f"windows of 10 (min {art_w[0]:.3f}, max {art_w[-1]:.3f}, spread {spread(art_w):.1f} "
+        f"%)  images/s {B / res['artifact_ms'] * 1e3:.1f}; on the card's copy "
+        f"{res['artifact_on_card_ms']:.3f} (spread {spread(dev_w):.1f} %) against infer "
+        f"{res['infer_alternating_ms']:.3f} (spread {spread(inf_w):.1f} %) in alternating "
+        f"windows; [6]'s infer {statistics.median(infer_w):.3f} (spread {spread(infer_w):.1f} "
+        f"%) {card}")
+
+    log("    InferenceServer.predict on a ragged request of 100 images")
+    server = serving.InferenceServer(path)
+    rag = np.random.default_rng(9).random((100, S, S, 3), np.float32)
+    R.reset_launch_counts()
+    out = server.predict(rag)
+    torch.cuda.synchronize()
+    rag_launches = R.raster_fused_windows.launches
+    launches += rag_launches
+    head = system.infer(rag[:B])
+    tail = system.infer(np.concatenate([rag[B:], np.zeros((2 * B - 100, S, S, 3),
+                                                          np.float32)]))
+    check(rag_launches == 2, f"the ragged request ran two chunks (K1 launched {rag_launches})")
+    check(all(v.shape[0] == 100 for v in out.values())
+          and all(np.array_equal(out[k][:B], head[k].cpu().numpy())
+                  and np.array_equal(out[k][B:], tail[k][:100 - B].cpu().numpy())
+                  for k in serving.OUTPUT_KEYS),
+          "the outputs trimmed to 100, the first chunk == infer on its images, the tail "
+          "== infer on the zero-padded chunk")
+
+    log("    the HTTP daemon on a local port, one b64 /predict from a client thread")
+    srv = serving.create_http_server(path, host="127.0.0.1", port=0)
+    handler_s, predict_s = [], []
+    do_post, predict = srv.RequestHandlerClass.do_POST, srv.inference.predict
+
+    def timed_post(h):
+        t = time.perf_counter()
+        do_post(h)
+        handler_s.append(time.perf_counter() - t)
+
+    def timed_predict(*a, **k):
+        t = time.perf_counter()
+        r = predict(*a, **k)
+        predict_s.append(time.perf_counter() - t)
+        return r
+
+    srv.RequestHandlerClass.do_POST, srv.inference.predict = timed_post, timed_predict
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    rounds = []
+
+    def client():
+        for _ in range(4):  # one warm-up, three timed
+            t0 = time.perf_counter()
+            buf = io.BytesIO()
+            np.savez(buf, img=images)
+            body = buf.getvalue()
+            t1 = time.perf_counter()
+            reply = urllib.request.urlopen(urllib.request.Request(
+                base + "/predict", data=body, method="POST")).read()
+            t2 = time.perf_counter()
+            npz = np.load(io.BytesIO(reply))
+            got_h = {k: npz[k] for k in npz.files}
+            t3 = time.perf_counter()
+            rounds.append((t1 - t0, t2 - t1, t3 - t2, len(body), len(reply), got_h))
+
+    try:
+        th = threading.Thread(target=client)
+        th.start()
+        th.join(120)
+    finally:
+        srv.shutdown()
+    check(len(rounds) == 4 and all(np.array_equal(rounds[-1][5][k], want[k].cpu().numpy())
+                                   for k in serving.OUTPUT_KEYS),
+          "the daemon's reply == SmirkSystem.infer")
+    # the server's own npz work, timed alone on the same request and reply
+    req_bytes = rounds[-1][3]
+    buf = io.BytesIO()
+    np.savez(buf, img=images)
+    t = time.perf_counter()
+    dec = np.load(io.BytesIO(buf.getvalue()))
+    _ = dec["img"]
+    s_dec = time.perf_counter() - t
+    t = time.perf_counter()
+    np.savez(io.BytesIO(), **rounds[-1][5])
+    s_enc = time.perf_counter() - t
+    med = {n: statistics.median(r[i] for r in rounds[1:]) * 1e3
+           for i, n in enumerate(("client_encode", "request", "client_decode"))}
+    hand = statistics.median(handler_s[1:]) * 1e3
+    call_ms = statistics.median(predict_s[1:]) * 1e3
+    rt = med["client_encode"] + med["request"] + med["client_decode"]
+    # the server's npz work is timed alone above; the socket is the rest of
+    # the request (both ends' reads and writes of the bodies)
+    split = {"npz_encode": med["client_encode"] + s_enc * 1e3,
+             "call": call_ms,
+             "npz_decode": s_dec * 1e3 + med["client_decode"],
+             "socket": med["request"] - call_ms - (s_enc + s_dec) * 1e3}
+    res.update(http_roundtrip_ms=rt, http_images_s=B / rt * 1e3, http_split_ms=split,
+               http_handler_ms=hand, http_request_mb=req_bytes / 1e6,
+               http_reply_mb=rounds[-1][4] / 1e6)
+    log(f"    HTTP round trip at b{B}: {rt:.3f} ms ({B / rt * 1e3:.1f} images/s; "
+        f"{req_bytes / 1e6:.1f} MB in, {rounds[-1][4] / 1e6:.1f} MB out); split (ms, median "
+        "of 3): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" {card}")
+
+    log(f"    export_reconstruct at b{B} (generator 32 features / 5 blocks)")
+    t = time.perf_counter()
+    rpath = serving.export_reconstruct(system, os.path.join(tmp, "rec"), batch_size=B)
+    res["reconstruct_export_s"] = time.perf_counter() - t
+    rserver = serving.InferenceServer(rpath)
+    hull = torch.ones((B, S, S, 1), device=img.device)  # bench.py's box hull
+    hull[:, S // 4: -S // 8, S // 4: -S // 4] = 0.0
+    gen = torch.Generator(device=img.device).manual_seed(11)
+    draws = system.reconstruct_draws(B, gen)
+    order = serving.RECONSTRUCT_DRAWS
+    R.reset_launch_counts()
+    rout = rserver.call(images, hull, *(draws[k] for k in order))
+    torch.cuda.synchronize()
+    launches += R.raster_fused_windows.launches
+    check(R.raster_fused_windows.launches == 1, "a served reconstruct call launched K1 once")
+    masked, recon = system.reconstruct(want, img, hull, draws=draws)
+    rdiff = [k for k, a, b in (("masked_img", rout["masked_img"], masked),
+                               ("reconstructed_img", rout["reconstructed_img"], recon))
+             if not torch.equal(a, b)]
+    if rdiff:
+        log(f"    NOT bitwise ({rdiff}); the first differing op: " + first_differing_op(
+            lambda: rserver.call(img, hull, *(draws[k] for k in order)),
+            lambda: system.reconstruct(system.infer(img), img, hull, draws=draws)))
+    check(not rdiff, "the reconstruct artifact == SmirkSystem.reconstruct with the same "
+          "draws, bitwise")
+    hull_np = hull.cpu().numpy()
+    p1 = rserver.predict(images, hull_np, seed=5)
+    p2 = rserver.predict(images, hull_np, seed=5)
+    check(all(np.array_equal(p1[k], p2[k]) for k in p1) and all(
+        np.isfinite(v).all() for v in p1.values()), "served reconstruct deterministic per seed")
+    # on the card's copy of the images, as the bench's one program takes them
+    rec_w = timed_windows(lambda: rserver.call(img, hull, *(draws[k] for k in order)), 5, 3)
+    res["reconstruct_artifact_ms"] = statistics.median(rec_w)
+    res["reconstruct_artifact_spread_pct"] = spread(rec_w)
+    log(f"    reconstruct artifact ms/batch{B} (images and draws on the card) median "
+        f"{res['reconstruct_artifact_ms']:.3f} over 5 windows of 3 (spread {spread(rec_w):.1f} "
+        f"%); [5g]'s reconstruct_fp32_ms_batch {bench_line['reconstruct_fp32_ms_batch']:.3f} "
+        f"(its draws inside) {card}")
+
+    log("    export_inference_sharded: 1 device against the plain artifact, 2 refused")
+    spath = serving.export_inference_sharded(system, os.path.join(tmp, "sh1"), batch_size=B,
+                                             n_devices=1)
+    R.reset_launch_counts()
+    sout = serving.load_inference(spath)(images)
+    torch.cuda.synchronize()
+    launches += R.raster_fused_windows.launches
+    check(all(torch.equal(sout[k], want[k]) for k in serving.OUTPUT_KEYS),
+          "the 1-device sharded artifact == the plain artifact, bitwise")
+    spath2 = serving.export_inference_sharded(system, os.path.join(tmp, "sh2"), batch_size=B,
+                                              n_devices=2)
+    refused = ""
+    try:
+        serving.load_inference(spath2)
+    except ValueError as e:
+        refused = str(e)
+    check(f"exported for 2 devices; host has {torch.cuda.device_count()}" in refused,
+          f"a 2-device artifact is refused on this host: {refused!r}")
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"    [5i] took {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -1855,6 +2165,10 @@ def main(argv=None) -> int:
         res["k2_library_ms"] = cuda_ms(lambda: bins3[bidx, rows], 200)
         kernel_ms("k1_ms", 
             lambda: R.raster_fused_windows(kept, bins, records, face_verts, S, TX), 50)
+        # the same launch without the custom op's dispatch (K1's CUDA
+        # implementation called directly): the op's host cost is the difference
+        res["k1_direct_ms"] = cuda_ms(
+            lambda: R._k1_cuda(kept, bins, records, face_verts, S, TX), 50)
         res["k1_plain_ms"] = cuda_ms(
             lambda: R.raster_fused_windows_plain(kept, bins, records, S, TX), 5, 1)
         kernel_ms("k1b_ms", 
@@ -2057,8 +2371,11 @@ def main(argv=None) -> int:
     # ---------------- 5f-5h. the training CLI, the bench line, F1 ----------------
     cli_info = train_cli_phase(bundle, images, S, train_ms, card)
     log("    " + json.dumps(cli_info))
-    bench_phase(card)
+    bench_line = bench_phase(card)
     f1_phase(system, img)
+    # ---------------- 5i. serving ----------------
+    serve_info = serving_phase(system, images, img, infer_w, bench_line, card)
+    log("    " + json.dumps(serve_info))
 
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())
@@ -2145,10 +2462,11 @@ def main(argv=None) -> int:
          "library_ms": res["k2_library_ms"]},
         {"name": "raster_fused_windows", "route": "cuda", "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1331",
-         "launches": launches["raster_fused_windows"] + rec_launches["raster_fused_windows"],
+         "launches": launches["raster_fused_windows"] + rec_launches["raster_fused_windows"]
+         + serve_info["launches"],
          "max_abs_err": k1_err,
          "ms": res["k1_ms"], "device_ms": dev_ms["k1_ms"],
-         "plain_ms": res["k1_plain_ms"],
+         "direct_ms": res["k1_direct_ms"], "plain_ms": res["k1_plain_ms"],
          "bound_ms": k1_bms, "bound_by": k1_by, "library_ms": None},
         {"name": "raster_fused_windows (padded layout)", "route": "cuda",
          "source": src + "raster_fused.cu",
@@ -2258,6 +2576,9 @@ def main(argv=None) -> int:
     k1c_bms, k1c_by = culled_bound(k1c_work, k1c_kept.numel(), 5, 3)
     k1c_old_bms, _ = raster_bound(int(k1c_kept.sum()), k1c_kept.numel(), 5, 3,
                                   *k1c_kept.shape)
+    log(f"    K1 through its custom op {res['k1_ms']:.4f} ms, its CUDA implementation "
+        f"called directly {res['k1_direct_ms']:.4f} ms: the op's dispatch adds "
+        f"{(res['k1_ms'] - res['k1_direct_ms']) * 1e3:.1f} us a call on the host {card}")
     log(f"    K1 at b{k1c_kept.shape[0]} on the cycle path's faces: "
         f"{res['k1_b32_cycle_ms']:.4f} ms, bound {k1c_bms:.4f} ms ({k1c_by}, "
         f"{k1c_work['box_pairs']} face-pixel pairs in the faces' boxes, "

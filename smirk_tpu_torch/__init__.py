@@ -22,6 +22,10 @@ Layout:
   cli/                  the training CLI, the image and video demos, the
                         mediapipe wrapper
   api.py                Predictor (resize or landmark crop; reconstruct)
+  serving.py            torch.export artifacts (inference, sharded,
+                        reconstruct), load_inference, InferenceServer, the
+                        HTTP daemon; cli/ has export_serving, serve and
+                        serve_client
   bench.py              the bench line (infer, train, reconstruct)
 """
 

@@ -142,6 +142,43 @@ def sample_mesh_points(
     return points_to_pixels(pts, image_size), coords
 
 
+# The reconstruct path's masked input: its random mask rate and its draws,
+# in the order they are drawn (`reconstruct_draws`)
+RECONSTRUCT_RANDOM_MASK = 0.01
+RECONSTRUCT_DRAWS = ("u", "bary", "rsing", "rscale", "noise", "drop_centers")
+
+
+def reconstruct_draws(batch: int, n_upper: int, image_size: int,
+                      generator: Optional[torch.Generator] = None, device=None,
+                      given: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """The draws of the reconstruct path's masked input for `batch` images,
+    in the order the path has always drawn them from one generator: the
+    sampler's `u` (B,n_upper) and `bary` (B,n_upper,3) (`random_barycentric`),
+    the budget's `rsing` (B,) int64 +-1 and `rscale` (B,) in [0, 1), the
+    mask's `noise` (B,S,S,3) standard normal and `drop_centers` (B,S,S,1)
+    Bernoulli(RECONSTRUCT_RANDOM_MASK). A draw in `given` is taken as given
+    and not drawn (with `coords` given, the sampler draws nothing); the
+    result holds `given`'s entries and every draw."""
+    out = dict(given or {})
+    S = image_size
+
+    def take(name, draw):
+        if name not in out:
+            out[name] = draw()
+
+    if "coords" not in out:
+        take("u", lambda: torch.rand((batch, n_upper), generator=generator, device=device))
+        take("bary", lambda: random_barycentric((batch, n_upper), generator, device))
+    take("rsing", lambda: torch.randint(0, 2, (batch,), generator=generator,
+                                        device=device) * 2 - 1)
+    take("rscale", lambda: torch.rand((batch,), generator=generator, device=device))
+    take("noise", lambda: torch.randn((batch, S, S, 3), generator=generator, device=device))
+    take("drop_centers", lambda: torch.bernoulli(
+        torch.full((batch, S, S, 1), RECONSTRUCT_RANDOM_MASK, device=device),
+        generator=generator))
+    return out
+
+
 def transfer_pixels(
     img: torch.Tensor,  # (B,H,W,C)
     points_src: torch.Tensor,  # (B,N,2) int [x, y]

@@ -76,7 +76,9 @@ backward reduces the per-pixel gradients per (tile, slot) with
 K1 and K3-K11 are CUDA kernels (csrc/; K2 has none, its packing being
 folded into K1's and K3's staging). Each wrapper checks its arguments,
 launches on PyTorch's current stream and counts its launches; for tensors
-on the CPU it runs the plain PyTorch version beside it.
+on the CPU it runs the plain PyTorch version beside it. K1's wrapper does
+so through a torch custom op (`K1_OP`), so that `torch.export` traces the
+inference and reconstruct paths whole (`smirk_tpu_torch.serving`).
 """
 from __future__ import annotations
 
@@ -590,11 +592,35 @@ def raster_fused_windows(kept, bins, records, face_verts, image_size: int,
     at the end. A kept count is clamped to [0, C/32], in the kernel and in
     the plain version. CPU tensors take the plain version, which tests
     every face.
+
+    The call goes through the custom op `K1_OP`, so that `torch.export`
+    traces a program that holds K1 (`smirk_tpu_torch.serving`); a loaded
+    artifact runs the op, and its launches count all the same.
     """
-    if records.device.type == "cpu":
-        return raster_fused_windows_plain(kept, bins, records, image_size, tiles_x)
-    if records.device.type != "cuda":
+    if records.device.type not in ("cpu", "cuda"):
         raise ValueError(f"raster_fused_windows: unsupported device {records.device}")
+    return _k1_op(kept, bins, records, face_verts, int(image_size), int(tiles_x))
+
+
+raster_fused_windows.launches = 0
+
+# K1 as a custom op: the CPU implementation is the plain version, the CUDA
+# one checks, launches and counts, the fake one gives the five outputs'
+# shapes for a trace. No other device has an implementation. The outputs
+# are fresh tensors (no output aliases an input).
+K1_OP = "smirk_tpu_torch::raster_fused_windows"
+
+
+@torch.library.custom_op(
+    K1_OP, mutates_args=(), device_types="cpu",
+    schema="(Tensor kept, Tensor bins, Tensor records, Tensor face_verts, "
+           "int image_size, int tiles_x) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _k1_op(kept, bins, records, face_verts, image_size, tiles_x):
+    return raster_fused_windows_plain(kept, bins, records, image_size, tiles_x)
+
+
+@_k1_op.register_kernel("cuda")
+def _k1_cuda(kept, bins, records, face_verts, image_size, tiles_x):
     dev = records.device
     B, Tp, C, F = _check_read_through("raster_fused_windows", kept, bins, records,
                                       face_verts, RECF_LANES)
@@ -610,7 +636,9 @@ def raster_fused_windows(kept, bins, records, face_verts, image_size: int,
     return p2f, zbuf, nx, ny, nz
 
 
-raster_fused_windows.launches = 0
+@_k1_op.register_fake
+def _k1_fake(kept, bins, records, face_verts, image_size, tiles_x):
+    return _fused_outputs(bins.shape[0], bins.shape[1], records.device)
 
 
 def reset_launch_counts() -> None:

@@ -47,6 +47,10 @@ Differences from the JAX package, by design:
 Every entry point (`infer`, `train_step`, `eval_step`, `masked_input`,
 `reconstruct`, `make_visualizations`) runs its convolutions in exact fp32
 (`device.fp32_math`), whatever the process's global TF32 flags say.
+`infer_body`, `masked_body` and `reconstruct_body` are the bodies of
+`infer`, `masked_input` and `reconstruct` without their pins, on every draw
+given (`reconstruct_draws`); the served artifacts trace them
+(`smirk_tpu_torch.serving`), so they cannot drift from the in-process path.
 """
 from __future__ import annotations
 
@@ -636,6 +640,13 @@ class SmirkSystem:
         FLAME's 3D ones in the result, as in the JAX package."""
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         self.encoder.eval()
+        return self.infer_body(img)
+
+    def infer_body(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """`infer` without its pins and conversions: the encoder (in the mode
+        it is in), FLAME and the inference render. The served artifacts
+        trace this body (`serving.make_inference_fn`), so that they run what
+        `infer` runs."""
         enc_out = self.encoder(img)
         flame_out = self.flame(enc_out)
         rend = self.renderer(
@@ -652,6 +663,15 @@ class SmirkSystem:
         mul = float(c.train.mask_ratio_mul)
         return int(float(c.train.mask_ratio) * mul * S * S), mul
 
+    def reconstruct_draws(self, batch: int, generator: Optional[torch.Generator] = None,
+                          draws: Optional[Mapping[str, torch.Tensor]] = None):
+        """The draws of `masked_input` for `batch` images
+        (`masking.reconstruct_draws` at this config's n_upper and size), in
+        its order; those in `draws` are taken as given."""
+        n_upper, _ = self._reconstruct_budget()
+        return masking_lib.reconstruct_draws(batch, n_upper, self.config.image_size,
+                                             generator, self.device, given=draws)
+
     @fp32_math()
     @torch.inference_mode()
     def masked_input(self, infer_out: Mapping[str, torch.Tensor], img, hull,
@@ -667,31 +687,31 @@ class SmirkSystem:
         draws: optional tensors in place of `generator`'s draws: `u` and
         `bary` (or `coords`) for the sampler, `rsing` (B,) +-1 and `rscale`
         (B,) in [0, 1) for the budget, `noise` and `drop_centers` for the
-        mask."""
-        c = self.config
-        draws = draws or {}
+        mask (`reconstruct_draws` draws the others)."""
         img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
         hull = torch.as_tensor(hull, dtype=torch.float32, device=self.device)
-        B = img.shape[0]
+        return self.masked_body(infer_out, img, hull,
+                                self.reconstruct_draws(img.shape[0], generator, draws))
+
+    def masked_body(self, infer_out: Mapping[str, torch.Tensor], img: torch.Tensor,
+                    hull: torch.Tensor, draws: Mapping[str, torch.Tensor]) -> torch.Tensor:
+        """`masked_input` without its pins, on every draw given
+        (`reconstruct_draws`)."""
+        c = self.config
         n_upper, mul = self._reconstruct_budget()
         npoints, _ = masking_lib.sample_mesh_points(
             infer_out["transformed_vertices"], self.flame.faces,
             self.face_probabilities, n_upper, c.image_size,
             coords=draws.get("coords"), incidence=self.flame_incidence,
-            generator=generator, u=draws.get("u"), bary=draws.get("bary"))
-        rsing = draws.get("rsing")
-        if rsing is None:
-            rsing = torch.randint(0, 2, (B,), generator=generator, device=self.device) * 2 - 1
-        rscale = draws.get("rscale")
-        if rscale is None:
-            rscale = torch.rand((B,), generator=generator, device=self.device)
+            u=draws.get("u"), bary=draws.get("bary"))
         extra = masking_lib.transfer_pixels(
-            img, npoints, npoints, valid_count=point_budget(rsing, rscale, n_upper, mul))
+            img, npoints, npoints,
+            valid_count=point_budget(draws["rsing"], draws["rscale"], n_upper, mul))
         return masking_lib.compose_mask(
             img, hull, extra, dilation_radius=c.train.mask_dilation_radius,
             rendered_mask=infer_out["rendered_mask"], extra_noise=True,
-            random_mask=0.01, generator=generator, noise=draws.get("noise"),
-            drop_centers=draws.get("drop_centers"))
+            random_mask=masking_lib.RECONSTRUCT_RANDOM_MASK, noise=draws["noise"],
+            drop_centers=draws["drop_centers"])
 
     @fp32_math()
     @torch.inference_mode()
@@ -705,8 +725,17 @@ class SmirkSystem:
         if self.generator is None:
             raise ValueError("reconstruct needs the fuse generator "
                              "(arch.enable_fuse_generator)")
-        masked = self.masked_input(infer_out, img, hull, generator, draws)
+        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        hull = torch.as_tensor(hull, dtype=torch.float32, device=self.device)
         self.generator.eval()
+        return self.reconstruct_body(infer_out, img, hull,
+                                     self.reconstruct_draws(img.shape[0], generator, draws))
+
+    def reconstruct_body(self, infer_out: Mapping[str, torch.Tensor], img: torch.Tensor,
+                         hull: torch.Tensor, draws: Mapping[str, torch.Tensor]):
+        """`reconstruct` without its pins, on every draw given: the served
+        reconstruct artifact traces it (`serving.make_reconstruct_fn`)."""
+        masked = self.masked_body(infer_out, img, hull, draws)
         recon = self.generator(torch.cat([infer_out["rendered_img"], masked], dim=-1))
         return masked, recon
 

@@ -605,3 +605,46 @@ def test_schedule_wrappers_reject_bad_arguments(card):
     out = R.raster_chunkskip(counts, clist, recs, fv, chunk=8, **kw11)
     torch.cuda.synchronize()
     assert int(out[0].max()) == -1
+
+
+def test_k1_op_and_served_artifact(card, tmp_path):
+    """K1's custom op passes torch.library.opcheck on CUDA tensors (its
+    CUDA implementation: the launch); an inference artifact exported on the
+    card at b8 (tiny backbones, 224 px) calls the op once, launches K1 once
+    a call and equals SmirkSystem.infer bitwise, also with the global TF32
+    flags True (the call's fp32 pin)."""
+    from smirk_tpu_torch import serving
+    from smirk_tpu_torch.config import Config
+    from smirk_tpu_torch.train import SmirkSystem
+
+    fv, fn = _face_region(card, 2, 224, 0)
+    TX = 2
+    bins, counts = R.bin_faces_flat(fv, 224, 384)
+    records = R.fused_records(fv, fn)
+    kept, _ = R._windows(counts, 216)
+    checks = torch.library.opcheck(R._k1_op, (kept, bins, records, fv.contiguous(), 224, TX))
+    assert set(checks.values()) == {"SUCCESS"}, checks
+
+    tiny = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
+    stages = {"tf_mobilenetv3_small_minimal_100": tiny,
+              "tf_mobilenetv3_large_minimal_100": tiny}
+    bundle = procedural_bundle(seed=2, full_size=True)
+    system = SmirkSystem(Config(), bundle, device=card, backbone_stages=stages,
+                         training=False)
+    call = serving.load_inference(
+        serving.export_inference(system, str(tmp_path / "art"), batch_size=8))
+    assert sum(R.K1_OP.replace("::", ".") in str(n.target)
+               for n in call.modules[0].graph.nodes) == 1
+    img = np.random.default_rng(0).random((8, 224, 224, 3), np.float32)
+    want = system.infer(torch.from_numpy(img))
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = tf32
+            R.reset_launch_counts()
+            got = call(img)
+            torch.cuda.synchronize()
+            assert R.raster_fused_windows.launches == 1
+            for k in serving.OUTPUT_KEYS:
+                assert torch.equal(got[k], want[k]), k
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
