@@ -184,6 +184,24 @@ Phases (any failure exits non-zero):
     deterministic per seed, its call time beside [5g]'s
     reconstruct_fp32_ms_batch; a 1-device `export_inference_sharded`
     equal to the plain artifact and a 2-device one refused on this host;
+ 5j. precision (after 5i): `arch.bf16_compute`'s train step at b32 on
+    both parities (finite, no overflow, K1 / K3 / K4's fold launched by
+    these steps, the render's inputs fp32, every convolution's input bf16
+    but the generator's fp32 head) and one window of 3 steps with the
+    host's CPU time beside [5g]'s; `arch.bf16_cycle_frozen`'s steps (the
+    same gates); `train.remat_cycle`'s cycle loss, gradient and running
+    statistics against the plain path on one state (cuDNN's deterministic
+    algorithms; two plain reruns set the gradient's floor); the fp32,
+    cycle_frozen and remat steps' times and peak memory from a child
+    process (`python -m smirk_tpu_torch.bench --inner train_options`); the
+    bf16 reconstruct finite; the bf16 artifact bitwise equal to bf16
+    `infer`; the card against the CPU on 4 images at the bf16 rule, the
+    card's bf16 moved from its fp32 (the mean over outputs);
+ 5k. the teachers: VGG16, the EMOCA ResNet50 and MICA at full depth from
+    seeded files in the reference layouts, through the loaders, in a b32
+    step at the recipes' weights (every teacher loss finite and nonzero),
+    its time and its split into each teacher's forward and backward, the
+    card against the CPU on a b2 `_loss1`;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -1373,6 +1391,522 @@ def _serving_phase(system, images, img, infer_w, bench_line, card, tmp):
     return res
 
 
+class _RenderWatch:
+    """A system's renderer that records the dtypes of the vertices and the
+    cams it is called with (a bf16 tensor must never reach the rasters)."""
+
+    def __init__(self, renderer, seen):
+        self.renderer, self.seen = renderer, seen
+
+    def __call__(self, vertices, cam, *a, **kw):
+        self.seen.add((vertices.dtype, cam.dtype))
+        return self.renderer(vertices, cam, *a, **kw)
+
+    def __getattr__(self, name):
+        return getattr(self.renderer, name)
+
+
+def _counted(launches, fn):
+    """fn() with every kernel count set to 0 just before it, its launches
+    added to `launches` just after -> fn's result."""
+    import torch
+
+    from smirk_tpu_torch.render import rasterizer as R
+
+    R.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    for k in R.KERNELS:
+        launches[k.__name__] = launches.get(k.__name__, 0) + k.launches
+    return out
+
+
+def _variant(**flags):
+    """Config() with arch / train / loss-weight fields replaced."""
+    import dataclasses
+
+    from smirk_tpu_torch.config import Config
+
+    c = Config()
+    arch = {k: v for k, v in flags.items() if hasattr(c.arch, k)}
+    weights = {k: v for k, v in flags.items() if hasattr(c.train.loss_weights, k)}
+    train = {k: v for k, v in flags.items() if k not in arch and k not in weights}
+    return dataclasses.replace(
+        c, arch=dataclasses.replace(c.arch, **arch),
+        train=dataclasses.replace(c.train, **train, loss_weights=dataclasses.replace(
+            c.train.loss_weights, **weights)))
+
+
+def _bf16_rule(got, want_bf16, want_fp32, base=None):
+    """max |got - want_bf16| <= 2 max |want_bf16 - want_fp32| + 2 max |base
+    - want_fp32| + 1e-7 -> (holds, err, bound)."""
+    err = float((got.double() - want_bf16.double()).abs().max())
+    bound = 2 * float((want_bf16.double() - want_fp32.double()).abs().max()) + 1e-7
+    if base is not None:
+        bound += 2 * float((base.double() - want_fp32.double()).abs().max())
+    return err <= bound, err, bound
+
+
+class _ConvWatch:
+    """Within the block, the input dtypes of every convolution of the
+    system's encoder and generator -> {'encoder.<name>' / 'generator.<name>':
+    set of dtypes}."""
+
+    def __init__(self, system):
+        self.modules, self.seen, self.hooks = {"encoder": system.encoder,
+                                               "generator": system.generator}, {}, []
+
+    def __enter__(self):
+        import torch
+
+        for root, module in self.modules.items():
+            for name, m in module.named_modules():
+                if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
+                    self.hooks.append(m.register_forward_pre_hook(
+                        lambda _, args, key=f"{root}.{name}": self.seen.setdefault(
+                            key, set()).add(args[0].dtype)))
+        return self.seen
+
+    def __exit__(self, *exc):
+        for h in self.hooks:
+            h.remove()
+
+
+def _host_use(fn, n):
+    """n back-to-back calls of fn, then a synchronize -> per call: wall ms,
+    the calling thread's CPU ms and this process's CPU ms (all threads)."""
+    import torch
+
+    t, c, p = time.perf_counter(), time.thread_time(), time.process_time()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return {"wall_ms": (time.perf_counter() - t) / n * 1e3,
+            "thread_cpu_ms": (time.thread_time() - c) / n * 1e3,
+            "process_cpu_ms": (time.process_time() - p) / n * 1e3}
+
+
+def _process_state() -> dict:
+    """What else this process and its children hold: OS threads, Python
+    threads, live child processes, objects the garbage collector tracks."""
+    import gc
+    import os
+    import threading
+
+    with open("/proc/self/status") as f:
+        threads = int(next(ln for ln in f if ln.startswith("Threads:")).split()[1])
+    me, children = str(os.getpid()), 0
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                children += f.read().rsplit(")", 1)[1].split()[1] == me
+        except OSError:
+            pass
+    return {"os_threads": threads, "python_threads": threading.active_count(),
+            "child_processes": children, "gc_objects": len(gc.get_objects())}
+
+
+def precision_phase(bundle, img, bench_line, card):
+    """Phase 5j: the precision options on the card. bf16_compute's training
+    step at b32 on both parities (overflow and finiteness gates, K1 / K3 /
+    K4's fold launched by these steps, the render's inputs fp32, the
+    convolutions' inputs bf16 but for the generator's fp32 output head),
+    then one window of 3 such steps with the host's CPU time beside the
+    bench child's ([5g]); bf16_cycle_frozen's steps (the same gates, the
+    encoder's convolutions in bf16 and fp32 at parity 0); remat_cycle's
+    cycle loss, gradient and running statistics against the plain path's
+    on one state; the fp32, cycle_frozen and remat steps' times and peak
+    memory from a child process (`python -m smirk_tpu_torch.bench --inner
+    train_options`: the bench's windows, as fresh as [5g]'s); the bf16
+    reconstruct at b64 checked (its time is [5g]'s); the bf16 inference
+    artifact bitwise equal to bf16 `infer`; the card against the CPU on 4
+    images at the bf16 rule, the card's bf16 moved from its fp32 by at
+    least half of what the CPU's moves, on the mean over outputs ->
+    ({field: value}, launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from smirk_tpu_torch import bench, kernels, serving
+    from smirk_tpu_torch.device import fp32_math
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    B, S, TB = img.shape[0], img.shape[1], TRAIN_B
+    log(f"[5j] precision: bf16_compute train_step at b{TB} (both parities), "
+        f"bf16_cycle_frozen, remat_cycle, the training options' child (times, peak memory), "
+        f"the bf16 reconstruct and artifact at b{B}, the card against the CPU {card}")
+    res, launches = {}, {}
+    tbatch = bench.train_batch(TB, S, 0)
+    dev = img.device
+
+    # the fp32, cycle_frozen and remat steps timed alike in a fresh process
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "smirk_tpu_torch.bench", "--inner",
+                           "train_options"], capture_output=True, text=True, timeout=300,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        log(proc.stderr[-2000:])
+    check(proc.returncode == 0 and lines, f"the training options' child ran (rc "
+          f"{proc.returncode})")
+    opts = lines[-1]
+    res["options_child_s"] = time.perf_counter() - t
+    for name in ("fp32", "cycle_frozen", "remat"):
+        for parity in (0, 1):
+            for f in (f"train_ms_batch32_{name}_p{parity}", f"train_{name}_spread_pct_p{parity}",
+                      f"train_host_ms_{name}_p{parity}", f"peak_mb_{name}_p{parity}"):
+                check(isinstance(opts.get(f), float) and math.isfinite(opts[f]),
+                      f"the options' child gave {f}")
+                res[f] = opts[f]
+
+    def checked_steps(system, name, gen):
+        """One step of each parity with its gates -> {parity: the
+        convolutions' input dtypes}."""
+        seen, convs = set(), {}
+        system.renderer = _RenderWatch(system.renderer, seen)
+        try:
+            for parity in (0, 1):
+                with _ConvWatch(system) as convs[parity]:
+                    m, _ = system.train_step(tbatch, parity, gen)
+                check(all(math.isfinite(v) for v in m.values()) and m["raster_overflow"] == 0
+                      and m["raster_overflow_2nd"] == 0,
+                      f"{name} p{parity}: metrics finite, no raster overflow")
+        finally:
+            system.renderer = system.renderer.renderer
+        check(seen == {(torch.float32, torch.float32)},
+              f"{name}: the renderer saw fp32 vertices and cams only ({sorted(map(str, seen))})")
+        return convs
+
+    # bf16_compute: its own launch counts, so that the gate reads its steps
+    sys_bf = SmirkSystem(_variant(bf16_compute=True), bundle)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf16_launches = {}
+    convs = _counted(bf16_launches, lambda: checked_steps(sys_bf, "bf16", gen))
+    for parity in (0, 1):
+        head = convs[parity].pop("generator.conv", None)
+        check(head == {torch.float32} and convs[parity] and all(
+            d == {torch.bfloat16} for d in convs[parity].values()),
+            f"bf16 p{parity}: {len(convs[parity])} convolutions saw bf16 inputs, the "
+            f"generator's output head fp32 ({head})")
+    log(f"    this process before the window: {json.dumps(_process_state())}")
+    for parity in (0, 1):
+        use = _counted(bf16_launches, lambda: _host_use(
+            lambda: sys_bf.train_step(tbatch, parity, gen), 3))
+        res.update({f"inproc_bf16_{k}_p{parity}": v for k, v in use.items()})
+    check(all(bf16_launches.get(k, 0) > 0 for k in (
+        "raster_fused_windows", "raster_planes_windows", "segment_moments_to_faces")),
+        f"the bf16 steps launched K1, K3 and K4's fold ({bf16_launches})")
+    for k, v in bf16_launches.items():
+        launches[k] = launches.get(k, 0) + v
+
+    sys_cf = SmirkSystem(_variant(bf16_cycle_frozen=True), bundle)
+    convs = _counted(launches, lambda: checked_steps(
+        sys_cf, "cycle_frozen", torch.Generator(device=dev).manual_seed(0)))
+    enc = {k: v for k, v in convs[0].items() if k.startswith("encoder.")}
+    check(enc and all(d == {torch.float32, torch.bfloat16} for d in enc.values()),
+          f"cycle_frozen p0: the encoder's {len(enc)} convolutions ran in fp32 (phase 1) and "
+          f"bf16 (the frozen cycle)")
+    del sys_cf
+    torch.cuda.empty_cache()
+
+    # remat against the plain cycle path: `_loss2` of each parity on one
+    # state, with and without it -> the loss, the trained module's gradient
+    # and the running statistics (moved once: twice would be ~10 % off)
+    system = SmirkSystem(_variant(), bundle)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    _, aux = system.train_step(tbatch, 0, gen)
+    state = [{k: v.clone() for k, v in m.state_dict().items()}
+             for m in (system.encoder, system.generator)]
+    batch_t = system._batch(tbatch)
+    # cuDNN's deterministic algorithms for these runs, and the plain path
+    # three times: what the backward's order of additions still moves (its
+    # atomics) sets the gradient's floor, the larger of two plain reruns'
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    for parity in (0, 1):
+        runs = {}
+        for remat in (False, True, "again", "third"):
+            system.config = _variant(remat_cycle=remat is True)
+            system.encoder.load_state_dict(state[0])
+            system.generator.load_state_dict(state[1])
+            params = system.gen_params if parity == 0 else system.enc_params
+            with fp32_math():
+                loss, _ = _counted(launches, lambda: system._loss2(
+                    batch_t, aux["encoder_output"], aux["transformed_vertices"], parity == 0,
+                    parity == 1, torch.Generator(device=dev).manual_seed(1)))
+                grads = system._grads(loss, params)
+            stats = [v.clone() for m in (system.encoder, system.generator)
+                     for k, v in m.state_dict().items() if "running" in k]
+            runs[remat] = float(loss), grads, stats
+        (l0, g0, s0), (l1, g1, s1) = runs[False], runs[True]
+
+        def g_diff(ga, gb):
+            return max(float((a - b).abs().max()) / max(float(a.abs().max()), 1e-30)
+                       for a, b in zip(ga, gb))
+
+        g_worst = g_diff(g0, g1)
+        g_floor = max(g_diff(g0, runs[k][1]) for k in ("again", "third"))
+        s_worst = max(float(((a - b).abs() / a.abs().clamp_min(1e-3)).max())
+                      for a, b in zip(s0, s1))
+        check(abs(l1 - l0) <= 1e-5 * abs(l0) and g_worst <= 2 * g_floor + 1e-5
+              and s_worst <= 1e-4,
+              f"remat_cycle p{parity}: the cycle loss ({l0:.7g} / {l1:.7g}), the gradient "
+              f"(worst {g_worst:.3g} of max; plain reruns {g_floor:.3g}) and the running "
+              f"statistics (worst {s_worst:.3g}; moved twice would be ~0.1) as without it")
+    cudnn.deterministic, cudnn.benchmark = saved
+    del system, state, aux
+    torch.cuda.empty_cache()
+
+    # the bf16 reconstruct, bench.py's one-program form at b64 ([5g] times it)
+    hull = torch.ones((B, S, S, 1), device=dev)
+    hull[:, S // 4: -S // 8, S // 4: -S // 4] = 0.0
+    recon = _counted(launches, lambda: sys_bf.reconstruct(
+        sys_bf.infer(img), img, hull, torch.Generator(device=dev).manual_seed(0))[1])
+    check(bool(torch.isfinite(recon).all()), "the bf16 reconstruct is finite")
+
+    # the bf16 artifact against bf16 infer, bitwise
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="bf16_", dir=kernels.BUILD_DIR)
+    try:
+        t = time.perf_counter()
+        path = serving.export_inference(sys_bf, os.path.join(tmp, "inf"), batch_size=B)
+        res["bf16_export_s"] = time.perf_counter() - t
+        call = serving.load_inference(path)
+        want = _counted(launches, lambda: sys_bf.infer(img))
+        got = _counted(launches, lambda: call(img))
+        check(all(torch.equal(got[k], want[k]) for k in serving.OUTPUT_KEYS),
+              f"the bf16 artifact equals bf16 infer bitwise ({len(serving.OUTPUT_KEYS)} outputs)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # the card against the CPU on 4 images, one encoder in both precisions:
+    # the bf16 rule per output, and the card's bf16 not its fp32
+    keys = ("pose_params", "cam", "shape_params", "expression_params", "eyelid_params",
+            "jaw_params", "vertices")
+    sys_32 = SmirkSystem(_variant(), bundle, training=False)
+    sys_32.encoder.load_state_dict(sys_bf.encoder.state_dict())
+    cpu = {}
+    for name, system in (("bf16", sys_bf), ("fp32", sys_32)):
+        twin = SmirkSystem(system.config, bundle, device="cpu", training=False)
+        twin.encoder.load_state_dict(system.encoder.state_dict())
+        cpu[name] = twin.infer(img[:4].cpu())
+    card_bf, card_32 = sys_bf.infer(img[:4]), sys_32.infer(img[:4])
+    worst, moved = 0.0, {}
+    for k in keys:
+        ok, err, bnd = _bf16_rule(card_bf[k].cpu(), cpu["bf16"][k], cpu["fp32"][k],
+                                  card_32[k].cpu())
+        check(ok, f"card vs CPU bf16 {k}: max |diff| {err:.3g} <= {bnd:.3g}")
+        worst = max(worst, err / bnd)
+        ref = float((cpu["bf16"][k].double() - cpu["fp32"][k].double()).abs().max())
+        if ref > 0:
+            moved[k] = float((card_bf[k].double() - card_32[k].double()).abs().max()) / ref
+    res["card_vs_cpu_bf16_worst_ratio"] = worst
+    # a card that ran fp32 would move by 0; a few values an output make
+    # one ratio noisy, so the gate reads their mean
+    res["card_bf16_moved_mean"] = sum(moved.values()) / max(len(moved), 1)
+    check(moved and res["card_bf16_moved_mean"] >= 0.5,
+          f"the card's bf16 moved from its fp32 by {res['card_bf16_moved_mean']:.3g} of the "
+          f"CPU's bf16-vs-fp32 difference on the mean over outputs (at least half; "
+          + ", ".join(f"{k} {v:.3g}" for k, v in moved.items()) + ")")
+    del sys_bf, sys_32
+    torch.cuda.empty_cache()
+
+    line = {k: bench_line[k] for k in bench_line if k.startswith(("train_ms_batch32_",
+                                                                   "train_host_ms_"))}
+    log(f"    [5g]'s child: fp32 p0 / p1 {line['train_ms_batch32_fp32_p0']:.3f} / "
+        f"{line['train_ms_batch32_fp32_p1']:.3f} ms (the host's thread "
+        f"{line['train_host_ms_fp32_p0']:.3f} / {line['train_host_ms_fp32_p1']:.3f}), bf16 "
+        f"{line['train_ms_batch32_bf16_p0']:.3f} / {line['train_ms_batch32_bf16_p1']:.3f} "
+        f"({line['train_host_ms_bf16_p0']:.3f} / {line['train_host_ms_bf16_p1']:.3f}); bf16 "
+        f"reconstruct {bench_line['reconstruct_bf16_ms_batch']:.3f} ms {card}")
+    log("    the options' child: " + "; ".join(
+        f"{name} {res[f'train_ms_batch32_{name}_p0']:.3f} / "
+        f"{res[f'train_ms_batch32_{name}_p1']:.3f} ms (host "
+        f"{res[f'train_host_ms_{name}_p0']:.3f} / {res[f'train_host_ms_{name}_p1']:.3f}, "
+        f"peak {res[f'peak_mb_{name}_p0']:.1f} / {res[f'peak_mb_{name}_p1']:.1f} MiB)"
+        for name in ("fp32", "cycle_frozen", "remat")) + f" {card}")
+    log("    bf16 in this process (3 steps): " + "; ".join(
+        f"p{p} " + ", ".join(f"{k} {res[f'inproc_bf16_{k}_p{p}']:.3f}" for k in (
+            "wall_ms", "thread_cpu_ms", "process_cpu_ms"))
+        for p in (0, 1)) + f" {card}")
+    return res, launches
+
+
+def _he_state_dict(module, generator):
+    """A seeded state dict for a teacher in its reference layout: kernels
+    N(0, 2 / fan in), batch norm near identity, running variances in
+    [0.8, 1.3]."""
+    import torch
+
+    out = {}
+    for k, v in module.state_dict().items():
+        if not v.is_floating_point():
+            out[k] = v
+        elif v.ndim >= 2:
+            out[k] = torch.randn(v.shape, generator=generator) * (2.0 / v[0].numel()) ** 0.5
+        elif k.endswith("running_var"):
+            out[k] = torch.rand(v.shape, generator=generator) * 0.5 + 0.8
+        elif k.endswith("weight") and "prelu" not in k:
+            out[k] = 1.0 + torch.randn(v.shape, generator=generator) * 0.05
+        else:
+            out[k] = torch.randn(v.shape, generator=generator) * 0.05
+    return out
+
+
+def teachers_phase(bundle, train_ms, card):
+    """Phase 5k: the three teachers at full depth, from seeded files in the
+    reference checkpoints' layouts written to a scratch directory, through
+    the loaders, in a b32 training step at the recipes' weights
+    (perceptual_vgg_loss 10, emotion_loss 1, mica_loss 10): every teacher
+    loss finite and nonzero, the step's time and its split into the
+    teachers' forwards and backwards, and the card against the CPU on a b2
+    `_loss1` -> ({field: value}, launches)."""
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from smirk_tpu_torch import bench, kernels
+    from smirk_tpu_torch.masking import masking as masking_lib
+    from smirk_tpu_torch.models import teachers
+    from smirk_tpu_torch.models.emoca_resnet import EmocaResNet50, emotion_embedding_distance
+    from smirk_tpu_torch.models.mica import Mica
+    from smirk_tpu_torch.models.vgg import VGG16_BLOCK_CONVS, perceptual_loss
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    cfg = _variant(perceptual_vgg_loss=10.0, emotion_loss=1.0, mica_loss=10.0)
+    TB, S = TRAIN_B, cfg.image_size
+    log(f"[5k] teachers: VGG16, EMOCA ResNet50 and MICA at full depth from seeded reference "
+        f"files, a b{TB} train_step at the recipes' weights, the split, the card against the "
+        f"CPU {card}")
+    res, launches = {}, {}
+    gen = torch.Generator().manual_seed(0)
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="teachers_", dir=kernels.BUILD_DIR)
+    try:
+        t = time.perf_counter()
+        # torchvision's vgg16 `features` (all 13 convolutions, the loss reads
+        # the first 10), EMOCA's {'state_dict': {'backbone.*'}}, mica.tar
+        vgg_sd, in_ch = {}, 3
+        for idx, ch in [c for block in VGG16_BLOCK_CONVS for c in block] + [
+                (24, 512), (26, 512), (28, 512)]:
+            vgg_sd[f"features.{idx}.weight"] = torch.randn(
+                (ch, in_ch, 3, 3), generator=gen) * (2.0 / (in_ch * 9)) ** 0.5
+            vgg_sd[f"features.{idx}.bias"] = torch.randn((ch,), generator=gen) * 0.05
+            in_ch = ch
+        emo = {f"backbone.{k}": v for k, v in _he_state_dict(EmocaResNet50(), gen).items()}
+        mica = _he_state_dict(Mica(), gen)
+        files = {"vgg16.pth": vgg_sd, "emotion.ckpt": {"state_dict": emo},
+                 "mica.tar": {"arcface": {k[8:]: v for k, v in mica.items()
+                                          if k.startswith("arcface.")},
+                              "flameModel": {k: v for k, v in mica.items()
+                                             if k.startswith("regressor.")}}}
+        paths = {}
+        for name, obj in files.items():
+            paths[name] = os.path.join(tmp, name)
+            torch.save(obj, paths[name])
+        res["teacher_files_mb"] = sum(os.path.getsize(p) for p in paths.values()) / 1e6
+        res["teacher_files_s"] = time.perf_counter() - t
+
+        def load(device):
+            return dict(vgg_variables=teachers.load_vgg_teacher(paths["vgg16.pth"], device),
+                        emotion_variables=teachers.load_emotion_teacher(
+                            paths["emotion.ckpt"], device),
+                        mica_variables=teachers.load_mica_teacher(paths["mica.tar"], device))
+
+        t = time.perf_counter()
+        loaded = load(None)  # the card
+        res["teacher_load_s"] = time.perf_counter() - t
+        system = SmirkSystem(cfg, bundle, **loaded)
+        check(all(m is not None and not m.training for m in (system.vgg, system.emotion,
+                                                              system.mica)),
+              "the loaders gave the three teachers in eval mode")
+        tbatch = bench.train_batch(TB, S, 0)
+        tbatch["img_mica"] = np.random.default_rng(1).random((TB, 112, 112, 3), np.float32)
+        gen_t = torch.Generator(device=system.device).manual_seed(0)
+        for parity in (0, 1):
+            m, _ = _counted(launches, lambda: system.train_step(tbatch, parity, gen_t))
+            check(all(math.isfinite(v) for v in m.values()) and m["raster_overflow"] == 0,
+                  f"teachers p{parity}: metrics finite, no raster overflow")
+            check(all(m[k] > 0 for k in ("perceptual_vgg_loss", "emotion_loss", "mica_loss")),
+                  f"teachers p{parity}: perceptual {m['perceptual_vgg_loss']:.5g}, emotion "
+                  f"{m['emotion_loss']:.5g}, mica {m['mica_loss']:.5g}, each > 0")
+            ms = _counted(launches, lambda: timed_windows(
+                lambda: system.train_step(tbatch, parity, gen_t), 2, 3))
+            res[f"train_ms_batch{TB}_teachers_p{parity}"] = statistics.median(ms)
+            res[f"train_teachers_spread_pct_p{parity}"] = spread(ms)
+        check(all(launches.get(k, 0) > 0 for k in (
+            "raster_fused_windows", "raster_planes_windows", "segment_moments_to_faces")),
+            f"the teachers' steps launched K1, K3 and K4's fold ({launches})")
+
+        # the split: each teacher's share of a step at b32, CUDA events
+        dev = system.device
+        rng = np.random.default_rng(2)
+        x = torch.as_tensor(rng.random((TB, S, S, 3), np.float32), device=dev)
+        y = torch.as_tensor(rng.random((TB, S, S, 3), np.float32), device=dev)
+        xm = torch.as_tensor(tbatch["img_mica"], device=dev)
+
+        def vgg_fwd():
+            with torch.no_grad():
+                perceptual_loss(system.vgg, x, y)
+
+        def vgg_fwd_bwd():
+            xg = x.detach().requires_grad_(True)
+            torch.autograd.grad(perceptual_loss(system.vgg, xg, y), xg)
+
+        def emotion_fwd_bwd():
+            xg = x.detach().requires_grad_(True)
+            torch.autograd.grad(emotion_embedding_distance(system.emotion, xg, y).mean(), xg)
+
+        def gen_reforward():
+            gin = torch.cat([x, y], -1)
+            with torch.no_grad():
+                system.generator.eval()
+                system.generator(gin)
+
+        def mica_fwd():
+            with torch.no_grad():
+                system.mica(xm)
+
+        for name, fn in (("vgg_forward", vgg_fwd), ("vgg_forward_backward", vgg_fwd_bwd),
+                         ("emotion_forward_backward", emotion_fwd_bwd),
+                         ("emotion_generator_reforward", gen_reforward),
+                         ("mica_forward", mica_fwd)):
+            res[f"split_{name}_ms"] = cuda_ms(fn, 5, 1)
+
+        # the card against the CPU: `_loss1` at b2 on the same draws
+        twin = SmirkSystem(cfg, bundle, device="cpu", **load("cpu"))
+        twin.encoder.load_state_dict(system.encoder.state_dict())
+        twin.generator.load_state_dict(system.generator.state_dict())
+        small = {k: v[:2] for k, v in tbatch.items()}
+        draws = masking_lib.reconstruct_draws(2, system.num_mask_points, S,
+                                              torch.Generator().manual_seed(3), "cpu")
+        draws = {k: draws[k] for k in ("u", "bary", "noise", "drop_centers")}
+        _, aux_c = _counted(launches, lambda: system._loss1(
+            system._batch(small), True, draws={k: v.to(dev) for k, v in draws.items()}))
+        _, aux_h = twin._loss1(twin._batch(small), True, draws=draws)
+        for k in ("perceptual_vgg_loss", "emotion_loss", "mica_loss", "reconstruction_loss"):
+            a, b = float(aux_c["losses"][k]), float(aux_h["losses"][k])
+            check(abs(a - b) <= 1e-3 * abs(b), f"card vs CPU _loss1 {k}: {a:.6g} vs {b:.6g} "
+                  f"(1e-3 relative)")
+        del system, twin
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    split = sum(v for k, v in res.items() if k.startswith("split_") and k != "split_vgg_forward_ms")
+    log(f"    teachers' step p0 / p1 {res[f'train_ms_batch{TB}_teachers_p0']:.3f} / "
+        f"{res[f'train_ms_batch{TB}_teachers_p1']:.3f} ms against [6]'s "
+        f"{train_ms[0]:.3f} / {train_ms[1]:.3f} without them; split (ms, CUDA events): "
+        + ", ".join(f"{k[6:-3]} {v:.3f}" for k, v in res.items() if k.startswith("split_"))
+        + f" (sum without the forward-only VGG {split:.3f}) {card}")
+    return res, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2376,6 +2910,11 @@ def main(argv=None) -> int:
     # ---------------- 5i. serving ----------------
     serve_info = serving_phase(system, images, img, infer_w, bench_line, card)
     log("    " + json.dumps(serve_info))
+    # ---------------- 5j-5k. precision, the teachers ----------------
+    prec_info, prec_launches = precision_phase(bundle, img, bench_line, card)
+    log("    " + json.dumps(prec_info))
+    teach_info, teach_launches = teachers_phase(bundle, train_ms, card)
+    log("    " + json.dumps(teach_info))
 
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())
@@ -2463,7 +3002,8 @@ def main(argv=None) -> int:
         {"name": "raster_fused_windows", "route": "cuda", "source": src + "raster_fused.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:1331",
          "launches": launches["raster_fused_windows"] + rec_launches["raster_fused_windows"]
-         + serve_info["launches"],
+         + serve_info["launches"] + prec_launches.get("raster_fused_windows", 0)
+         + teach_launches.get("raster_fused_windows", 0),
          "max_abs_err": k1_err,
          "ms": res["k1_ms"], "device_ms": dev_ms["k1_ms"],
          "direct_ms": res["k1_direct_ms"], "plain_ms": res["k1_plain_ms"],
@@ -2477,7 +3017,9 @@ def main(argv=None) -> int:
          "bound_ms": k1b_bms, "bound_by": k1b_by, "library_ms": None},
         {"name": "raster_planes_windows", "route": "cuda", "source": src + "raster_planes.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2443",
-         "launches": train_launches["raster_planes_windows"], "max_abs_err": k3_err,
+         "launches": train_launches["raster_planes_windows"]
+         + prec_launches.get("raster_planes_windows", 0)
+         + teach_launches.get("raster_planes_windows", 0), "max_abs_err": k3_err,
          "ms": res["k3_ms"], "device_ms": dev_ms["k3_ms"],
          "plain_ms": res["k3_plain_ms"],
          "bound_ms": k3_bms, "bound_by": k3_by, "library_ms": None},
@@ -2491,7 +3033,9 @@ def main(argv=None) -> int:
         {"name": "segment_moments_to_faces", "route": "cuda",
          "source": src + "segment_moments.cu",
          "replaces": "smirk_tpu/render/rasterizer.py:2225",
-         "launches": train_launches["segment_moments_to_faces"], "max_abs_err": k4f_err,
+         "launches": train_launches["segment_moments_to_faces"]
+         + prec_launches.get("segment_moments_to_faces", 0)
+         + teach_launches.get("segment_moments_to_faces", 0), "max_abs_err": k4f_err,
          "ms": res["k4_ms"], "device_ms": dev_ms["k4_ms"],
          "plain_ms": res["k4_plain_ms"],
          "bound_ms": k4_bytes / PEAK_HBM_BYTES * 1e3, "bound_by": "bytes",

@@ -226,7 +226,8 @@ class Predictor:
     @torch.inference_mode()
     def encode(self, images, landmarks=None) -> Dict[str, np.ndarray]:
         """Encoder only: FLAME parameters without geometry or rendering."""
-        return self._to_numpy(self.system.encoder(self._prepare(images, landmarks)))
+        return self._to_numpy(self.system.encoder(self._prepare(images, landmarks),
+                                                  self.system.compute_dtype))
 
     def reconstruct(self, images, landmarks, seed: int = 0,
                     draws: Optional[Dict[str, torch.Tensor]] = None

@@ -4,8 +4,8 @@ one JSON line.
     python -m smirk_tpu_torch.bench               # the card: b64 / b32 / b64, 224 px
     python -m smirk_tpu_torch.bench --device cpu  # tiny shapes, plumbing only
 
-Workloads (PERF.md section 2's definitions; fp32, TF32 off inside every
-entry point, random seeded weights):
+Workloads (PERF.md section 2's definitions; fp32 unless a field says bf16,
+TF32 off inside every entry point, random seeded weights):
   * infer: `SmirkSystem.infer` at b64, 224 px, warm; the median and spread
     (max - min over median) of 5 windows of 50 back-to-back calls, each
     window ended by a synchronize (host clock); the render's coverage must
@@ -13,11 +13,14 @@ entry point, random seeded weights):
   * train: `SmirkSystem.train_step` at b32 on bench.py's synthetic batch
     (the recipe's defaults: generator 32 features / 5 blocks, cycle loss
     on, no teachers), per freeze parity: the median of 3 windows of 5
-    steps -> train_ms_batch32_fp32_p0 / _p1 / _avg;
+    steps -> train_ms_batch32_fp32_p0 / _p1 / _avg; then the same with
+    `arch.bf16_compute` (bench.py's train fields) -> train_ms_batch32_bf16_*;
+    beside each, train_host_ms_*: the calling thread's CPU ms a step;
   * reconstruct: bench.py's one-program form at b64 (pre-cropped random
     224 px images, a box hull, fixed draws): `infer` then
     `SmirkSystem.reconstruct`, the median of 5 windows of 5 calls ->
-    reconstruct_fp32_fps / _ms_batch; beside it `Predictor.reconstruct` on
+    reconstruct_fp32_fps / _ms_batch, and with `arch.bf16_compute` ->
+    reconstruct_bf16_fps / _ms_batch (bench.py's); beside it `Predictor.reconstruct` on
     seeded 480x640 uint8 frames with landmarks mapped in as chip_smoke's
     phase 5e does (host crop and copy-back included) ->
     predictor_reconstruct_fp32_fps / _ms_batch.
@@ -49,10 +52,15 @@ WORKLOADS = ("infer", "train", "reconstruct")
 FIELDS = {
     "infer": ("infer_fps_b64", "infer_ms_b64", "infer_spread_pct", "infer_coverage"),
     "train": ("train_ms_batch32_fp32_p0", "train_ms_batch32_fp32_p1",
-              "train_ms_batch32_fp32_avg", "train_spread_pct"),
+              "train_ms_batch32_fp32_avg", "train_spread_pct",
+              "train_ms_batch32_bf16_p0", "train_ms_batch32_bf16_p1",
+              "train_ms_batch32_bf16_avg", "train_bf16_spread_pct",
+              "train_host_ms_fp32_p0", "train_host_ms_fp32_p1", "train_host_ms_bf16_p0",
+              "train_host_ms_bf16_p1"),
     "reconstruct": ("reconstruct_fp32_fps", "reconstruct_fp32_ms_batch",
                     "reconstruct_spread_pct", "predictor_reconstruct_fp32_fps",
-                    "predictor_reconstruct_fp32_ms_batch"),
+                    "predictor_reconstruct_fp32_ms_batch", "reconstruct_bf16_fps",
+                    "reconstruct_bf16_ms_batch", "reconstruct_bf16_spread_pct"),
 }
 # seconds kept back from a child's timeout to print the final line
 _RESERVE_S = 2.0
@@ -121,10 +129,16 @@ class _Setup:
         self.torch = torch
         self.tf32 = []
 
-    def system(self, **kw):
+    def system(self, arch=None, train=None, **kw):
+        """A SmirkSystem on the config with `arch` / `train` fields replaced."""
+        import dataclasses
+
         from smirk_tpu_torch.train.trainer import SmirkSystem
 
-        return self.watch(SmirkSystem(self.config, self.bundle, device=self.device, **kw))
+        config = dataclasses.replace(
+            self.config, arch=dataclasses.replace(self.config.arch, **(arch or {})),
+            train=dataclasses.replace(self.config.train, **(train or {})))
+        return self.watch(SmirkSystem(config, self.bundle, device=self.device, **kw))
 
     def watch(self, system):
         """Record the TF32 flags as every encoder call sees them."""
@@ -143,17 +157,21 @@ class _Setup:
 
     def windows_ms(self, name, fn):
         """Sorted ms per call of warm windows of back-to-back calls, each
-        window ended by a synchronize (host clock)."""
+        window ended by a synchronize (host clock). `host_ms` is then the
+        median over the windows of the calling thread's CPU ms per call: near
+        the wall time, the host paces the calls."""
         n_windows, n_calls = self.windows[name]
         fn()
         self.sync()
-        ms = []
+        ms, host = [], []
         for _ in range(n_windows):
-            t = time.perf_counter()
+            t, c = time.perf_counter(), time.thread_time()
             for _ in range(n_calls):
                 fn()
             self.sync()
             ms.append((time.perf_counter() - t) / n_calls * 1e3)
+            host.append((time.thread_time() - c) / n_calls * 1e3)
+        self.host_ms = statistics.median(host)
         return sorted(ms)
 
     def fields(self, **kw):
@@ -198,20 +216,26 @@ def train_batch(B, S, seed):
 
 
 def measure_train(st: _Setup) -> dict:
-    system = st.system(steps_per_epoch=100)
     batch = train_batch(st.B_train, st.S, 0)  # numpy, as chip_smoke's phase 6 times it
-    gen = st.torch.Generator(device=st.device).manual_seed(0)
-    out, spreads = {}, []
-    for parity in (0, 1):
-        ms = st.windows_ms("train", lambda: system.train_step(batch, parity, gen))
-        metrics, _ = system.train_step(batch, parity, gen)
-        if not all(math.isfinite(v) for v in metrics.values()):
-            raise RuntimeError(f"non-finite train metrics at parity {parity}: {metrics}")
-        out[f"train_ms_batch32_fp32_p{parity}"] = statistics.median(ms)
-        spreads.append(_spread(ms))
-    out["train_ms_batch32_fp32_avg"] = (out["train_ms_batch32_fp32_p0"]
-                                        + out["train_ms_batch32_fp32_p1"]) / 2
-    return st.fields(**out, train_spread_pct=max(spreads), train_batch=st.B_train)
+    out = {}
+    for precision in ("fp32", "bf16"):
+        system = st.system(arch={"bf16_compute": precision == "bf16"}, steps_per_epoch=100)
+        gen = st.torch.Generator(device=st.device).manual_seed(0)
+        spreads = []
+        for parity in (0, 1):
+            ms = st.windows_ms("train", lambda: system.train_step(batch, parity, gen))
+            out[f"train_host_ms_{precision}_p{parity}"] = st.host_ms
+            metrics, _ = system.train_step(batch, parity, gen)
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise RuntimeError(f"non-finite {precision} train metrics at parity "
+                                   f"{parity}: {metrics}")
+            out[f"train_ms_batch32_{precision}_p{parity}"] = statistics.median(ms)
+            spreads.append(_spread(ms))
+        out[f"train_ms_batch32_{precision}_avg"] = (
+            out[f"train_ms_batch32_{precision}_p0"] + out[f"train_ms_batch32_{precision}_p1"]) / 2
+        out["train_spread_pct" if precision == "fp32" else "train_bf16_spread_pct"] = max(spreads)
+        del system
+    return st.fields(**out, train_batch=st.B_train)
 
 
 def measure_reconstruct(st: _Setup) -> dict:
@@ -227,17 +251,22 @@ def measure_reconstruct(st: _Setup) -> dict:
     hull = torch.ones((B, S, S, 1), device=st.device)
     hull[:, S // 4: -S // 8, S // 4: -S // 4] = 0.0
 
-    def program():
-        out = system.infer(img)
-        gen = torch.Generator(device=st.device).manual_seed(0)
-        return system.reconstruct(out, img, hull, gen)[1], out["rendered_mask"]
+    def one_program(system):
+        def program():
+            out = system.infer(img)
+            gen = torch.Generator(device=st.device).manual_seed(0)
+            return system.reconstruct(out, img, hull, gen)[1], out["rendered_mask"]
 
-    recon, mask = program()
-    coverage = float(mask.mean())
-    if not (coverage > 0.05 and bool(torch.isfinite(recon).all())):
-        raise RuntimeError(f"reconstruct scene is empty or not finite ({coverage})")
-    ms = st.windows_ms("reconstruct", program)
+        recon, mask = program()
+        coverage = float(mask.mean())
+        if not (coverage > 0.05 and bool(torch.isfinite(recon).all())):
+            raise RuntimeError(f"reconstruct scene is empty or not finite ({coverage})")
+        return st.windows_ms("reconstruct", program)
+
+    ms = one_program(system)
     med = statistics.median(ms)
+    ms_bf16 = one_program(st.system(arch={"bf16_compute": True}))
+    med_bf16 = statistics.median(ms_bf16)
 
     pred = Predictor(use_generator=True, device=st.device, bundle=st.bundle, config=st.config)
     pred.system.encoder.load_state_dict(system.encoder.state_dict())
@@ -254,11 +283,43 @@ def measure_reconstruct(st: _Setup) -> dict:
     return st.fields(reconstruct_fp32_fps=B / med * 1e3, reconstruct_fp32_ms_batch=med,
                      reconstruct_spread_pct=_spread(ms),
                      predictor_reconstruct_fp32_fps=B / med_p * 1e3,
-                     predictor_reconstruct_fp32_ms_batch=med_p, reconstruct_batch=B)
+                     predictor_reconstruct_fp32_ms_batch=med_p,
+                     reconstruct_bf16_fps=B / med_bf16 * 1e3, reconstruct_bf16_ms_batch=med_bf16,
+                     reconstruct_bf16_spread_pct=_spread(ms_bf16), reconstruct_batch=B)
+
+
+def measure_train_options(st: _Setup) -> dict:
+    """The training options' steps beside the plain fp32 one, in one child
+    (not part of the line; chip_smoke's phase 5j reads it): fp32,
+    `arch.bf16_cycle_frozen` and `train.remat_cycle`, each per parity the
+    train workload's windows, the calling thread's CPU ms a step, and the
+    peak memory of one step (max_memory_allocated; None on the CPU)."""
+    batch = train_batch(st.B_train, st.S, 0)
+    out = {}
+    for name, arch, train in (("fp32", {}, {}), ("cycle_frozen", {"bf16_cycle_frozen": True}, {}),
+                              ("remat", {}, {"remat_cycle": True})):
+        system = st.system(arch=arch, train=train, steps_per_epoch=100)
+        gen = st.torch.Generator(device=st.device).manual_seed(0)
+        for parity in (0, 1):
+            ms = st.windows_ms("train", lambda: system.train_step(batch, parity, gen))
+            out[f"train_ms_batch32_{name}_p{parity}"] = statistics.median(ms)
+            out[f"train_{name}_spread_pct_p{parity}"] = _spread(ms)
+            out[f"train_host_ms_{name}_p{parity}"] = st.host_ms
+            if not st.cpu:
+                st.torch.cuda.reset_peak_memory_stats()
+            metrics, _ = system.train_step(batch, parity, gen)
+            st.sync()
+            out[f"peak_mb_{name}_p{parity}"] = (
+                None if st.cpu else st.torch.cuda.max_memory_allocated() / 2 ** 20)
+            if not all(math.isfinite(v) for v in metrics.values()):
+                raise RuntimeError(f"non-finite {name} train metrics at parity {parity}: "
+                                   f"{metrics}")
+        del system
+    return st.fields(**out, train_batch=st.B_train)
 
 
 MEASURE = {"infer": measure_infer, "train": measure_train,
-           "reconstruct": measure_reconstruct}
+           "reconstruct": measure_reconstruct, "train_options": measure_train_options}
 
 
 # -------------------------------- parent --------------------------------
@@ -309,7 +370,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--device", default=None,
                     help="cpu: tiny shapes on the CPU (default: the card)")
-    ap.add_argument("--inner", choices=WORKLOADS, help=argparse.SUPPRESS)
+    ap.add_argument("--inner", choices=tuple(MEASURE), help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.inner:
         print(json.dumps(MEASURE[args.inner](_Setup(args.device))), flush=True)

@@ -100,7 +100,8 @@ def generator_fn(system):
         masked = M.compose_mask(imgs, hulls, extra, dilation_radius=10,
                                 rendered_mask=out["rendered_mask"], generator=gen)
         system.generator.eval()
-        return system.generator(torch.cat([out["rendered_img"], masked], -1))
+        return system.generator(torch.cat([out["rendered_img"], masked], -1),
+                                system.compute_dtype)
 
     return run
 

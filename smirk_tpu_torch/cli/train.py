@@ -17,6 +17,11 @@ epoch end; `resume_state=` continues from it exactly), the model export
 `Predictor(checkpoint=)` read it), and `{train,val}_images/*.jpg` every
 `train.visualize_every` batches (0 disables them).
 
+Teachers: each loss with a weight above 0 loads its frozen teacher from
+SMIRK_VGG16 (a torchvision vgg16 state dict), SMIRK_EMOTION (the EMOCA
+checkpoint, default assets/ResNet50/emotion_checkpoint.ckpt) or SMIRK_MICA
+(default assets/mica.tar); an absent file turns that loss to 0.
+
 Recovery: SMIRK_FAULT_INJECT_STEP=N raises after the N-th step (negative:
 before the first step of this run). On any crash the last completed step's
 state is saved to last_state.pt, atomically; when no step completed in this
@@ -64,14 +69,23 @@ def _parse(argv):
     return cfg_path, overrides, synthetic, device
 
 
-def _refuse_teacher(name: str, weight: float, path) -> None:
-    """A teacher whose file is absent is None, its loss 0, as in the JAX
-    package; the teachers' architectures are not ported yet, so a present
-    file raises rather than being ignored."""
-    if weight > 0 and path and os.path.isfile(path):
-        raise NotImplementedError(
-            f"the {name} teacher ({path}) is not ported; move the file away or set "
-            f"its loss weight to 0")
+def _teachers(config, device):
+    """The frozen teachers whose loss weight is above 0, each from its file
+    (SMIRK_VGG16; SMIRK_EMOTION, default assets/ResNet50/
+    emotion_checkpoint.ckpt; SMIRK_MICA, default assets/mica.tar); an
+    absent file gives None and a zero loss, as in the JAX package."""
+    from smirk_tpu_torch.models import teachers
+
+    w = config.train.loss_weights
+    return dict(
+        vgg_variables=(teachers.load_vgg_teacher(os.environ.get("SMIRK_VGG16"), device)
+                       if w.perceptual_vgg_loss > 0 else None),
+        emotion_variables=(teachers.load_emotion_teacher(os.environ.get(
+            "SMIRK_EMOTION", "assets/ResNet50/emotion_checkpoint.ckpt"), device)
+            if w.emotion_loss > 0 else None),
+        mica_variables=(teachers.load_mica_teacher(
+            os.environ.get("SMIRK_MICA", "assets/mica.tar"), device)
+            if w.mica_loss > 0 else None))
 
 
 def main(argv=None):
@@ -97,14 +111,9 @@ def main(argv=None):
         config, synthetic=synthetic, pin_memory=device.type == "cuda")
     steps_per_epoch = len(train_loader)
 
-    w = config.train.loss_weights
-    _refuse_teacher("VGG", w.perceptual_vgg_loss, os.environ.get("SMIRK_VGG16"))
-    _refuse_teacher("EMOCA emotion", w.emotion_loss, os.environ.get(
-        "SMIRK_EMOTION", "assets/ResNet50/emotion_checkpoint.ckpt"))
-    _refuse_teacher("MICA", w.mica_loss, os.environ.get("SMIRK_MICA", "assets/mica.tar"))
     system = SmirkSystem(config, assets.load_all(), device=device,
                          steps_per_epoch=steps_per_epoch,
-                         templates=_load_templates(config))
+                         templates=_load_templates(config), **_teachers(config, device))
     a = config.arch
     if a.backbone_init_small or a.backbone_init_large:
         # ImageNet-pretrained backbones from raw timm state dicts (reference

@@ -9,6 +9,8 @@ norm between batch and running statistics (mobilenetv3.BatchNorm2d, Flax's
 update rule). Module names follow the reference checkpoint
 (`pose_encoder.encoder.conv_stem.weight`, `pose_encoder.pose_cam_layers.0`,
 ...), so `load_state_dict` takes a reference encoder state dict.
+`forward(img, dtype)` runs the backbones in a compute dtype (bf16 under
+`arch.bf16_compute`); the pooled features and the heads stay fp32.
 """
 from __future__ import annotations
 
@@ -34,8 +36,10 @@ class _Regressor(nn.Module):
         setattr(self, head_name,
                 nn.Sequential(nn.Linear(self.encoder.feature_dim, head_dim)))
 
-    def forward(self, x_nchw: torch.Tensor) -> torch.Tensor:
-        f = self.encoder(x_nchw)[-1].mean(dim=(2, 3))
+    def forward(self, x_nchw: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        # the heads stay fp32 for output precision
+        f = self.encoder(x_nchw, dtype)[-1].float().mean(dim=(2, 3))
         return getattr(self, self.head_name)(f)
 
 
@@ -84,11 +88,14 @@ class SmirkEncoder(nn.Module):
         expr.bias.zero_()
         return self
 
-    def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def forward(self, img: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> Dict[str, torch.Tensor]:
+        """(B,S,S,3) NHWC in [0,1] -> the parameters (fp32); the backbones
+        run in `dtype` when given."""
         x = img.permute(0, 3, 1, 2)  # NHWC -> NCHW
-        pose_cam = self.pose_encoder(x)
-        shape = self.shape_encoder(x)
-        p = self.expression_encoder(x)
+        pose_cam = self.pose_encoder(x, dtype)
+        shape = self.shape_encoder(x, dtype)
+        p = self.expression_encoder(x, dtype)
         n = self.n_exp
         return {
             "pose_params": pose_cam[..., :3],

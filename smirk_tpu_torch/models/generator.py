@@ -9,6 +9,12 @@ channels in (0, 1). Module names follow the reference checkpoint
 generator state dict. Batch norm has eps 1e-5 and Flax's running-stat rule
 (mobilenetv3.BatchNorm2d): train mode normalizes with the batch statistics
 and moves the running ones by 0.1 toward them, biased variance.
+
+`forward(x, dtype)` runs the UNet in a compute dtype (bf16 under
+`arch.bf16_compute`) as the JAX package does: the input is cast at the top;
+convolutions, transposed convolutions, pools, pads and concatenations run
+in it (kernels and biases cast to it); batch norm in fp32 on the upcast
+input, cast back; the 1x1 output head and the sigmoid in fp32.
 """
 from __future__ import annotations
 
@@ -17,20 +23,38 @@ from collections import OrderedDict
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from smirk_tpu_torch.models.mobilenetv3 import BatchNorm2d
+from smirk_tpu_torch.models.mobilenetv3 import BatchNorm2d, cast_to
 
 BN_EPS = 1e-5
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d (same parameters and keys) in its input's dtype."""
+
+    def forward(self, x):
+        b = None if self.bias is None else cast_to(self.bias, x)
+        return self._conv_forward(x, cast_to(self.weight, x), b)
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (same parameters and keys) in its input's dtype."""
+
+    def forward(self, x):
+        return F.conv_transpose2d(x, cast_to(self.weight, x), cast_to(self.bias, x),
+                                  self.stride, self.padding, self.output_padding,
+                                  self.groups, self.dilation)
 
 
 def _block(in_c: int, feat: int, name: str) -> nn.Sequential:
     """(conv3x3 no bias, BN, ReLU) x 2, named as the reference's blocks."""
     return nn.Sequential(OrderedDict([
-        (name + "conv1", nn.Conv2d(in_c, feat, 3, padding=1, bias=False)),
+        (name + "conv1", Conv2d(in_c, feat, 3, padding=1, bias=False)),
         (name + "norm1", BatchNorm2d(feat, eps=BN_EPS)),
         (name + "relu1", nn.ReLU(inplace=True)),
-        (name + "conv2", nn.Conv2d(feat, feat, 3, padding=1, bias=False)),
+        (name + "conv2", Conv2d(feat, feat, 3, padding=1, bias=False)),
         (name + "norm2", BatchNorm2d(feat, eps=BN_EPS)),
         (name + "relu2", nn.ReLU(inplace=True)),
     ]))
@@ -43,11 +67,11 @@ class ResnetBlock(nn.Module):
         super().__init__()
         self.conv_block = nn.Sequential(
             nn.ReflectionPad2d(1),
-            nn.Conv2d(dim, dim, 3, bias=False),
+            Conv2d(dim, dim, 3, bias=False),
             BatchNorm2d(dim, eps=BN_EPS),
             nn.ReLU(inplace=True),
             nn.ReflectionPad2d(1),
-            nn.Conv2d(dim, dim, 3, bias=False),
+            Conv2d(dim, dim, 3, bias=False),
             BatchNorm2d(dim, eps=BN_EPS),
         )
 
@@ -67,13 +91,13 @@ class SmirkGenerator(nn.Module):
         self.pool = nn.MaxPool2d(2, 2)
         self.bottleneck = _block(f * 8, f * 16, "bottleneck")
         self.resnet_blocks = nn.ModuleList(ResnetBlock(f * 16) for _ in range(res_blocks))
-        self.upconv4 = nn.ConvTranspose2d(f * 16, f * 8, 2, 2)
+        self.upconv4 = ConvTranspose2d(f * 16, f * 8, 2, 2)
         self.decoder4 = _block(f * 16, f * 8, "dec4")
-        self.upconv3 = nn.ConvTranspose2d(f * 8, f * 4, 2, 2)
+        self.upconv3 = ConvTranspose2d(f * 8, f * 4, 2, 2)
         self.decoder3 = _block(f * 8, f * 4, "dec3")
-        self.upconv2 = nn.ConvTranspose2d(f * 4, f * 2, 2, 2)
+        self.upconv2 = ConvTranspose2d(f * 4, f * 2, 2, 2)
         self.decoder2 = _block(f * 4, f * 2, "dec2")
-        self.upconv1 = nn.ConvTranspose2d(f * 2, f, 2, 2)
+        self.upconv1 = ConvTranspose2d(f * 2, f, 2, 2)
         self.decoder1 = _block(f * 2, f, "dec1")
         self.conv = nn.Conv2d(f, out_channels, 1)
 
@@ -95,9 +119,12 @@ class SmirkGenerator(nn.Module):
                 m.reset_parameters()
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B,H,W,6) NHWC -> (B,H,W,3) NHWC in (0, 1)."""
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """(B,H,W,6) NHWC -> (B,H,W,3) NHWC in (0, 1), fp32; the UNet runs
+        in `dtype` when given."""
         x = x.permute(0, 3, 1, 2)
+        if dtype is not None:
+            x = x.to(dtype)
         e1 = self.encoder1(x)
         e2 = self.encoder2(self.pool(e1))
         e3 = self.encoder3(self.pool(e2))
@@ -109,4 +136,5 @@ class SmirkGenerator(nn.Module):
         d3 = self.decoder3(torch.cat([self.upconv3(d4), e3], dim=1))
         d2 = self.decoder2(torch.cat([self.upconv2(d3), e2], dim=1))
         d1 = self.decoder1(torch.cat([self.upconv1(d2), e1], dim=1))
-        return torch.sigmoid(self.conv(d1)).permute(0, 2, 3, 1)
+        # the output head in fp32: the image feeds fp32 losses
+        return torch.sigmoid(self.conv(d1.float())).permute(0, 2, 3, 1)

@@ -9,14 +9,25 @@ mode it normalizes with the running stats; in train mode with the batch's,
 and it updates the running stats as ra = 0.9 ra + 0.1 batch with the
 BIASED batch variance (torch's own BatchNorm2d uses the unbiased one).
 
+Compute dtype (the JAX package's `dtype=`, e.g. bf16 under
+`arch.bf16_compute`): `forward(x, dtype)` casts the input at the stem, and
+every layer below follows its input's dtype as Flax's cast points do: a
+convolution casts its kernel to the input's dtype and returns that dtype;
+batch norm takes its statistics from the input upcast to fp32, normalizes
+in fp32 and casts the result back; ReLU and the residual add run in the
+compute dtype. Parameters and running statistics stay fp32. With no
+compute dtype every cast is skipped, so fp32 runs the same ops as before.
+
 Stage tables are constructor arguments; `ARCHS` maps the timm names to
 the published tables and is never written to. Module names follow timm's
 (conv_stem, bn1, blocks.i.j.*), so a reference state dict loads as it is.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import List, Sequence, Tuple
+import threading
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +35,7 @@ from torch import nn
 
 BN_EPS_TF = 1e-3
 BN_MOMENTUM = 0.9  # Flax's: ra = 0.9 ra + 0.1 batch
+LOW_DTYPES = (torch.bfloat16, torch.float16)
 
 Stage = Sequence[Tuple[str, int, int, int]]  # (block, exp_chs, out_chs, stride)
 
@@ -53,6 +65,11 @@ ARCHS = {
 }
 
 
+def cast_to(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """w in x's dtype (w itself when they agree: no op in fp32)."""
+    return w if w.dtype == x.dtype else w.to(x.dtype)
+
+
 class Conv2dSame(nn.Conv2d):
     """Bias-free conv with TF-style SAME padding (asymmetric: the extra
     row/column goes to the bottom/right)."""
@@ -69,25 +86,48 @@ class Conv2dSame(nn.Conv2d):
         pw = max((math.ceil(iw / sw) - 1) * sw + kw - iw, 0)
         if ph or pw:
             x = F.pad(x, [pw // 2, pw - pw // 2, ph // 2, ph - ph // 2])
-        return F.conv2d(x, self.weight, None, self.stride, 0, 1, self.groups)
+        return F.conv2d(x, cast_to(self.weight, x), None, self.stride, 0, 1, self.groups)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d (same parameters, buffers and state-dict keys) with
     Flax's running-stat rule: in train mode the batch statistics normalize,
     and the running mean and variance move as ra = 0.9 ra + 0.1 batch,
-    with the biased batch variance. num_batches_tracked stays unused."""
+    with the biased batch variance. num_batches_tracked stays unused.
+
+    An input in a lower dtype is normalized in fp32 and the result cast
+    back (Flax's _compute_stats / _normalize). Inside `frozen_stats()` the
+    running statistics are not moved (a recomputed forward of a
+    checkpointed region)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype in LOW_DTYPES:
+            return self.forward(x.float()).to(x.dtype)
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if getattr(_stats, "frozen", 0):
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
         return y
+
+
+_stats = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_stats():
+    """Within the block (on this thread) train-mode batch norm normalizes
+    with the batch statistics but leaves the running ones as they are."""
+    _stats.frozen = getattr(_stats, "frozen", 0) + 1
+    try:
+        yield
+    finally:
+        _stats.frozen -= 1
 
 
 def _bn(c):
@@ -166,7 +206,11 @@ class MobileNetV3Features(nn.Module):
         self.blocks = blocks
         self.feature_dim = in_chs
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                dtype: Optional[torch.dtype] = None) -> List[torch.Tensor]:
+        """NCHW input -> the stage outputs, in `dtype` when given."""
+        if dtype is not None:
+            x = x.to(dtype)
         x = F.relu(self.bn1(self.conv_stem(x)))
         feats = []
         for stage in self.blocks:

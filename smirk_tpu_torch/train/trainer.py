@@ -29,11 +29,17 @@ Differences from the JAX package, by design:
   * `train.step_mode` ("split" / "fused") picks how many jitted programs
     the JAX package compiles; eager PyTorch has nothing to split, so it is
     read by nothing here;
-  * `arch.bf16_compute`, `arch.bf16_cycle_frozen` and `train.remat_cycle`
-    raise NotImplementedError: the port runs fp32 without recomputation;
-  * the frozen teachers (VGG, EMOCA, MICA) are not ported: their arguments
-    accept None only, and their losses are 0, as the JAX package's are
-    when their variables are None;
+  * the compute dtype (`arch.bf16_compute`) and the cycle path's frozen
+    dtype (`arch.bf16_cycle_frozen`) are arguments of the encoder's and
+    the generator's `forward`, not second modules: one set of weights, as
+    the JAX package's twins share their variables;
+  * `train.remat_cycle` wraps the cycle's four applies in
+    torch.utils.checkpoint; a recomputed forward leaves the running
+    statistics alone (`mobilenetv3.frozen_stats`), so they move once, as
+    jax.checkpoint's functional statistics do;
+  * the teachers (`vgg_variables`, `emotion_variables`, `mica_variables`)
+    are the port's modules (as `models.teachers`' loaders give them); None
+    turns their loss to 0, as in the JAX package;
   * draws come from a `torch.Generator`, not a JAX key, so the two
     packages draw different numbers; `train_step` and the losses accept the
     draws as tensors (`draws=`) so that a test can hand over the JAX
@@ -54,12 +60,16 @@ given (`reconstruct_draws`); the served artifacts trace them
 """
 from __future__ import annotations
 
+import contextlib
 import copy
+import functools
 import math
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from smirk_tpu_torch.config import Config
 from smirk_tpu_torch.device import fp32_math, resolve_device
@@ -68,9 +78,12 @@ from smirk_tpu_torch.losses.losses import (
     landmark_mse, masked_landmark_mse, param_regularization,
 )
 from smirk_tpu_torch.masking import masking as masking_lib
+from smirk_tpu_torch.models.emoca_resnet import emotion_embedding_distance
 from smirk_tpu_torch.models.encoders import SmirkEncoder
 from smirk_tpu_torch.models.generator import SmirkGenerator
-from smirk_tpu_torch.models.mobilenetv3 import ARCHS, Stage
+from smirk_tpu_torch.models.mobilenetv3 import ARCHS, Stage, frozen_stats
+from smirk_tpu_torch.models.teachers import freeze
+from smirk_tpu_torch.models.vgg import perceptual_loss, resize_bilinear
 from smirk_tpu_torch.render import geometry
 from smirk_tpu_torch.render.renderer import Renderer
 
@@ -184,15 +197,33 @@ class _no_param_grad:
             p.requires_grad_(True)
 
 
+def remat(fn):
+    """fn under torch.utils.checkpoint (non-reentrant): its activations are
+    recomputed in the backward. The recomputation runs inside
+    `frozen_stats()`, so train-mode batch norm moves its running
+    statistics once, in the first forward."""
+    @functools.wraps(fn)
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False,
+                          context_fn=lambda: (contextlib.nullcontext(), frozen_stats()))
+
+    return run
+
+
 class SmirkSystem:
     """Module bundle + the training step and the serving path.
 
     backbone_stages maps backbone names (the config's `arch.backbone_*`) to
     stage tables; names not in it are looked up in `mobilenetv3.ARCHS`.
     The encoder and the generator start from a seeded random init; load
-    trained weights with their `load_state_dict`. Teachers accept None
-    only (not ported); templates (T, >= n_exp) are the FaMoS expression
-    templates, zeros when None. training=False builds a system that only
+    trained weights with their `load_state_dict`. The teachers are None or
+    the port's `VGG16Features` / `EmocaResNet50` / `Mica` (as
+    `models.teachers` loads them), kept frozen in eval mode; templates (T, >=
+    n_exp) are the FaMoS expression templates, zeros when None.
+    `compute_dtype` (bf16 under `arch.bf16_compute`, else None = fp32) is
+    the encoder's and the generator's everywhere; `frozen_dtype` (bf16
+    under either flag) is the cycle path's frozen applies'. The render's
+    inputs are fp32 in every mode. training=False builds a system that only
     serves (`Predictor`, the demos): it keeps no frozen base-encoder copy,
     so the base-model regularization and `make_visualizations` raise.
     """
@@ -217,14 +248,12 @@ class SmirkSystem:
         self.device = resolve_device(device)
         self.config = config
         c = config
-        for flag, on in (("arch.bf16_compute", c.arch.bf16_compute),
-                         ("arch.bf16_cycle_frozen", c.arch.bf16_cycle_frozen),
-                         ("train.remat_cycle", c.train.remat_cycle)):
-            if on:
-                raise NotImplementedError(f"{flag} is not ported; the port runs fp32")
-        if any(v is not None for v in (vgg_variables, emotion_variables, mica_variables)):
-            raise NotImplementedError(
-                "the VGG, EMOCA and MICA teachers are not ported; pass None")
+        self.compute_dtype = torch.bfloat16 if c.arch.bf16_compute else None
+        self.frozen_dtype = (torch.bfloat16 if c.arch.bf16_compute or c.arch.bf16_cycle_frozen
+                             else None)
+        self.vgg = freeze(vgg_variables, self.device)
+        self.emotion = freeze(emotion_variables, self.device)
+        self.mica = freeze(mica_variables, self.device)
         tables = dict(ARCHS, **(backbone_stages or {}))
         self.flame = FlameModel(bundle, n_shape=c.arch.num_shape,
                                 n_exp=c.arch.num_expression, device=self.device)
@@ -322,7 +351,7 @@ class SmirkSystem:
         zero = img.new_zeros(())
 
         self.encoder.train(train)
-        enc_out = self.encoder(img)
+        enc_out = self.encoder(img, self.compute_dtype)
         flame_out = self.flame(enc_out)
         rend = self.renderer(
             flame_out["vertices"], enc_out["cam"],
@@ -344,7 +373,7 @@ class SmirkSystem:
 
         if c.train.use_base_model_for_regularization:
             with torch.no_grad():
-                base_out = self._base_encoder()(img)
+                base_out = self._base_encoder()(img, self.compute_dtype)
         else:
             base_out = {
                 "expression_params": img.new_zeros((B, c.arch.num_expression)),
@@ -369,15 +398,39 @@ class SmirkSystem:
                 rendered_mask=rend["rendered_mask"], generator=generator,
                 noise=draws.get("noise"), drop_centers=draws.get("drop_centers"))
             gen_in = torch.cat([rend["rendered_img"], masked_img], dim=-1)
+            if self.emotion is not None and w.emotion_loss > 0:
+                # the generator re-applied with its parameters detached and
+                # eval-mode batch norm on a copy of the running statistics
+                # as they stand before this step's train-mode forward moves
+                # them in place (the backward reads the copy); the gradient
+                # still reaches the encoder through gen_in
+                self.generator.eval()
+                frozen_gen = {n: p.detach() for n, p in self.generator.named_parameters()}
+                frozen_gen.update((n, b.clone()) for n, b in self.generator.named_buffers())
+                recon_p = functional_call(self.generator, frozen_gen,
+                                          (gen_in, self.compute_dtype))
+                emotion = emotion_embedding_distance(self.emotion, recon_p, img,
+                                                     metric="l2").mean()
+            else:
+                emotion = zero
             self.generator.train(train)
-            recon_img = self.generator(gen_in)
+            recon_img = self.generator(gen_in, self.compute_dtype)
             rec_err = (recon_img - img).abs()
             losses["reconstruction_loss"] = rec_err.mean()
+            losses["perceptual_vgg_loss"] = (
+                perceptual_loss(self.vgg, recon_img, img)
+                if self.vgg is not None and w.perceptual_vgg_loss > 0 else zero)
+            losses["emotion_loss"] = emotion
         else:
             losses["reconstruction_loss"] = zero
-        losses["perceptual_vgg_loss"] = zero  # teachers not ported
-        losses["emotion_loss"] = zero
-        losses["mica_loss"] = zero
+            losses["perceptual_vgg_loss"] = zero
+            losses["emotion_loss"] = zero
+        if self.mica is not None and w.mica_loss > 0:
+            with torch.no_grad():
+                mica_shape = self.mica(batch["img_mica"])[..., :c.arch.num_shape]
+            losses["mica_loss"] = ((enc_out["shape_params"] - mica_shape) ** 2).mean()
+        else:
+            losses["mica_loss"] = zero
 
         shape_losses = (losses["shape_regularization"] * w.shape_regularization
                         + losses["mica_loss"] * w.mica_loss)
@@ -499,23 +552,37 @@ class SmirkSystem:
             drop_centers=draws.get("drop_centers"))
         gen_in = torch.cat([rendered_img_2nd, masked_img_2nd], dim=-1).detach()
 
-        if freeze_generator:
-            self.generator.eval()
-            with torch.no_grad():
-                recon = self.generator(gen_in)
-        else:
-            self.generator.train()
-            recon = self.generator(gen_in)
+        # the frozen module runs at frozen_dtype, the training one at
+        # compute_dtype; train.remat_cycle recomputes the four applies in
+        # the backward (each sets its module's mode itself, since the
+        # recomputation runs then)
+        wrap = remat if c.train.remat_cycle else (lambda f: f)
 
-        if freeze_encoder:
+        def generator_frozen(x):
+            self.generator.eval()
+            return self.generator(x, self.frozen_dtype)
+
+        def generator_train(x):
+            self.generator.train()
+            return self.generator(x, self.compute_dtype)
+
+        def encoder_frozen(x):
             # eval-mode batch norm and no weight gradient, but the gradient
             # flows through it back to the generator via `recon`
             self.encoder.eval()
             with _no_param_grad(self.encoder):
-                recon_feats = self.encoder(recon)
-        else:
+                return self.encoder(x, self.frozen_dtype)
+
+        def encoder_train(x):
             self.encoder.train()
-            recon_feats = self.encoder(recon)
+            return self.encoder(x, self.compute_dtype)
+
+        if freeze_generator:
+            with torch.no_grad():
+                recon = wrap(generator_frozen)(gen_in)
+        else:
+            recon = wrap(generator_train)(gen_in)
+        recon_feats = wrap(encoder_frozen if freeze_encoder else encoder_train)(recon)
 
         cycle = (landmark_mse(recon_feats["expression_params"], feats["expression_params"])
                  + 10.0 * landmark_mse(recon_feats["jaw_params"], feats["jaw_params"]))
@@ -647,7 +714,7 @@ class SmirkSystem:
         it is in), FLAME and the inference render. The served artifacts
         trace this body (`serving.make_inference_fn`), so that they run what
         `infer` runs."""
-        enc_out = self.encoder(img)
+        enc_out = self.encoder(img, self.compute_dtype)
         flame_out = self.flame(enc_out)
         rend = self.renderer(
             flame_out["vertices"], enc_out["cam"],
@@ -736,7 +803,8 @@ class SmirkSystem:
         """`reconstruct` without its pins, on every draw given: the served
         reconstruct artifact traces it (`serving.make_reconstruct_fn`)."""
         masked = self.masked_body(infer_out, img, hull, draws)
-        recon = self.generator(torch.cat([infer_out["rendered_img"], masked], dim=-1))
+        recon = self.generator(torch.cat([infer_out["rendered_img"], masked], dim=-1),
+                               self.compute_dtype)
         return masked, recon
 
     # ---------------------------- visualization ----------------------------
@@ -751,20 +819,30 @@ class SmirkSystem:
         zero-pose / zero-expression render (cam [7, 0, 0]) and, after a
         cycle step, the cycle path's '2nd_path' stack: for each sample, Ke
         groups of [augmented render | masked | reconstruction | re-render
-        of the re-encoded parameters]. Every render is the fused inference
-        raster; no MICA panels (the teachers are not ported)."""
+        of the re-encoded parameters]. With the MICA teacher and an
+        `img_mica` in the batch, also the zero-pose render of MICA's shape
+        and the 112 px crop resized to the model's size. Every render is
+        the fused inference raster."""
         img = self._batch({"img": batch["img"]})["img"]
         B = img.shape[0]
         enc_out = aux["encoder_output"]
         zero_cam = img.new_tensor([[7.0, 0.0, 0.0]]).expand(B, 3)
         viz = {k: aux.get(k) for k in ("rendered_img", "masked_img", "reconstructed_img",
                                        "loss_img", "landmarks_fan", "landmarks_mp")}
-        base_out = self._base_encoder()(img)
+        base_out = self._base_encoder()(img, self.compute_dtype)
         viz["rendered_img_base"] = self.renderer(
             self.flame(base_out)["vertices"], base_out["cam"], inference=True)["rendered_img"]
         zero_flame = self.flame(enc_out, zero_expression=True, zero_pose=True)
         viz["rendered_img_zero"] = self.renderer(
             zero_flame["vertices"], zero_cam, inference=True)["rendered_img"]
+        if self.mica is not None and "img_mica" in batch:
+            img_mica = self._batch({"img_mica": batch["img_mica"]})["img_mica"]
+            mica_out = dict(enc_out)
+            mica_out["shape_params"] = self.mica(img_mica)[..., :self.config.arch.num_shape]
+            mica_flame = self.flame(mica_out, zero_expression=True, zero_pose=True)
+            viz["rendered_img_mica_zero"] = self.renderer(
+                mica_flame["vertices"], zero_cam, inference=True)["rendered_img"]
+            viz["img_mica"] = resize_bilinear(img_mica, self.config.image_size)
         sp = aux.get("second_path")
         if sp is not None:
             recon_feats = sp["recon_feats"]

@@ -15,6 +15,13 @@ state dicts, without importing JAX. The rules invert
   generator blocks take the reference's names (encoder1/conv1 ->
   encoder1.enc1conv1, resnet_blocks_0/norm2 -> resnet_blocks.0.conv_block.6)
 
+`vgg_state_dict_from_jax`, `emotion_state_dict_from_jax` and
+`mica_state_dict_from_jax` carry the Flax teachers' variables into the
+port's `VGG16Features`, `EmocaResNet50` and `Mica` (the same rules; a PReLU
+slope `weight` keeps its name, `features_14` -> `features.14`,
+`layer1_0/downsample_0` -> `layer1.0.downsample.0`, `network_2` ->
+`network.2`).
+
 `load_raw_state_dict` and `init_backbones_from_state_dicts` (the JAX
 package's `utils/importer.py` counterparts) start the three encoders'
 feature extractors from raw timm `tf_mobilenetv3_*` state dicts.
@@ -30,6 +37,7 @@ import torch
 _LEAF_TO_TORCH = {
     "kernel": "weight", "scale": "weight", "bias": "bias",
     "mean": "running_mean", "var": "running_var",
+    "weight": "weight",  # a PReLU slope
 }
 _TRAILING_IDX = re.compile(r"_(\d+)(?=_|$)")
 
@@ -68,7 +76,7 @@ def _torch_key(path: Tuple[str, ...]) -> str:
 def _state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for collection in ("params", "batch_stats"):
-        for path, leaf in _flatten(variables[collection]):
+        for path, leaf in _flatten(variables.get(collection, {})):
             arr = np.array(leaf, np.float32)  # a writable copy
             if path[-1] == "kernel" and arr.ndim == 4 and path[-2].startswith("upconv"):
                 arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
@@ -95,6 +103,24 @@ def encoder_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch
 def generator_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """{'params': ..., 'batch_stats': ...} of the Flax `SmirkGenerator` ->
     state dict for the port's `SmirkGenerator` (reference key names)."""
+    return _state_dict_from_jax(variables)
+
+
+def vgg_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params': ...} of the Flax `VGG16Features` -> state dict for the
+    port's `VGG16Features` (torchvision's `features.<i>` names)."""
+    return _state_dict_from_jax(variables)
+
+
+def emotion_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} of the Flax `EmocaResNet50` ->
+    state dict for the port's `EmocaResNet50`."""
+    return _state_dict_from_jax(variables)
+
+
+def mica_state_dict_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} of the Flax `Mica` -> state dict
+    for the port's `Mica` (`arcface.*`, `regressor.*`)."""
     return _state_dict_from_jax(variables)
 
 

@@ -26,6 +26,7 @@ from smirk_tpu_torch.config import ArchConfig, Config, TrainConfig
 from smirk_tpu_torch.device import fp32_math
 from smirk_tpu_torch.train import trainer
 from smirk_tpu_torch.train.trainer import SmirkSystem
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
 TINY_LARGE = [[("ds", 16, 16, 1)], [("ir", 24, 24, 2)], [("cn", 0, 48, 1)]]
@@ -127,20 +128,27 @@ def test_entry_points_pin_fp32(tf32_on, monkeypatch):
     assert inside == [(False, False)] and flags() == (True, True)
 
 
-def run_bench(env_extra):
+def run_bench(env_extra, *args):
     # two OpenMP threads a child: with a thread per core, the children's
     # spin-waits slow them 5-10x when the suite's other workers share the cores
     env = dict(os.environ, OMP_NUM_THREADS="2", **env_extra)
     env.pop("SMIRK_ASSETS", None)
-    proc = subprocess.run([sys.executable, "-m", "smirk_tpu_torch.bench", "--device", "cpu"],
-                          capture_output=True, text=True, cwd=REPO, env=env, timeout=300)
+    proc = subprocess.run([sys.executable, "-m", "smirk_tpu_torch.bench", "--device", "cpu",
+                           *args], capture_output=True, text=True, cwd=REPO, env=env,
+                          timeout=300)
     lines = [json.loads(ln) for ln in proc.stdout.splitlines() if ln.startswith("{")]
     return proc.returncode, lines
 
 
 def test_bench_line_on_cpu():
     """A provisional line first, then a final line with every field present
-    and finite, tf32 false."""
+    and finite, tf32 false; the fields include bench.py's bf16 ones (the
+    train step with arch.bf16_compute per parity, the bf16 reconstruct).
+    The training options' child (`--inner train_options`, outside the
+    line) times the fp32, bf16_cycle_frozen and remat_cycle steps."""
+    assert {"train_ms_batch32_bf16_p0", "train_ms_batch32_bf16_p1",
+            "train_ms_batch32_bf16_avg"} <= set(FIELDS["train"])
+    assert {"reconstruct_bf16_fps", "reconstruct_bf16_ms_batch"} <= set(FIELDS["reconstruct"])
     rc, lines = run_bench({"SMIRK_BENCH_DEADLINE_S": "600"})
     assert rc == 0 and len(lines) == 2
     assert lines[0]["provisional"] is True and lines[0]["infer_fps_b64"] is None
@@ -151,6 +159,14 @@ def test_bench_line_on_cpu():
             assert isinstance(final[f], float) and math.isfinite(final[f]), f
     assert final["device_name"] == "cpu" and not any(k.endswith("error") for k in final)
     assert final["infer_coverage"] > 0.05
+
+    rc, lines = run_bench({}, "--inner", "train_options")
+    assert rc == 0 and len(lines) == 1
+    for name in ("fp32", "cycle_frozen", "remat"):
+        for parity in (0, 1):
+            for f in (f"train_ms_batch32_{name}_p{parity}", f"train_host_ms_{name}_p{parity}"):
+                assert isinstance(lines[0][f], float) and math.isfinite(lines[0][f]), f
+            assert lines[0][f"peak_mb_{name}_p{parity}"] is None  # the card's only
 
 
 def test_bench_deadline_gives_error_fields():

@@ -14,6 +14,7 @@ import pytest
 from smirk_tpu.render import rasterizer as JR
 from smirk_tpu_torch.render import rasterizer as TR
 from test_torch_raster_sched import T, chunky_scene, random_mesh
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 @pytest.mark.parametrize("chunk,cap", [(4, 8), (8, 16), (8, 3), (16, 2)])
 def test_bin_chunks_matches_jax_exactly(chunk, cap):

@@ -23,6 +23,7 @@ import torch
 from smirk_tpu_torch.render import rasterizer as R
 from test_torch_raster_cull import faces
 from test_torch_raster_cull_fused import head, meets, warp_rects
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 # an H100's opt-in shared memory per block and per SM (bytes); a block
 # also holds 1 KB the system reserves

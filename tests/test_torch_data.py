@@ -36,6 +36,7 @@ from smirk_tpu_torch.data import datasets as PD
 from smirk_tpu_torch.data import pipeline as PP
 from smirk_tpu_torch.data import tracks as PTR
 from smirk_tpu_torch.data import transforms as PT
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 # seed -> the branches its draws take (besides the crop's scale)
 BRANCH_SEEDS = {5: {"_clahe", "uniform_filter", "_warp_affine_nearest_np"},

@@ -17,6 +17,7 @@ from smirk_tpu_torch.models import mobilenetv3 as tmnv3
 from smirk_tpu_torch.models.encoders import SmirkEncoder
 from smirk_tpu_torch.utils.weights import encoder_state_dict_from_jax
 from torch_ref import SmirkEncoderTorch, randomize_bn_stats
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [
     [("ds", 16, 16, 2)],

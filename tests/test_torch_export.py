@@ -15,6 +15,7 @@ from smirk_tpu.models.encoders import SmirkEncoder
 from smirk_tpu.utils import importer
 
 from torch_ref import SmirkEncoderTorch
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [
     [("ds", 16, 16, 2)],

@@ -17,6 +17,7 @@ from smirk_tpu.models.generator import SmirkGenerator as JaxGenerator
 from smirk_tpu_torch.models.generator import SmirkGenerator
 from smirk_tpu_torch.utils.weights import generator_state_dict_from_jax
 from torch_ref import SmirkGeneratorTorch, randomize_bn_stats
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def perturbed_variables(module, x, seed):

@@ -23,6 +23,7 @@ from smirk_tpu_torch.flame.model import FlameModel
 from smirk_tpu_torch.render import camera as tcam
 from smirk_tpu_torch.render import geometry as tgeo
 from smirk_tpu_torch.render import shading as tshade
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIX = np.load(os.path.join(ROOT, "tests", "fixtures", "lbs_golden.npz"))

@@ -26,6 +26,8 @@ from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.config import ArchConfig, Config
 from smirk_tpu_torch.train import SmirkSystem
 from smirk_tpu_torch.utils.weights import encoder_state_dict_from_jax
+from test_torch_train import jax_init_encoder
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
 TINY_LARGE = [[("ds", 16, 16, 1)], [("ir", 24, 24, 2)], [("cn", 0, 48, 1)]]
@@ -56,7 +58,7 @@ def jax_run(bundle, images):
     try:
         system = JaxSmirkSystem(JaxConfig(image_size=S, arch=JaxArchConfig(**ARCH)),
                                 bundle, steps_per_epoch=1, use_pallas=True)
-        enc = system.init_state(jax.random.PRNGKey(0)).encoder
+        enc = jax_init_encoder(system, jax.random.PRNGKey(0), S)
         rng = np.random.default_rng(7)
 
         def perturb(path, x):

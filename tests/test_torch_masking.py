@@ -25,6 +25,7 @@ from smirk_tpu.masking import masking as JMM
 from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.masking import masking as M
 from smirk_tpu_torch.render import geometry
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 FIX = np.load(os.path.join(os.path.dirname(__file__), "fixtures", "masking_golden.npz"))
 S = 32

@@ -21,6 +21,7 @@ from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as TR
 from smirk_tpu_torch.render.renderer import Renderer
 from test_torch_raster import make_scene
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 SUM_RTOL = 1e-5
 

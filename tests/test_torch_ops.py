@@ -33,6 +33,7 @@ from smirk_tpu.render import shading as jshade
 from smirk_tpu_torch.assets import keep_vertices_and_update_faces, procedural_bundle
 from smirk_tpu_torch.flame.model import FlameModel
 from smirk_tpu_torch.render import shading as tshade
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 Z_OFFSET = 10.0
 

@@ -31,6 +31,7 @@ from smirk_tpu.render.renderer import Renderer as JaxRenderer
 from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as TR
 from smirk_tpu_torch.render.renderer import Renderer
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 U = 2.0 ** -24
 ROUNDING = 8 * U

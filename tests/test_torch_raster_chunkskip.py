@@ -17,6 +17,7 @@ from smirk_tpu_torch.render import rasterizer as TR
 from smirk_tpu_torch.render.renderer import Renderer
 from test_torch_raster import ROUNDING, _centres, _interp
 from test_torch_raster_sched import T, chunky_scene, close_to_jax, p2f_by_tie_rule
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 CHUNKS = [4, 8, 16]
 

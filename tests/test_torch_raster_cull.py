@@ -22,6 +22,7 @@ from hypothesis import strategies as st
 from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as R
 from smirk_tpu_torch.render.renderer import Renderer
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 F = 32  # faces per example
 

@@ -26,6 +26,7 @@ from hypothesis import strategies as st
 from smirk_tpu_torch.render import rasterizer as R
 from test_torch_raster_cull import cull_boxes_of, faces, grid_pixels
 from test_torch_raster_cull_fused import head, meets, warp_rects
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 SURE_E, SURE_SAFE = 2.0 ** -100, 2.0 ** 40  # the kernel's kSureE, kSureSafe

@@ -27,6 +27,7 @@ from smirk_tpu_torch.render import rasterizer as R
 from smirk_tpu_torch.render.renderer import Renderer
 from test_torch_raster import check_normals, check_p2f_zbuf
 from test_torch_raster_cull import faces
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def head(B, S, seed, full=True):

@@ -22,6 +22,7 @@ from hypothesis import strategies as st
 from smirk_tpu_torch.render import rasterizer as R
 from test_torch_raster_cull import faces, grid_pixels
 from test_torch_raster_cull_fused import head
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def rebased_passes_outside(face_verts, boxes, size):

@@ -26,6 +26,7 @@ from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as R
 from test_torch_raster_cull import faces
 from test_torch_raster_cull_fused import head, meets
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 S = 224
 TX = -(-S // R.TILE_COLS)

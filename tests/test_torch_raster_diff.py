@@ -36,6 +36,7 @@ from smirk_tpu.render.renderer import Renderer as JaxRenderer
 from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as TR
 from test_torch_raster import check_normals, check_p2f_zbuf, make_scene
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 SUM_RTOL = 1e-5
 GRAD_RTOL = 1e-4

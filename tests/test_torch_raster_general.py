@@ -27,6 +27,7 @@ import torch
 from smirk_tpu.render import rasterizer as JR
 from smirk_tpu_torch.render import rasterizer as TR
 from test_torch_raster import check_p2f_zbuf
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 SUM_RTOL = 1e-5
 TOL = dict(rtol=1e-4, atol=1e-5)

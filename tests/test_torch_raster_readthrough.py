@@ -17,6 +17,7 @@ import torch
 from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as R
 from smirk_tpu_torch.render.renderer import Renderer
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def scene(full, size, B, seed):

@@ -34,6 +34,7 @@ from smirk_tpu.render import rasterizer as JR
 from smirk_tpu_torch.assets import procedural_bundle
 from smirk_tpu_torch.render import rasterizer as TR
 from test_torch_raster import check_p2f_zbuf, make_scene
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def random_mesh(rng, F=50, B=2):

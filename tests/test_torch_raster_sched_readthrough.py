@@ -13,6 +13,7 @@ import torch
 from smirk_tpu_torch.render import rasterizer as R
 from test_torch_raster_cull_fused import head
 from test_torch_raster_sched import random_mesh
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def scene(name):

@@ -19,6 +19,7 @@ from smirk_tpu_torch.render import rasterizer as TR
 from smirk_tpu_torch.render.renderer import Renderer
 from test_torch_raster import check_p2f_zbuf
 from test_torch_raster_sched import T, close_to_jax, p2f_by_tie_rule
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 def test_slice_whole_path_matches_jax():
     """The slice end to end: procedural head -> FLAME -> the renderer's face

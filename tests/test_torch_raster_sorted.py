@@ -17,6 +17,7 @@ from smirk_tpu.render import rasterizer as JR
 from smirk_tpu_torch.render import rasterizer as TR
 from test_torch_raster_sched import (SCHED_SCENES, T, close_to_jax, p2f_by_tie_rule,
                                      random_mesh, sched_scene)
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 @pytest.mark.parametrize("scene", SCHED_SCENES)
 @pytest.mark.parametrize("tps", [None, 16])

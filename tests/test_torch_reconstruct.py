@@ -53,6 +53,8 @@ from smirk_tpu_torch.train.trainer import point_budget
 from smirk_tpu_torch.utils.weights import (
     encoder_state_dict_from_jax, generator_state_dict_from_jax,
 )
+from test_torch_train import jax_init_state
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
 TINY_LARGE = [[("ds", 16, 16, 1)], [("ir", 24, 24, 2)], [("cn", 0, 48, 1)]]
@@ -97,7 +99,7 @@ def jax_ref():
         bundle = procedural_bundle(seed=4, full_size=False)
         system = JaxSmirkSystem(JaxConfig(image_size=S, arch=JaxArchConfig(**ARCH)),
                                 bundle, steps_per_epoch=1, use_pallas=True, **GEN)
-        state = system.init_state(jax.random.PRNGKey(0))
+        state = jax_init_state(system, jax.random.PRNGKey(0), S)
         enc = perturb(state.encoder, 7)
         gen = perturb({"params": state.generator["params"],
                        "batch_stats": state.generator["batch_stats"]}, 8)

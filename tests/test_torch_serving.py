@@ -40,6 +40,8 @@ from smirk_tpu_torch.render import rasterizer as R
 from smirk_tpu_torch.render.renderer import Renderer
 from smirk_tpu_torch.train import SmirkSystem
 from smirk_tpu_torch.utils.weights import encoder_state_dict_from_jax
+from test_torch_train import jax_init_encoder
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
 TINY_LARGE = [[("ds", 16, 16, 1)], [("ir", 24, 24, 2)], [("cn", 0, 48, 1)]]
@@ -73,7 +75,7 @@ def jax_run(bundle, images):
     try:
         system = JaxSmirkSystem(JaxConfig(image_size=S, arch=JaxArchConfig(**ARCH)),
                                 bundle, steps_per_epoch=1, use_pallas=False)
-        enc = system.init_state(jax.random.PRNGKey(0)).encoder
+        enc = jax_init_encoder(system, jax.random.PRNGKey(0), S)
         rng = np.random.default_rng(7)
 
         def perturb(path, x):
@@ -194,7 +196,9 @@ def test_load_imports_no_model_code(artifact, images, tmp_path):
         "       or m.startswith(('smirk_tpu_torch.train', 'smirk_tpu_torch.models',\n"
         "                        'smirk_tpu_torch.flame'))]\n"
         "print('BAD', bad)\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # the child runs with this process's torch thread count, so that its
+    # reductions split as this one's
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS=str(torch.get_num_threads()))
     proc = subprocess.run([sys.executable, "-c", script], capture_output=True, text=True,
                           env=env, cwd=str(tmp_path), timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -47,6 +47,7 @@ from smirk_tpu_torch.train import SmirkSystem
 from smirk_tpu_torch.utils.weights import (
     encoder_state_dict_from_jax, generator_state_dict_from_jax,
 )
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
 TINY_LARGE = [[("ds", 16, 16, 1)], [("ir", 24, 24, 2)], [("cn", 0, 48, 1)]]

@@ -24,6 +24,7 @@ from smirk_tpu_torch.data import pipeline as PP
 from smirk_tpu_torch.models import mobilenetv3 as mnv3
 from smirk_tpu_torch.train.trainer import SmirkSystem
 from smirk_tpu_torch.utils import checkpoint as ckpt
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 TINY_SMALL = [[("ds", 16, 16, 2)], [("ir", 24, 24, 2)], [("cn", 0, 40, 1)]]
 TINY_LARGE = [[("ds", 16, 16, 1)], [("ir", 24, 24, 2)], [("cn", 0, 48, 1)]]

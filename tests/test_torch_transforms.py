@@ -19,6 +19,7 @@ import torch
 from smirk_tpu import native
 from smirk_tpu.data import transforms as JT
 from smirk_tpu_torch.data import transforms as T
+from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 
 def _similarity(angle, scale, tx, ty):
