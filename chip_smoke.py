@@ -202,6 +202,28 @@ Phases (any failure exits non-zero):
     step at the recipes' weights (every teacher loss finite and nonzero),
     its time and its split into each teacher's forward and backward, the
     card against the CPU on a b2 `_loss1`;
+ 5l. the native host ops (after 5k; the library built at first use, with
+    g++, before 5f, whose loader workers only load it): one loader sample's
+    host work at 224 px on 16 seeded 320 px frames of the synthetic
+    dataset, split into the crop warp, the hull fill, CLAHE + the
+    augment's shift-scale-rotate warps and the MICA warp, each through the
+    numpy oracles and through the library by direct calls; the library
+    within one 8-bit level of the oracles (the nearest warp and the hull
+    exactly); `prepare_sample`'s time and the 8 workers' rate it implies
+    beside 5f's loader;
+ 5m. data parallel at Config()'s full width, b32, both parities, fp32,
+    every compared step with the discrete parts (hints, holes, the cycle
+    render) of one recording step: (a) NCCL at world size 1 against the
+    no-group step (the losses bitwise, the parameters after two steps
+    within Adam's sign flips, each gradient tensor and statistic at the
+    CPU test's tolerances or a rerun's difference); (b) two gloo ranks on
+    the one card (children of this script, `--dp-rank`), 16 rows each,
+    against the one-process b32 step, each gradient tensor at the CPU
+    test's tolerance or eight times the one-process step's own change
+    under a rerun, autotuned algorithms and batch norm's statistics as
+    the ranks combine them, the ranks bitwise equal; the steps timed
+    alternately with and without the group; each step's ms and its
+    collectives' share (replayed alone). No run spans two cards;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -1907,10 +1929,738 @@ def teachers_phase(bundle, train_ms, card):
     return res, launches
 
 
+# the native host ops (phase 5l): the samples of the per-sample split, the
+# seeded 320 px frames of the synthetic dataset ([5f]'s)
+NATIVE_SAMPLES = 16
+# data parallel (phase 5m): the ranks of the gloo run on the one card and
+# the seconds its children may take; the steps a timing discards and the
+# steps it times (their median); the tolerances of the CPU test
+# (tests/test_torch_parallel.py): metrics 1e-4 x max(1, |ref|), each summed
+# gradient 1e-4 of its tensor's max magnitude or of a share of its call's
+# largest entry, whichever is more (the CPU test's share 1 %, here 10 %:
+# at 224 px and b32 a rank's split of path 1's reductions moves a small
+# encoder tensor by 5e-6 of its call's largest entry), the running
+# statistics 1e-5 (here of max(1, their magnitude)); the share of a
+# process's own discrete-part pixels that may differ from the held ones'
+# by more than DP_FLIP_ATOL
+DP_WORLD, DP_TIMEOUT_S = 2, 600
+DP_WARM_STEPS, DP_TIMED_STEPS = 2, 5
+DP_METRIC_RTOL, DP_GRAD_RTOL, DP_GRAD_FLOOR, DP_STATS_RTOL = 1e-4, 1e-4, 1e-1, 1e-5
+# (b)'s floor: this many times the one-process step's largest change of a
+# gradient tensor under exact changes of its arithmetic (none of them
+# reorders every batch reduction as the ranks' split does: a rank's
+# difference has reached 4 times that change at one tensor of 702)
+DP_FLOOR_K = 8
+DP_FLIP_ATOL, DP_FLIP_SHARE = 1e-3, 1e-3
+
+
+def recentred_head():
+    """The main path's head: procedural_bundle(seed=0, full_size=True) with
+    the face region recentred onto the optical axis (bench.py's cam_fix:
+    random-init weights leave cam = [7, 0, 0]; here in the template, the
+    same translation before the cam scale)."""
+    import numpy as np
+
+    from smirk_tpu_torch.assets import procedural_bundle
+
+    bundle = procedural_bundle(seed=0, full_size=True)
+    vt = np.array(bundle["v_template"], np.float32)
+    centre = vt[np.asarray(bundle["face_vertex_ids"])].mean(0)
+    vt[:, :2] -= centre[:2]
+    bundle["v_template"] = vt
+    return bundle
+
+
+def _host_ms(fn, n=3):
+    """(fn's result, its least host ms over n calls)."""
+    best, out = float("inf"), None
+    for _ in range(n):
+        t = time.perf_counter()
+        out = fn()
+        best = min(best, (time.perf_counter() - t) * 1e3)
+    return out, best
+
+
+def native_phase(build, loader_ips, train_ms, card):
+    """Phase 5l: the native host-ops library (`smirk_tpu_torch.native`) on
+    one loader sample's host work, on NATIVE_SAMPLES of the synthetic
+    dataset's seeded 320 px frames at 224 px: the crop warp, the hull fill,
+    CLAHE + the augment's shift-scale-rotate warps (bilinear image, nearest
+    mask) and the MICA warp, each timed through the numpy oracles and
+    through the library by direct calls (the least of 3 calls, host
+    clock), the library held to the oracles (the warps and CLAHE within
+    one 8-bit level, the nearest warp and the hull exactly); then a whole
+    `prepare_sample` (the training draws) on the library, and the 8
+    workers' rate it implies beside [5f]'s loader (8 spawned workers, the
+    library) -> {"build_s", "numpy_ms", "library_ms", "prepare_ms"}."""
+    import numpy as np
+
+    from smirk_tpu_torch.data import datasets as D
+    from smirk_tpu_torch.data import transforms as T
+    from smirk_tpu_torch.data.base import prepare_sample
+
+    t_phase = time.perf_counter()
+    log(f"[5l] native host ops: libfastops (g++) against the numpy oracles on "
+        f"{NATIVE_SAMPLES} seeded 320 px frames, one loader sample's host work at 224 px")
+    if build:
+        log(f"    built libfastops at first use (g++ -O3 -march=native -ffp-contract=off) "
+            f"in {build['seconds']:.2f} s")
+    config = _variant()
+    S = config.image_size
+    ds = D.SyntheticFaceDataset(config, length=2 * NATIVE_SAMPLES)
+    ds._prepare = lambda rng, img, fan, mp: (img, fan, mp)  # the raw frame
+    # the frames with FAN landmarks (every fifth has none: no MICA warp)
+    frames = [f for f in map(lambda i: ds._get(i, None), range(2 * NATIVE_SAMPLES))
+              if f[1] is not None][:NATIVE_SAMPLES]
+    parts = ("warp", "hull", "clahe_augment", "mica")
+    ms = {k: [[], []] for k in parts}  # part -> [numpy ms, library ms] per sample
+    worst = {"warp": 0.0, "ssr": 0.0, "clahe": 0.0, "mica": 0.0}
+    exact = {"hull": True, "nearest": True}
+    th = np.deg2rad(7.0)
+    R = 1.05 * np.array([[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]])
+    M_ssr = np.eye(3)
+    M_ssr[:2, :2] = R
+    M_ssr[:2, 2] = np.array([S / 2, S / 2]) - R @ np.array([S / 2, S / 2]) + [5.0, -4.0]
+    for img, fan, mp in frames:
+        f32 = np.asarray(img, np.float32)
+        mp = np.asarray(mp, np.float32)
+        M = T.crop_face_tform(mp, 1.6, S)
+        a, t_np = _host_ms(lambda: T.warp_affine_np(f32, M, (S, S)))
+        b, t_lib = _host_ms(lambda: T.warp_affine_host(f32, M, (S, S)))
+        ms["warp"][0].append(t_np)
+        ms["warp"][1].append(t_lib)
+        worst["warp"] = max(worst["warp"], float(np.abs(a - b).max()))  # 0-255 scale
+        lmk = T.transform_points(M, mp)
+        h_np, t_np = _host_ms(lambda: T.convex_hull_mask_np(lmk, (S, S)))
+        h_lib, t_lib = _host_ms(lambda: T.convex_hull_mask_host(lmk, (S, S)))
+        ms["hull"][0].append(t_np)
+        ms["hull"][1].append(t_lib)
+        exact["hull"] &= bool(np.array_equal(h_np, h_lib))
+        im01 = (np.clip(b, 0, 255) / 255.0).astype(np.float32)
+        face = (1.0 - h_lib)[..., None]
+
+        def clahe_ssr(clahe, warp, nearest):
+            c = clahe(im01, 2.5)
+            return c, warp(c, M_ssr, (S, S)), nearest(face, M_ssr, (S, S))
+
+        (c1, _, m1), t_np = _host_ms(lambda: clahe_ssr(
+            T._clahe_np, T.warp_affine_np, T._warp_affine_nearest_np))
+        (c2, w2, m2), t_lib = _host_ms(lambda: clahe_ssr(
+            T._clahe, T.warp_affine_host,
+            lambda x, m, s: T.warp_affine_host(x, m, s, order=0)))
+        ms["clahe_augment"][0].append(t_np)
+        ms["clahe_augment"][1].append(t_lib)
+        worst["clahe"] = max(worst["clahe"], float(np.abs(c1 - c2).max()) * 255)
+        worst["ssr"] = max(worst["ssr"], float(np.abs(T.warp_affine_np(c2, M_ssr, (S, S))
+                                                      - w2).max()) * 255)
+        exact["nearest"] &= bool(np.array_equal(m1, m2))
+        Ma = T.arcface_tform(np.asarray(fan, np.float32), 112)
+        src = f32 / 255.0
+        a, t_np = _host_ms(lambda: T.warp_affine_np(src, Ma, (112, 112)))
+        b, t_lib = _host_ms(lambda: T.warp_affine_host(src, Ma, (112, 112)))
+        ms["mica"][0].append(t_np)
+        ms["mica"][1].append(t_lib)
+        worst["mica"] = max(worst["mica"], float(np.abs(a - b).max()) * 255)
+    check(all(v <= 1.0 for v in worst.values()),
+          "the library's warps (crop, shift-scale-rotate, MICA) and CLAHE within one 8-bit "
+          f"level of the numpy oracles ({', '.join(f'{k} {v:.4g}' for k, v in worst.items())}"
+          " levels)")
+    check(exact["hull"] and exact["nearest"],
+          "the library's hull fill and nearest warp equal to the oracles, exactly")
+    med = {k: [statistics.median(v[0]), statistics.median(v[1])] for k, v in ms.items()}
+    for k in parts:
+        log(f"    {k}: numpy {med[k][0]:.3f} ms, library {med[k][1]:.3f} ms "
+            f"(x{med[k][0] / max(med[k][1], 1e-9):.1f}; median over samples)")
+    tot = [sum(med[k][i] for k in parts) for i in (0, 1)]
+    log(f"    the four: numpy {tot[0]:.3f} ms, library {tot[1]:.3f} ms a sample (host clock)")
+    prep = []
+    for i, (img, fan, mp) in enumerate(frames):
+        _, t = _host_ms(lambda: prepare_sample(np.random.default_rng(i), img, fan, mp, S,
+                                               [1.2, 1.8]), n=1)
+        prep.append(t)
+    prep_ms = statistics.median(prep)
+    log(f"    prepare_sample (training draws, the library): median {prep_ms:.3f} ms a "
+        f"sample -> {8 * 1e3 / prep_ms:.1f} images/s over 8 workers at one sample each; "
+        f"with the numpy oracles it would add {tot[0] - tot[1]:.3f} ms "
+        f"({8 * 1e3 / (prep_ms + tot[0] - tot[1]):.1f} images/s); [5f]'s loader (8 spawned "
+        f"workers, the library) {loader_ips:.1f} images/s; a b{TRAIN_B} step needs "
+        f"{TRAIN_B / (train_ms[0] / 1e3):.1f} (p0) / {TRAIN_B / (train_ms[1] / 1e3):.1f} "
+        f"(p1) at [6]'s fp32 times {card}")
+    log(f"    [5l] took {time.perf_counter() - t_phase:.1f} s")
+    return {"build_s": build.get("seconds") if build else None, "numpy_ms": med,
+            "library_ms_total": tot[1], "numpy_ms_total": tot[0], "prepare_ms": prep_ms}
+
+
+def _replay_ms(ops, device="cuda") -> float:
+    """Host ms of the recorded collectives (`parallel.record`) issued alone,
+    on fresh buffers on `device`, in the step's order (every rank replays
+    the same)."""
+    import torch
+
+    from smirk_tpu_torch.parallel import mesh
+
+    bufs = [(name, torch.zeros(n, dtype=dt, device=device)) for name, n, dt in ops]
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for name, buf in bufs:
+        if name == "all_reduce":
+            mesh._all_reduce_(buf)
+        elif name == "all_gather":
+            mesh.all_gather_rows({"x": buf[None]})
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+class _Held:
+    """The discrete parts of one compared step of phase 5m, in the order
+    the step makes them (the masked images of both paths, the cycle path's
+    render of the augmented parameters): recorded on the host (`given`
+    None) or replaced by this process's rows of the recorded ones
+    (`parallel.local_rows` of the b32 step's), the share of this process's
+    own pixels that differ by more than DP_FLIP_ATOL noted."""
+
+    def __init__(self, given=None):
+        self.given, self.taken, self.flips = given, [], []
+
+    def __call__(self, x):
+        from smirk_tpu_torch import parallel
+
+        if self.given is None:
+            self.taken.append(x.detach().cpu())
+            return x
+        ref = self.given[len(self.taken)].to(x.device)
+        ref = parallel.local_rows(ref, ref.shape[0] // TRAIN_B)
+        self.taken.append(None)
+        self.flips.append(float(((x - ref).abs().amax(-1) > DP_FLIP_ATOL).float().mean()))
+        return ref
+
+
+class _HeldRenderer:
+    """A system's renderer with its inference render's image held."""
+
+    def __init__(self, renderer, held):
+        self.renderer, self.held = renderer, held
+
+    def __call__(self, *a, **k):
+        out = self.renderer(*a, **k)
+        if k.get("inference"):
+            out = dict(out, rendered_img=self.held(out["rendered_img"]))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.renderer, name)
+
+
+def _ranks_batch_norm(batch_norm, world):
+    """F.batch_norm whose train-mode statistics are those of its rows as
+    `world` ranks of b32 hold them (groups x world x b rows, as
+    `parallel.local_rows` splits them): each part's two-pass moments,
+    combined by the parallel-variance formula."""
+    import torch
+
+    def norm(x, running_mean, running_var, weight, bias, training, momentum, eps):
+        if not training:
+            return batch_norm(x, running_mean, running_var, weight, bias, training,
+                              momentum, eps)
+        parts = x.reshape((-1, world, TRAIN_B // world) + tuple(x.shape[1:])).transpose(0, 1)
+        var, mean = torch.var_mean(parts, dim=(1, 2, 4, 5), unbiased=False)
+        g_mean = mean.mean(0)
+        g_var = (var + (mean - g_mean) ** 2).mean(0)
+        scale = torch.rsqrt(g_var + eps) * weight
+        return (x - g_mean[:, None, None]) * scale[:, None, None] + bias[:, None, None]
+
+    return norm
+
+
+def _dp_system(bundle, img, cycle_in, **flags):
+    """A full-width system of phase 5m whose batch-norm running statistics
+    are those of its step's inputs (one train-mode forward at momentum 0
+    on this process's rows: the encoder's on `img`, the generator's on the
+    cycle path's input `cycle_in`), so that the cycle path's eval-mode
+    applies are normalized as a trained model's are."""
+    import torch
+
+    from smirk_tpu_torch.models import mobilenetv3 as mnv3
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    system = SmirkSystem(_variant(**flags), bundle)
+    momentum, mnv3.BN_MOMENTUM = mnv3.BN_MOMENTUM, 0.0
+    try:
+        with torch.no_grad():
+            system.encoder.train()(img.to(system.device))
+            system.generator.train()(cycle_in.to(system.device))
+    finally:
+        mnv3.BN_MOMENTUM = momentum
+    system.base_encoder.load_state_dict(system.encoder.state_dict())
+    return system
+
+
+def _dp_compared_step(system, batch, parity, held, calls):
+    """One train_step of `system` at `parity` with its discrete parts held
+    (`_Held`) and the summed gradients of every `_grads` call appended to
+    `calls` -> its metrics."""
+    from smirk_tpu_torch.masking import masking
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    grads_fn, compose = SmirkSystem._grads, masking.compose_mask
+    grads_attr = SmirkSystem.__dict__["_grads"]  # the staticmethod, to restore
+
+    def kept(total, params):
+        g = grads_fn(total, params)
+        calls.append([x.detach().cpu() for x in g])
+        return g
+
+    SmirkSystem._grads = staticmethod(kept)
+    masking.compose_mask = lambda *a, **k: held(compose(*a, **k))
+    renderer, system.renderer = system.renderer, _HeldRenderer(system.renderer, held)
+    try:
+        return system.train_step(batch, parity)[0]
+    finally:
+        SmirkSystem._grads, masking.compose_mask = grads_attr, compose
+        system.renderer = renderer
+
+
+def dp_held(bundle, batch) -> dict:
+    """The discrete parts of phase 5m's compared steps: for each parity a
+    fresh full-width system at learning rate 0 (its generator's statistics
+    those of [img, img]; the parts do not read the generator) takes one
+    no-group step, its parts recorded -> {"p0": [...], "p1": [...]}."""
+    import torch
+
+    out = {}
+    for parity in (0, 1):
+        system = _dp_system(bundle, batch["img"], torch.cat([batch["img"]] * 2, -1), lr=0.0)
+        held = _Held()
+        _dp_compared_step(system, batch, parity, held, [])
+        out[f"p{parity}"] = held.taken
+        del system
+    return out
+
+
+def dp_steps(bundle, batch, given, ranks_norm=False, warm=DP_WARM_STEPS,
+             timed=DP_TIMED_STEPS) -> dict:
+    """Phase 5m's steps in this process (no group, NCCL world 1 or a gloo
+    rank), on `batch` (this process's rows): for each parity a fresh
+    full-width system (`_dp_system`, its generator's statistics those of
+    the held cycle input) at learning rate 0 takes one step with its
+    discrete parts replaced by this process's rows of `given`'s
+    (`dp_held`; its metrics, the summed gradients of every `_grads` call,
+    the batch-norm running statistics, the differing pixel shares), with
+    `ranks_norm` its train-mode batch norm normalizing by the statistics
+    of its rows as DP_WORLD ranks hold them; then `warm` steps untimed and
+    `timed` more, each timed (host clock, the card synchronized), the last
+    one's collectives recorded and then replayed alone; then one system at
+    the recipe's rate takes p0 then p1 (their metrics and the parameters
+    after)."""
+    import torch
+    import torch.nn.functional as F
+
+    from smirk_tpu_torch import parallel
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    batch_norm = F.batch_norm
+    out = {}
+    try:
+        for parity in (0, 1):
+            parts = given[f"p{parity}"]
+            cycle_in = torch.cat(parts[-2:], -1)  # the cycle path's render and mask
+            if ranks_norm:
+                F.batch_norm = _ranks_batch_norm(batch_norm, DP_WORLD)
+            system = _dp_system(bundle, batch["img"], parallel.local_rows(
+                cycle_in, cycle_in.shape[0] // TRAIN_B), lr=0.0)
+            held, calls = _Held(parts), []
+            metrics = _dp_compared_step(system, batch, parity, held, calls)
+            F.batch_norm = batch_norm
+            name = {id(t): f"{m}.{n}" for m in ("encoder", "generator")
+                    for n, t in getattr(system, m).named_parameters()}
+            enc = [name[id(t)] for t in system.enc_params]
+            gen = [name[id(t)] for t in system.gen_params]
+            res = {"metrics": metrics, "grads": calls, "flips": held.flips,
+                   "names": [enc + gen if len(c) == len(enc) + len(gen)
+                             else enc if len(c) == len(enc) else gen for c in calls],
+                   "stats": {f"{m}.{k}": v.detach().cpu().clone()
+                             for m in ("encoder", "generator")
+                             for k, v in getattr(system, m).state_dict().items()
+                             if "running" in k}}
+            ms = []
+            for i in range(warm + timed):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                with parallel.record() as ops:
+                    system.train_step(batch, parity)
+                torch.cuda.synchronize()
+                if i >= warm:
+                    ms.append((time.perf_counter() - t) * 1e3)
+            res["ms"] = statistics.median(ms)
+            res["ms_all"] = ms
+            res["collective_ms"] = _replay_ms(ops)
+            res["collectives"] = len(ops)
+            res["collective_bytes"] = sum(n * torch.empty((), dtype=dt).element_size()
+                                          for _, n, dt in ops)
+            out[f"p{parity}"] = res
+            del system
+        system = SmirkSystem(_variant(), bundle)
+        out["step"] = {"metrics": [system.train_step(batch, p)[0] for p in (0, 1)],
+                       "params": [p.detach().cpu() for p in system.enc_params
+                                  + system.gen_params]}
+        del system
+    finally:
+        F.batch_norm = batch_norm
+    return out
+
+
+def _fmt(d: dict) -> str:
+    return "{" + ", ".join(f"{k} {v:.3g}" for k, v in d.items()) + "}"
+
+
+def dp_floor(k, ref, *alts) -> dict:
+    """Per parity, `_grads` call and tensor, k times the largest difference
+    of the `alts`' summed gradients to `ref`'s: the one-process step's own
+    float32 spread under exact changes of its arithmetic."""
+    return {p: [[k * max(float((a[p]["grads"][c][i] - y).abs().max()) for a in alts)
+                 for i, y in enumerate(rc)] for c, rc in enumerate(ref[p]["grads"])]
+            for p in ("p0", "p1")}
+
+
+def dp_floor_share(ref, floor) -> tuple:
+    """(the tensors whose floor is over DP_GRAD_RTOL of their scale, all
+    the tensors, the median floor over its scale, the largest and where)."""
+    over, n, most, shares = 0, 0, (0.0, None), []
+    for p in ("p0", "p1"):
+        for c, rc in enumerate(ref[p]["grads"]):
+            top = max(float(y.abs().max()) for y in rc)
+            for i, y in enumerate(rc):
+                scale = max(float(y.abs().max()), DP_GRAD_FLOOR * top)
+                f = floor[p][c][i] / scale
+                shares.append(f)
+                n += 1
+                over += f > DP_GRAD_RTOL
+                if f > most[0]:
+                    most = (f, (p, c, ref[p]["names"][c][i]))
+    return over, n, statistics.median(shares), most
+
+
+def dp_compare(got, ref, floor=None) -> dict:
+    """Worst ratios to phase 5m's tolerances (<= 1 passes) of `got`'s
+    learning-rate-0 steps against `ref`'s: "metrics" (DP_METRIC_RTOL x
+    max(1, |loss|)), "grads" (each summed gradient tensor within
+    DP_GRAD_RTOL of its max magnitude, or of DP_GRAD_FLOOR of its call's
+    largest entry where that is more: the rounding of a backward is of the
+    call's scale, and a tensor whose exact gradient is 0 holds rounding
+    alone; or within `floor`'s entry, the step's own rerun difference,
+    where that is more), "stats" (each running statistic within
+    DP_STATS_RTOL x max(1, its max magnitude)); with where each worst one
+    is (`at`)."""
+    worst = {"metrics": 0.0, "grads": 0.0, "stats": 0.0}
+    at = {}
+
+    def note(kind, ratio, where):
+        if ratio > worst[kind] or kind not in at:
+            worst[kind], at[kind] = max(ratio, worst[kind]), where
+
+    for p in ("p0", "p1"):
+        g, r = got[p], ref[p]
+        for k, want in r["metrics"].items():
+            d = abs(g["metrics"][k] - want)
+            note("metrics", d / (DP_METRIC_RTOL * max(1.0, abs(want))), (p, k, d, want))
+        for c, (gc, rc) in enumerate(zip(g["grads"], r["grads"])):
+            top = max(float(y.abs().max()) for y in rc)
+            for i, (x, y, nm) in enumerate(zip(gc, rc, r["names"][c])):
+                d, m = float((x - y).abs().max()), float(y.abs().max())
+                fl = floor[p][c][i] if floor is not None else 0.0
+                note("grads", d / max(DP_GRAD_RTOL * max(m, DP_GRAD_FLOOR * top), fl),
+                     (p, c, nm, d, m, top, fl))
+        for k, y in r["stats"].items():
+            d, m = float((g["stats"][k] - y).abs().max()), float(y.abs().max())
+            note("stats", d / (DP_STATS_RTOL * max(1.0, m)), (p, k, d, m))
+    return {**worst, "at": at}
+
+
+def _params_sha(params) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in params:
+        h.update(p.numpy().tobytes())
+    return h.hexdigest()
+
+
+def _dp_batch():
+    import torch
+
+    from smirk_tpu_torch.bench import train_batch
+
+    return {k: torch.from_numpy(v)
+            for k, v in train_batch(TRAIN_B, _variant().image_size, 0).items()}
+
+
+def dp_rank_main(args) -> int:
+    """A gloo rank of phase 5m (a child of this script): its rows of the
+    b32 batch through `dp_steps`, with the discrete parts the parent
+    recorded, compared with the reference the parent wrote -> rank<r>.json
+    in --dp-dir."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from smirk_tpu_torch import parallel
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{args.dp_port}",
+                            rank=args.dp_rank, world_size=args.dp_world)
+    try:
+        ref = torch.load(os.path.join(args.dp_dir, "ref.pt"), weights_only=False)
+        res = dp_steps(recentred_head(), parallel.shard_batch(_dp_batch()), ref["held"],
+                       warm=1, timed=3)
+        summary = {"worst": dp_compare(res, ref["a1"], ref["floor"]),
+                   "worst_no_floor": dp_compare(res, ref["a1"]),
+                   "flips": {p: res[p]["flips"] for p in ("p0", "p1")},
+                   "step_metrics": res["step"]["metrics"],
+                   "params_sha": _params_sha(res["step"]["params"]),
+                   "stats_sha": _params_sha([v for p in ("p0", "p1")
+                                             for v in res[p]["stats"].values()]),
+                   **{f"{k}_{p}": res[p][k] for p in ("p0", "p1")
+                      for k in ("ms", "collective_ms", "collectives", "collective_bytes")}}
+        with open(os.path.join(args.dp_dir, f"rank{args.dp_rank}.json"), "w") as f:
+            json.dump(summary, f)
+    finally:
+        parallel.shutdown()
+    return 0
+
+
+def dp_phase(bundle, train_ms, card) -> dict:
+    """Phase 5m: data parallel (`smirk_tpu_torch.parallel`) at Config()'s
+    full width, b32, both parities, fp32, cuDNN's deterministic
+    algorithms. One no-group step a parity records the discrete parts (the
+    masked images' hints and holes, the cycle path's render of the
+    augmented parameters: a last-bit change of a vertex can flip one of
+    their pixels); every compared step takes them, after its own are
+    checked against them, on fresh systems whose running statistics are
+    those of the step's inputs (`_dp_system`).
+    (a) NCCL at world size 1 on the card against the no-group step: at
+    learning rate 0 every loss bitwise where a no-group rerun's is; each
+    gradient tensor within 1e-4 of its scale (its max magnitude, at least
+    DP_GRAD_FLOOR of its call's largest entry) or twice a no-group rerun's
+    difference (K4's fold sums with atomics), each statistic within 1e-5
+    of max(1, its magnitude); the parameters after p0 + p1 at the recipe's
+    rate bitwise where two no-group runs are, else within the sign flips
+    of near-zero gradients (Adam moves a parameter by ~lr x sign(g)); the
+    steps timed no group, NCCL, no group, NCCL.
+    (b) two gloo ranks on the one card (children of this script), 16 rows
+    each, against the one-process b32 step: every loss within 1e-4 x
+    max(1, |loss|), each statistic as (a), each gradient tensor within
+    1e-4 of its scale or DP_FLOOR_K times the one-process step's own
+    largest change under a rerun, cuDNN's autotuned algorithms and batch
+    norm's statistics as the ranks combine them (the cycle path's float32
+    gradients move by up to tens of percent of a tensor under those exact
+    changes, so no bound of 1e-4 holds there; the CPU test holds the
+    ranks without a floor); the ranks' own discrete parts within
+    DP_FLIP_SHARE of the held pixels, their parameters bitwise equal to
+    each other; each step's ms and the share of its collectives (replayed
+    alone). NCCL refuses two ranks on one card, so no run here spans two
+    cards."""
+    import os
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    from smirk_tpu_torch import parallel
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def nccl_steps(given):
+        env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "RANK": "0",
+               "LOCAL_RANK": "0", "WORLD_SIZE": "1"}
+        os.environ.update(env)
+        try:
+            check(parallel.initialize_distributed() == 1 and torch.distributed.get_backend()
+                  == "nccl", "NCCL group of world size 1 initialized")
+            return dp_steps(bundle, batch, given=given)
+        finally:
+            parallel.shutdown()
+            for k in env:
+                del os.environ[k]
+
+    t_phase = time.perf_counter()
+    log(f"[5m] data parallel: train_step at b{TRAIN_B}, 224 px, fp32, both parities; "
+        f"(a) NCCL world 1, (b) {DP_WORLD} gloo ranks on the one card")
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    cudnn.deterministic, cudnn.benchmark = True, False
+    tmp = tempfile.mkdtemp(prefix="smirk_dp_")
+    try:
+        batch = _dp_batch()
+        # the discrete parts of every compared step; then no group, NCCL, no
+        # group, NCCL
+        held = dp_held(bundle, batch)
+        a1 = dp_steps(bundle, batch, held)
+        b1 = nccl_steps(held)
+        a2 = dp_steps(bundle, batch, held)
+        b2 = nccl_steps(held)
+        floor = dp_floor(2, a1, a2)
+        for name, x in (("no group", a1), ("NCCL world 1", b1), ("no group rerun", a2),
+                        ("NCCL world 1 rerun", b2)):
+            flips = [f for p in ("p0", "p1") for f in x[p]["flips"]]
+            check(all(f <= DP_FLIP_SHARE for f in flips),
+                  f"(a) {name}: its own discrete parts within {DP_FLIP_SHARE:g} of the held "
+                  f"ones' pixels (differing shares {flips})")
+
+        # at learning rate 0 the losses of a step are its forward's: bitwise
+        # equal with and without the group where a rerun's are (the forward's
+        # vertex normals sum with index_add_'s atomics), else within the
+        # tolerance of (b) (checked with the gradients and statistics below)
+        for p in ("p0", "p1"):
+            if a1[p]["metrics"] == a2[p]["metrics"]:
+                check(b1[p]["metrics"] == a1[p]["metrics"],
+                      f"(a) NCCL world 1, {p} at lr 0: every loss bitwise equal to the "
+                      "no-group step's (a rerun's are too)")
+            else:
+                log(f"    (a) {p} at lr 0: a no-group rerun's losses differ (worst "
+                    f"{max(abs(a2[p]['metrics'][k] - v) for k, v in a1[p]['metrics'].items()):.3g}"
+                    f"), NCCL world 1's by {max(abs(b1[p]['metrics'][k] - v) for k, v in a1[p]['metrics'].items()):.3g}")
+
+        def params_gap(x, y):
+            return max(float((u - v).abs().max())
+                       for u, v in zip(x["step"]["params"], y["step"]["params"]))
+
+        rerun, with_group = params_gap(a2, a1), params_gap(b1, a1)
+        lr = _variant().train.lr
+        if rerun == 0.0:
+            check(with_group == 0.0, "(a) NCCL world 1: the parameters after p0 + p1 at the "
+                  "recipe's rate bitwise equal to the no-group steps' (a rerun's are too)")
+        else:
+            # a rerun's gradients differ in the last bits, and Adam's first
+            # steps move a parameter by ~lr x sign(g): a near-zero gradient
+            # whose sign flips moves it by up to 2 lr a step
+            check(with_group <= 4 * lr,
+                  f"(a) NCCL world 1: the parameters after p0 + p1 within the sign flips of "
+                  f"near-zero gradients, 2 lr a step ({with_group:.3g} <= {4 * lr:.3g}; a "
+                  f"no-group rerun {rerun:.3g}: the no-group step is not bitwise "
+                  "reproducible, K4's fold sums with atomics)")
+        log("    (a) losses after p0 + p1 at the recipe's rate: " + ", ".join(
+            f"{k} {x[k]:.6g} / {y[k]:.6g} / {z[k]:.6g}"
+            for k in ("loss_first_path", "loss_second_path")
+            for x, y, z in [(a1["step"]["metrics"][1], a2["step"]["metrics"][1],
+                             b1["step"]["metrics"][1])]) + " (no group, rerun, NCCL world 1)")
+        wa2, wa = dp_compare(a2, a1), dp_compare(b1, a1, floor)
+        log(f"    (a) a no-group rerun against the first, worst ratios without the rerun "
+            f"floor {wa2}")
+        check(all(wa[k] <= 1.0 for k in ("metrics", "grads", "stats")),
+              f"(a) NCCL world 1 at the tolerances: worst ratios {wa}")
+        for p in ("p0", "p1"):
+            log(f"    {p} (median of {DP_TIMED_STEPS} after {DP_WARM_STEPS} untimed, in this "
+                f"order): no group {a1[p]['ms']:.3f} ms, NCCL world 1 {b1[p]['ms']:.3f} ms, "
+                f"no group {a2[p]['ms']:.3f} ms, NCCL world 1 {b2[p]['ms']:.3f} ms; NCCL's "
+                f"{b1[p]['collectives']} collectives ({b1[p]['collective_bytes'] / 1e6:.1f} MB) "
+                f"replayed alone {b1[p]['collective_ms']:.3f} / {b2[p]['collective_ms']:.3f} ms"
+                f" = {b1[p]['collective_ms'] / b1[p]['ms'] * 100:.1f} / "
+                f"{b2[p]['collective_ms'] / b2[p]['ms'] * 100:.1f} % of the step; [6]'s "
+                f"train_step {train_ms[int(p[1])]:.3f} ms {card}")
+            log("      each timed step, ms: " + "; ".join(
+                f"{n} {', '.join(f'{v:.1f}' for v in x[p]['ms_all'])}"
+                for n, x in (("a1", a1), ("b1", b1), ("a2", a2), ("b2", b2))))
+
+        # (b)'s floor: the one-process step's own float32 spread under exact
+        # changes of its arithmetic: a rerun (K4's atomics), cuDNN's
+        # autotuned algorithms, batch norm's statistics as the ranks combine
+        # them
+        cudnn.deterministic, cudnn.benchmark = False, True
+        try:
+            a3 = dp_steps(bundle, batch, held, warm=0, timed=1)
+        finally:
+            cudnn.deterministic, cudnn.benchmark = True, False
+        r = dp_steps(bundle, batch, held, ranks_norm=True, warm=0, timed=1)
+        floor_b = dp_floor(DP_FLOOR_K, a1, a2, a3, r)
+        over, n_t, median, (most, where) = dp_floor_share(a1, floor_b)
+        for name, x in (("autotuned", a3), ("batch norm by the ranks' rows", r)):
+            log(f"    the no-group step, {name}, against the first, worst ratios without "
+                f"a floor {dp_compare(x, a1)}")
+        log(f"    (b)'s floor ({DP_FLOOR_K} x the largest change) over {DP_GRAD_RTOL:g} of "
+            f"the scale in {over} of {n_t} gradient tensors; the median {median:.3g} of its "
+            f"scale, the largest {most:.3g} at {where}")
+        torch.save({"held": held, "a1": {p: a1[p] for p in ("p0", "p1")}, "floor": floor_b},
+                   os.path.join(tmp, "ref.pt"))
+        del held
+        port = str(free_port())
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-rank", str(rk), "--dp-world",
+             str(DP_WORLD), "--dp-port", port, "--dp-dir", tmp],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for rk in range(DP_WORLD)]
+        try:
+            outs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for rk, (p, o) in enumerate(zip(procs, outs)):
+            check(p.returncode == 0, f"(b) gloo rank {rk} exited 0" + (
+                "" if p.returncode == 0 else f":\n{o[-4000:]}"))
+        ranks = []
+        for rk in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{rk}.json")) as f:
+                ranks.append(json.load(f))
+        for rk, x in enumerate(ranks):
+            log(f"    (b) rank {rk}: its discrete parts' differing pixel shares {x['flips']}; "
+                f"against the one-process step, worst ratios {x['worst']}; without the "
+                f"floor {x['worst_no_floor']}")
+        check(all(f <= DP_FLIP_SHARE for x in ranks for fl in x["flips"].values() for f in fl),
+              f"(b) each rank's own discrete parts within {DP_FLIP_SHARE:g} of the held "
+              "ones' pixels")
+        check(all(x["worst"][k] <= 1.0 for x in ranks
+                  for k in ("metrics", "grads", "stats")),
+              f"(b) {DP_WORLD} gloo ranks x {TRAIN_B // DP_WORLD} rows against the "
+              f"one-process b{TRAIN_B} step: every loss within {DP_METRIC_RTOL:g} x max(1, "
+              f"|loss|), each summed gradient within {DP_GRAD_RTOL:g} of its tensor's scale "
+              f"or {DP_FLOOR_K} x the one-process step's own change, each running statistic "
+              f"within {DP_STATS_RTOL:g} x max(1, its magnitude)")
+        check(len({x["params_sha"] for x in ranks}) == 1
+              and len({x["stats_sha"] for x in ranks}) == 1
+              and all(x["step_metrics"] == ranks[0]["step_metrics"] for x in ranks),
+              "(b) the ranks' parameters after p0 + p1, statistics and metrics bitwise equal")
+        for p in ("p0", "p1"):
+            r0 = ranks[0]
+            log(f"    {p}: gloo rank step {r0[f'ms_{p}']:.3f} / {ranks[1][f'ms_{p}']:.3f} ms "
+                f"(b{TRAIN_B // DP_WORLD} each, both on the one card), its "
+                f"{r0[f'collectives_{p}']} collectives "
+                f"({r0[f'collective_bytes_{p}'] / 1e6:.1f} MB through the host) replayed "
+                f"alone {r0[f'collective_ms_{p}']:.3f} ms = "
+                f"{r0[f'collective_ms_{p}'] / r0[f'ms_{p}'] * 100:.1f} % {card}")
+        log(f"    [5m] took {time.perf_counter() - t_phase:.1f} s")
+        return {"no_group_ms": [[x[p]["ms"] for x in (a1, a2)] for p in ("p0", "p1")],
+                "nccl1_ms": [[x[p]["ms"] for x in (b1, b2)] for p in ("p0", "p1")],
+                "nccl1_collective_ms": [[x[p]["collective_ms"] for x in (b1, b2)]
+                                        for p in ("p0", "p1")],
+                "gloo_ms": [[x[f"ms_{p}"] for x in ranks] for p in ("p0", "p1")],
+                "gloo_collective_ms": [ranks[0][f"collective_ms_{p}"] for p in ("p0", "p1")],
+                "worst_a": {k: wa[k] for k in ("metrics", "grads", "stats")},
+                "worst_b": [{k: x["worst"][k] for k in ("metrics", "grads", "stats")}
+                            for x in ranks],
+                "flips_b": [x["flips"] for x in ranks]}
+    finally:
+        cudnn.deterministic, cudnn.benchmark = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="build and check the kernels at batch 8, then stop")
+    # a gloo rank of phase 5m, started by the script itself
+    ap.add_argument("--dp-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-world", type=int, default=DP_WORLD, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-port", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--dp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -1920,13 +2670,14 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     try:
-        from smirk_tpu_torch import Predictor, bench, kernels
-        from smirk_tpu_torch.assets import procedural_bundle
+        from smirk_tpu_torch import Predictor, bench, kernels, native
         from smirk_tpu_torch.render import rasterizer as R
     except ImportError as e:
         print(f"chip_smoke: the smirk_tpu_torch package is not here ({e})",
               file=sys.stderr)
         return 2
+    if args.dp_rank is not None:
+        return dp_rank_main(args)
 
     TRAIN_KERNELS = (R.raster_fused_windows, R.raster_planes_windows,
                      R.segment_moments_to_faces)
@@ -1956,14 +2707,8 @@ def main(argv=None) -> int:
     # ---------------- main-path inputs ----------------
     B = 8 if args.quick else INFER_B
     S = 224
-    bundle = procedural_bundle(seed=0, full_size=True)
-    # bench.py's cam_fix: random-init weights leave cam = [7, 0, 0], so
-    # the face region is recentred onto the optical axis (here in the
-    # template, the same translation before the cam scale)
-    vt = np.array(bundle["v_template"], np.float32)
-    centre = vt[np.asarray(bundle["face_vertex_ids"])].mean(0)
-    vt[:, :2] -= centre[:2]
-    bundle["v_template"] = vt
+    bundle = recentred_head()
+    vt = bundle["v_template"]
     pred = Predictor(bundle=bundle)  # device None = the card
     system = pred.system
     renderer = system.renderer
@@ -2903,6 +3648,9 @@ def main(argv=None) -> int:
     # the phases before them; its launches are counted with their own reset
     rec_launches = reconstruct_phase(bundle, system.encoder.state_dict(), out, B, S, card)
     # ---------------- 5f-5h. the training CLI, the bench line, F1 ----------------
+    # the native host ops' first use on this machine ([5l] reads it); the
+    # loader's workers of [5f] then only load the library
+    native_build = native.build(force=True)
     cli_info = train_cli_phase(bundle, images, S, train_ms, card)
     log("    " + json.dumps(cli_info))
     bench_line = bench_phase(card)
@@ -2915,6 +3663,11 @@ def main(argv=None) -> int:
     log("    " + json.dumps(prec_info))
     teach_info, teach_launches = teachers_phase(bundle, train_ms, card)
     log("    " + json.dumps(teach_info))
+    # ---------------- 5l-5m. the native host ops, data parallel ----------------
+    native_info = native_phase(native_build, cli_info["loader_images_s"], train_ms, card)
+    log("    " + json.dumps(native_info))
+    dp_info = dp_phase(bundle, train_ms, card)
+    log("    " + json.dumps(dp_info))
 
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())

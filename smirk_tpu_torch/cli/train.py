@@ -10,6 +10,18 @@ One process drives one device: loader -> train_step -> log / viz /
 checkpoint. The optimizer state persists across epochs (the cosine restarts
 are in the schedules), unlike the reference's per-epoch reconfigure.
 
+Data parallel on N cards: `torchrun --nproc-per-node N -m
+smirk_tpu_torch.cli.train ...` (`parallel.initialize_distributed`: NCCL,
+each process on cuda:LOCAL_RANK; with --device cpu, gloo on the CPU). Each
+step then computes the one-process step on the global batch: the mixed
+sampler draws each process's own `train.batch_size` rows (a global batch of
+N x batch_size), and the synthetic and validation loaders' batches, the
+same on every process, are split into each process's rows
+(`parallel.shard_batch`; a batch whose rows N does not divide is
+skipped). Every process restores a checkpoint and then takes rank 0's
+state (`parallel.replicate`); only rank 0 logs, draws panels and writes
+files.
+
 Files (`train.log_path`): config.json, metrics.jsonl, the full training
 state `last_state.pt` (every `train.ckpt_every_steps` steps and at every
 epoch end; `resume_state=` continues from it exactly), the model export
@@ -91,24 +103,37 @@ def _teachers(config, device):
 def main(argv=None):
     cfg_path, overrides, synthetic, device = _parse(sys.argv[1:] if argv is None else argv)
 
-    from smirk_tpu_torch import assets
+    from smirk_tpu_torch import parallel
     from smirk_tpu_torch.config import load_config
-    from smirk_tpu_torch.data.pipeline import load_dataloaders
     from smirk_tpu_torch.device import resolve_device
+
+    config = load_config(cfg_path, overrides)
+    world = parallel.initialize_distributed(device)
+    try:
+        _main(config, synthetic, resolve_device(
+            parallel.process_device(device) if parallel.active() else device), world)
+    finally:
+        parallel.shutdown()
+
+
+def _main(config, synthetic, device, world):
+    from smirk_tpu_torch import assets, parallel
+    from smirk_tpu_torch.data.pipeline import load_dataloaders
     from smirk_tpu_torch.train.trainer import SmirkSystem
     from smirk_tpu_torch.utils import checkpoint as ckpt
     from smirk_tpu_torch.utils import weights
     from smirk_tpu_torch.utils.metrics import MetricLogger
 
-    config = load_config(cfg_path, overrides)
-    device = resolve_device(device)
+    main_rank = parallel.is_main()
     log_path = config.train.log_path
-    os.makedirs(os.path.join(log_path, "train_images"), exist_ok=True)
-    os.makedirs(os.path.join(log_path, "val_images"), exist_ok=True)
-    _save_config_snapshot(config, log_path)  # reference train.py:31
+    if main_rank:
+        os.makedirs(os.path.join(log_path, "train_images"), exist_ok=True)
+        os.makedirs(os.path.join(log_path, "val_images"), exist_ok=True)
+        _save_config_snapshot(config, log_path)  # reference train.py:31
 
     train_loader, val_loader = load_dataloaders(
-        config, synthetic=synthetic, pin_memory=device.type == "cuda")
+        config, synthetic=synthetic, process_index=parallel.rank(), process_count=world,
+        pin_memory=device.type == "cuda")
     steps_per_epoch = len(train_loader)
 
     system = SmirkSystem(config, assets.load_all(), device=device,
@@ -137,8 +162,9 @@ def main(argv=None):
         ckpt.restore_state(system, config.resume_state)
         start_epoch = system.step // max(1, steps_per_epoch)
         print(f"[resume] {config.resume_state} step={system.step} -> epoch {start_epoch}")
+    parallel.replicate(system)  # every rank from rank 0's state
 
-    logger = MetricLogger(log_path, config.train.log_losses_every)
+    logger = MetricLogger(log_path, config.train.log_losses_every) if main_rank else None
     last_state_path = os.path.join(log_path, "last_state.pt")
     # fault injection for the restart-recovery tests: raise after the
     # cumulative step counter reaches N (fires once: a resumed run starts
@@ -149,6 +175,8 @@ def main(argv=None):
         _run_epochs(config, system, train_loader, val_loader, logger, log_path,
                     start_epoch, fault_at, last_state_path, run)
     except Exception:
+        if not main_rank:
+            raise  # rank 0 salvages
         try:
             if run["steps"] == 0:
                 # an empty save would clobber the previous checkpoint
@@ -163,26 +191,33 @@ def main(argv=None):
         except Exception as salvage_err:  # noqa: BLE001 -- report, then re-raise the crash
             print(f"[crash] state not salvageable: {salvage_err}", file=sys.stderr)
         print("[crash] recovery: relaunch with "
-              f"resume_state={last_state_path} (tools/train_supervisor.py)",
+              f"resume_state={last_state_path} (smirk_tpu_torch.cli.train_supervisor)",
               file=sys.stderr)
         raise
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
 
 
 def _run_epochs(config, system, train_loader, val_loader, logger, log_path,
                 start_epoch, fault_at, last_state_path, run):
     import torch
 
+    from smirk_tpu_torch import parallel
     from smirk_tpu_torch.utils import checkpoint as ckpt
     from smirk_tpu_torch.utils import viz
 
+    main_rank = parallel.is_main()
     ckpt_every = config.train.ckpt_every_steps
     for epoch in range(start_epoch, config.train.num_epochs):
         for phase, loader in (("train", train_loader), ("val", val_loader)):
             if loader is None:
                 continue
             for batch_idx, batch in enumerate(loader):
+                if not loader.per_process:
+                    batch = parallel.shard_batch(batch)
+                    if batch is None:
+                        continue  # ragged tail batch
                 if phase == "train":
                     if fault_at < 0:
                         raise RuntimeError("SMIRK_FAULT_INJECT_STEP<0: pre-step fault")
@@ -190,7 +225,7 @@ def _run_epochs(config, system, train_loader, val_loader, logger, log_path,
                     metrics, aux = system.train_step(batch, parity=batch_idx)
                     run["in_step"] = False
                     run["steps"] += 1
-                    if ckpt_every and system.step % ckpt_every == 0:
+                    if main_rank and ckpt_every and system.step % ckpt_every == 0:
                         ckpt.save_state(system, last_state_path)
                     if fault_at and system.step == fault_at:
                         raise RuntimeError(f"SMIRK_FAULT_INJECT_STEP={fault_at}")
@@ -200,6 +235,8 @@ def _run_epochs(config, system, train_loader, val_loader, logger, log_path,
                     # under one mask-sampling draw
                     gen = torch.Generator(device=system.device).manual_seed(batch_idx)
                     metrics, aux = system.eval_step(batch, gen)
+                if not main_rank:
+                    continue
                 logger.log(batch_idx, metrics, phase, epoch=epoch, global_step=system.step)
                 if (config.train.visualize_every > 0
                         and batch_idx % config.train.visualize_every == 0):
@@ -213,6 +250,8 @@ def _run_epochs(config, system, train_loader, val_loader, logger, log_path,
                         log_path, f"{phase}_images/{epoch}_{batch_idx}.jpg"))
         # the resumable full state at EVERY epoch end (a recovery must never
         # resume from a stale epoch); save_every gates only the model exports
+        if not main_rank:
+            continue
         ckpt.save_state(system, last_state_path)
         if epoch % config.train.save_every == 0:
             ckpt.save_model(system, os.path.join(log_path, f"model_{epoch}.pt"))

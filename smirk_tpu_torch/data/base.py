@@ -1,6 +1,6 @@
 """Sample preparation: raw frame + landmarks -> fixed-shape training arrays
-(port of smirk_tpu/data/base.py; numpy only, it runs in the loader's
-workers).
+(port of smirk_tpu/data/base.py; numpy and the native host ops, it runs
+in the loader's workers).
 
 NHWC equivalent of the reference BaseDataset.prepare_data
 (datasets/base_dataset.py:124-215): the landmark-driven crop (a random
@@ -43,7 +43,7 @@ def prepare_sample(
     # augment in FACE polarity (1 = face) so the warp's zero border fill
     # stays background, as the reference flips for albumentations
     # (base_dataset.py:161,166); flipped back to the batch contract below
-    hull_mask = 1.0 - T.convex_hull_mask_np(lmk_mp, (image_size, image_size))
+    hull_mask = 1.0 - T.convex_hull_mask_host(lmk_mp, (image_size, image_size))
     lmk_mp = lmk_mp[T.MEDIAPIPE_INDICES]
 
     img = (img / 255.0).astype(np.float32)

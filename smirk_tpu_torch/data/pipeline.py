@@ -121,11 +121,14 @@ class DataLoader:
     `pin_memory` (a loader feeding the card). num_workers=0 loads in the
     calling process; workers are spawned and persist across epochs, so the
     dataset must pickle. A worker collates whole batches, so no more start
-    than an epoch has batches."""
+    than an epoch has batches. per_process: whether each batch is this
+    process's own rows of a data-parallel step (else every process sees the
+    same global batch)."""
 
     def __init__(self, dataset, batch_sampler, num_workers: int = 4,
-                 prefetch: int = 2, pin_memory: bool = False):
+                 prefetch: int = 2, pin_memory: bool = False, per_process: bool = False):
         self.batch_sampler = batch_sampler
+        self.per_process = per_process
         num_workers = min(num_workers, len(batch_sampler))
         workers = num_workers > 0
         self.loader = torch.utils.data.DataLoader(
@@ -181,10 +184,19 @@ def load_dataloaders(config, synthetic: bool = False, process_index: int = 0,
 
     With synthetic=True uses the procedural dataset, the zero-external-data
     path for smoke training. process_index / process_count: this process's
-    slice of a multi-process run (each draws its own per-process batch).
-    pin_memory: pin the batches (a loader feeding the card).
+    rank and the world size of a data-parallel run (`parallel.
+    initialize_distributed`): the mixed sampler draws this process's own
+    per-process batch (`per_process` True on the loader); the synthetic and
+    validation loaders give every process the same global batches, whose
+    rows `parallel.shard_batch` splits (`per_process` False). pin_memory:
+    pin the batches (a loader feeding the card). The native host-ops
+    library is built here, in the calling process, so that the spawned
+    workers only load it.
     """
+    from smirk_tpu_torch import native
     from smirk_tpu_torch.data import datasets as D
+
+    native.build()
 
     if synthetic:
         # SMIRK_SYNTH_LEN sizes the procedural epoch (default 4 batches):
@@ -250,8 +262,8 @@ def load_dataloaders(config, synthetic: bool = False, process_index: int = 0,
     )
     # Temporal windows (K>1) are folded into the batch axis by collate, so
     # a step sees B + n_lrs3*(K-1) frames, not config batch_size: worth a
-    # loud log line. One process drives one device here (data parallel is
-    # not ported), so no device-count divisibility applies.
+    # loud log line. One process drives one card (`parallel`), so no
+    # device-count divisibility applies to that batch.
     k = int(getattr(config, "K", 1) or 1)
     if d.LRS3_temporal_sampling and k > 1 and parts and isinstance(
             parts[0], D.VideoFrameDataset) and parts[0].K > 1:
@@ -261,7 +273,7 @@ def load_dataloaders(config, synthetic: bool = False, process_index: int = 0,
               f"{effective} frames ({n_lrs3} windows + "
               f"{config.train.batch_size - n_lrs3} single frames)")
     train_loader = DataLoader(train, sampler, config.train.num_workers,
-                              pin_memory=pin_memory)
+                              pin_memory=pin_memory, per_process=True)
     val_loader = None
     if val_ds is not None:
         val_loader = DataLoader(

@@ -18,14 +18,17 @@ what the reconstruct path needs from smirk_tpu/data/transforms.py).
 numpy for one image; they are the oracles the device versions are checked
 against on the card.
 
-The training data pipeline's host side, numpy only (the loader's workers
-must not touch the card): `warp_affine_host` (one image; order 1 is
-`warp_affine_np`, order 0 the JAX package's nearest-neighbour copy),
-`augment` (photometric + shift-scale-rotate, the JAX package's op order,
-probabilities and draws from the caller's numpy Generator), with the hue
-rotation, the sRGB <-> Lab helpers, CLAHE (the JAX package's numpy oracle
-of its native code) and `uniform_filter` (scipy's box filter with its
-default reflect boundary, restated without scipy).
+The training data pipeline's host side, numpy and the native host-ops
+library (`smirk_tpu_torch.native`; the loader's workers must not touch the
+card): `warp_affine_host` (one image; order 1 bilinear, order 0 nearest)
+and `convex_hull_mask_host` in the library, `augment` (photometric +
+shift-scale-rotate, the JAX package's op order, probabilities and draws
+from the caller's numpy Generator), with the hue rotation, the sRGB <-> Lab
+helpers, CLAHE (`_clahe`, in the library) and `uniform_filter` (scipy's
+box filter with its default reflect boundary, restated without scipy).
+`_warp_affine_nearest_np`, `_clahe_np` and `_clahe_apply_u8` (with
+`warp_affine_np` and `convex_hull_mask_np` above) are the library's numpy
+oracles, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from smirk_tpu_torch import native
 from smirk_tpu_torch.device import resolve_device
 
 ARCFACE_DST = np.array(
@@ -343,12 +347,22 @@ def _warp_affine_nearest_np(image: np.ndarray, M: np.ndarray,
 
 def warp_affine_host(image: np.ndarray, M: np.ndarray, out_shape: Tuple[int, int],
                      order: int = 1) -> np.ndarray:
-    """One (H,W,C) image through its FORWARD 3x3 matrix on the host:
-    bilinear over the zero-extended image (order 1, `warp_affine_np`) or
-    nearest (order 0)."""
+    """One (H,W,C) image through its FORWARD 3x3 matrix on the host, in the
+    native library: bilinear over the zero-extended image (order 1, the
+    function of `warp_affine_np`) or nearest (order 0,
+    `_warp_affine_nearest_np`'s)."""
+    image = np.asarray(image, np.float32)
     if order == 0:
-        return _warp_affine_nearest_np(image, M, out_shape)
-    return warp_affine_np(image, M, out_shape, order)
+        return native.warp_affine_nearest(image, M, out_shape)
+    if order != 1:
+        raise ValueError(f"order {order}: the host warp is bilinear (1) or nearest (0)")
+    return native.warp_affine(image, M, out_shape)
+
+
+def convex_hull_mask_host(points: np.ndarray, shape: Tuple[int, int]) -> np.ndarray:
+    """`convex_hull_mask_np`'s function in the native library (the loader's
+    hull fill)."""
+    return native.convex_hull_mask(np.asarray(points)[:, :2].astype(np.int32), shape)
 
 
 # ------------------------------ augmentation ------------------------------
@@ -476,6 +490,12 @@ def _clahe_apply_u8(channel: np.ndarray, clip_limit: float,
 
 
 def _clahe(img: np.ndarray, clip_limit: float) -> np.ndarray:
+    """CLAHE on the Lab L channel in the native library (`_clahe_np`'s
+    function)."""
+    return native.clahe_rgb(np.clip(img, 0.0, 1.0).astype(np.float32), clip_limit)
+
+
+def _clahe_np(img: np.ndarray, clip_limit: float) -> np.ndarray:
     """CLAHE on the Lab L channel (the reference's albumentations CLAHE,
     which wraps cv2): sRGB-gamma float Lab, u8 quantization on both ends
     and of L to L * 255 / 100, as cv2's u8 pipeline."""

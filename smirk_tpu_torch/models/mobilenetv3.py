@@ -33,6 +33,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smirk_tpu_torch import parallel
+
 BN_EPS_TF = 1e-3
 BN_MOMENTUM = 0.9  # Flax's: ra = 0.9 ra + 0.1 batch
 LOW_DTYPES = (torch.bfloat16, torch.float16)
@@ -98,7 +100,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     An input in a lower dtype is normalized in fp32 and the result cast
     back (Flax's _compute_stats / _normalize). Inside `frozen_stats()` the
     running statistics are not moved (a recomputed forward of a
-    checkpointed region)."""
+    checkpointed region). In a data-parallel step (a process group of more
+    than one rank) train mode normalizes with the global batch's
+    statistics (`parallel.global_moments`, what Flax's batch norm computes
+    over a sharded batch), and the running statistics move by them,
+    identically on every rank; eval mode issues no collective."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype in LOW_DTYPES:
@@ -106,11 +112,21 @@ class BatchNorm2d(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        if parallel.world_size() > 1:
+            # the global batch's statistics, their gradient reaching every
+            # rank's rows
+            mean, var = parallel.global_moments(x)
+            scale = torch.rsqrt(var + self.eps) * self.weight
+            y = (x - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
+            mean, var = mean.detach(), var.detach()
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+            mean = var = None
         if getattr(_stats, "frozen", 0):
             return y
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+            if mean is None:
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
             self.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1.0 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1.0 - BN_MOMENTUM)
         return y

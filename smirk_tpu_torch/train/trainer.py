@@ -50,6 +50,15 @@ Differences from the JAX package, by design:
     its variables) with a torch.Generator or injected draws (`draws=`) in
     place of the key.
 
+Data parallel (`smirk_tpu_torch.parallel`): with a process group, each
+rank passes its rows of the global batch to `train_step` / `eval_step`,
+and the step computes the one-process step on the global batch: every loss
+term is the rank's share of the global one, the gradients are summed across
+ranks before the clip and Adam, train-mode batch norm uses the global
+statistics, every rank draws the global batch's draws and keeps its rows
+(the cycle path augments the gathered rows), and the metrics are the
+global batch's. Without a group nothing issues a collective.
+
 Every entry point (`infer`, `train_step`, `eval_step`, `masked_input`,
 `reconstruct`, `make_visualizations`) runs its convolutions in exact fp32
 (`device.fp32_math`), whatever the process's global TF32 flags say.
@@ -71,6 +80,7 @@ import torch
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
+from smirk_tpu_torch import parallel
 from smirk_tpu_torch.config import Config
 from smirk_tpu_torch.device import fp32_math, resolve_device
 from smirk_tpu_torch.flame.model import FlameModel
@@ -88,6 +98,8 @@ from smirk_tpu_torch.render import geometry
 from smirk_tpu_torch.render.renderer import Renderer
 
 SUB_ENCODERS = ("pose_encoder", "shape_encoder", "expression_encoder")
+# the masks' random hint-drop rates: path 1's and the cycle path's
+RANDOM_MASK, CYCLE_RANDOM_MASK = 0.01, 0.005
 
 
 def cosine_epoch_restart(peak: float, steps_per_epoch: int, eta_min_frac: float = 0.01):
@@ -336,6 +348,35 @@ class SmirkSystem:
         if self.generator is not None:
             self.generator.eval()
 
+    def _rank_draws(self, draws: Mapping[str, object], b: int, groups: int,
+                    random_mask: float, generator: Optional[torch.Generator]):
+        """The mesh sampler's and the mask's draws of a path, drawn here
+        for the global batch of W x b rows (W = 1 without a process group)
+        wherever `draws` (the global batch's) lacks them, in the order the
+        path has always drawn them: the sampler's `u` and `bary` (W x b
+        rows; none with `coords`), then the mask's `noise` and
+        `drop_centers` (groups x W x b rows, at `random_mask`). -> this
+        rank's rows of each (`parallel.local_rows`; all of them without a
+        group)."""
+        d = dict(draws)
+        n, S, N = parallel.world_size() * b, self.config.image_size, self.num_mask_points
+        dev = self.device
+        if "coords" not in d:
+            if "u" not in d:
+                d["u"] = torch.rand((n, N), generator=generator, device=dev)
+            if "bary" not in d:
+                d["bary"] = masking_lib.random_barycentric((n, N), generator, dev)
+        if "noise" not in d:
+            d["noise"] = torch.randn((groups * n, S, S, 3), generator=generator, device=dev)
+        if "drop_centers" not in d:
+            d["drop_centers"] = torch.bernoulli(
+                torch.full((groups * n, S, S, 1), random_mask, device=dev), generator=generator)
+        out = {k: parallel.local_rows(d[k]) for k in ("u", "bary") if k in d}
+        out.update((k, parallel.local_rows(d[k], groups)) for k in ("noise", "drop_centers"))
+        if "coords" in d:
+            out["coords"] = {k: parallel.local_rows(v) for k, v in d["coords"].items()}
+        return out
+
     # ------------------------------- path 1 -------------------------------
 
     def _loss1(self, batch, train: bool, generator: Optional[torch.Generator] = None,
@@ -349,6 +390,10 @@ class SmirkSystem:
         img = batch["img"]
         B = img.shape[0]
         zero = img.new_zeros(())
+
+        share = parallel.share
+        if self.generator is not None:
+            draws = self._rank_draws(draws, B, 1, RANDOM_MASK, generator)
 
         self.encoder.train(train)
         enc_out = self.encoder(img, self.compute_dtype)
@@ -365,11 +410,13 @@ class SmirkSystem:
         # monitoring only: max compact chunks dropped past the budget; > 0
         # means some tiles rendered EMPTY with zero gradients
         losses["raster_overflow"] = rend["raster_overflow"].max().to(torch.float32)
+        flags = batch["flag_landmarks_fan"]
         losses["landmark_loss_fan"] = masked_landmark_mse(
-            rend["landmarks_fan"], batch["landmarks_fan"][..., :2],
-            batch["flag_landmarks_fan"])
-        losses["landmark_loss_mp"] = landmark_mse(
-            rend["landmarks_mp"], batch["landmarks_mp"][..., :2])
+            rend["landmarks_fan"], batch["landmarks_fan"][..., :2], flags,
+            count=(parallel.all_sum(flags.to(torch.float32).sum())
+                   if parallel.active() else None))
+        losses["landmark_loss_mp"] = share(landmark_mse(
+            rend["landmarks_mp"], batch["landmarks_mp"][..., :2]))
 
         if c.train.use_base_model_for_regularization:
             with torch.no_grad():
@@ -381,8 +428,8 @@ class SmirkSystem:
                 "jaw_params": img.new_zeros((B, 3)),
             }
         for k in ("expression", "shape", "jaw"):
-            losses[f"{k}_regularization"] = param_regularization(
-                enc_out[f"{k}_params"], base_out[f"{k}_params"])
+            losses[f"{k}_regularization"] = share(param_regularization(
+                enc_out[f"{k}_params"], base_out[f"{k}_params"]))
 
         recon_img = masked_img = rec_err = None
         if self.generator is not None:
@@ -395,8 +442,9 @@ class SmirkSystem:
             masked_img = masking_lib.compose_mask(
                 img, batch["mask"], extra,
                 dilation_radius=c.train.mask_dilation_radius,
-                rendered_mask=rend["rendered_mask"], generator=generator,
-                noise=draws.get("noise"), drop_centers=draws.get("drop_centers"))
+                rendered_mask=rend["rendered_mask"], random_mask=RANDOM_MASK,
+                generator=generator, noise=draws.get("noise"),
+                drop_centers=draws.get("drop_centers"))
             gen_in = torch.cat([rend["rendered_img"], masked_img], dim=-1)
             if self.emotion is not None and w.emotion_loss > 0:
                 # the generator re-applied with its parameters detached and
@@ -409,16 +457,16 @@ class SmirkSystem:
                 frozen_gen.update((n, b.clone()) for n, b in self.generator.named_buffers())
                 recon_p = functional_call(self.generator, frozen_gen,
                                           (gen_in, self.compute_dtype))
-                emotion = emotion_embedding_distance(self.emotion, recon_p, img,
-                                                     metric="l2").mean()
+                emotion = share(emotion_embedding_distance(self.emotion, recon_p, img,
+                                                           metric="l2").mean())
             else:
                 emotion = zero
             self.generator.train(train)
             recon_img = self.generator(gen_in, self.compute_dtype)
             rec_err = (recon_img - img).abs()
-            losses["reconstruction_loss"] = rec_err.mean()
+            losses["reconstruction_loss"] = share(rec_err.mean())
             losses["perceptual_vgg_loss"] = (
-                perceptual_loss(self.vgg, recon_img, img)
+                share(perceptual_loss(self.vgg, recon_img, img))
                 if self.vgg is not None and w.perceptual_vgg_loss > 0 else zero)
             losses["emotion_loss"] = emotion
         else:
@@ -428,7 +476,7 @@ class SmirkSystem:
         if self.mica is not None and w.mica_loss > 0:
             with torch.no_grad():
                 mica_shape = self.mica(batch["img_mica"])[..., :c.arch.num_shape]
-            losses["mica_loss"] = ((enc_out["shape_params"] - mica_shape) ** 2).mean()
+            losses["mica_loss"] = share(((enc_out["shape_params"] - mica_shape) ** 2).mean())
         else:
             losses["mica_loss"] = zero
 
@@ -522,8 +570,16 @@ class SmirkSystem:
         img = batch["img"]
         Ke = c.train.Ke
 
-        feats = {k: torch.cat([v.detach()] * Ke, dim=0) for k, v in enc_out.items()}
+        # the augmentation permutes rows across the global batch: with a
+        # process group it runs on every rank's rows, each rank keeping its
+        # own of the result
+        rows = {k: v.detach() for k, v in enc_out.items()}
+        if parallel.active():
+            rows = parallel.all_gather_rows(rows)
+        feats = {k: torch.cat([v] * Ke, dim=0) for k, v in rows.items()}
         feats = self._augment_feats(feats, generator, draws.get("augment"))
+        feats = {k: parallel.local_rows(v, Ke) for k, v in feats.items()}
+        draws = self._rank_draws(draws, img.shape[0], Ke, CYCLE_RANDOM_MASK, generator)
 
         # the augmented parameters' render carries no gradient: the fused
         # inference raster
@@ -548,7 +604,7 @@ class SmirkSystem:
             img_k, torch.cat([batch["mask"]] * Ke, dim=0), extra,
             dilation_radius=c.train.mask_dilation_radius,
             rendered_mask=rend2["rendered_mask"], extra_noise=True,
-            random_mask=0.005, generator=generator, noise=draws.get("noise"),
+            random_mask=CYCLE_RANDOM_MASK, generator=generator, noise=draws.get("noise"),
             drop_centers=draws.get("drop_centers"))
         gen_in = torch.cat([rendered_img_2nd, masked_img_2nd], dim=-1).detach()
 
@@ -592,6 +648,7 @@ class SmirkSystem:
         if not freeze_generator:
             cycle = cycle + landmark_mse(recon_feats["shape_params"], feats["shape_params"])
 
+        cycle = parallel.share(cycle)
         total = cycle * c.train.loss_weights.cycle_loss
         aux = {
             "losses": {
@@ -611,8 +668,11 @@ class SmirkSystem:
 
     @staticmethod
     def _grads(total, params):
+        """d total / d params (zeros where unused), summed across ranks in a
+        data-parallel step."""
         grads = torch.autograd.grad(total, params, allow_unused=True)
-        return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        return parallel.all_reduce_grads(
+            [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
     def _phase1(self, batch, generator=None, draws=None):
         """Path-1 gradients + both Adam steps -> (metrics, aux)."""
@@ -648,8 +708,13 @@ class SmirkSystem:
 
     @staticmethod
     def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+        """-> {name: float}, of the global batch in a data-parallel step:
+        the ranks' shares summed, the raster overflow (a max over images)
+        maximized, in one collective."""
         keys = list(metrics)
         values = torch.stack([metrics[k].detach().to(torch.float32) for k in keys])
+        values = parallel.reduce_metrics(values, [k.startswith("raster_overflow")
+                                                  for k in keys])
         return dict(zip(keys, values.tolist()))
 
     @fp32_math()
@@ -663,7 +728,10 @@ class SmirkSystem:
         freezes the encoder in the cycle path, odd the generator.
         generator: the torch.Generator of every draw (on the system's
         device); None = one seeded with the step counter. draws: optional
-        {"path1": ..., "path2": ...} tensors for `_loss1` / `_loss2`.
+        {"path1": ..., "path2": ...} tensors for `_loss1` / `_loss2`. In a
+        data-parallel step the batch is this rank's rows (every rank as
+        many), the generator is seeded alike on every rank and the draws
+        given are the global batch's.
         """
         batch = self._batch(batch)
         draws = draws or {}

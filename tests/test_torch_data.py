@@ -8,12 +8,14 @@ is held per sample with one injected seeded numpy Generator. The seeds of
 differs most (CLAHE, Blur, ColorJitter, shift-scale-rotate, none), each
 checked by counting the port's calls.
 
-Tolerances: against the JAX package's numpy / scipy oracles (its native
-library patched away) every array within 1e-5 on [0, 1] images (it
-matches bitwise here), the hull mask exactly; against its native library
-(when built) within one 8-bit level (1/255) on <= 0.1 % of pixels, since a
-1-ulp warp difference can flip CLAHE's u8 rounding; CLAHE and the box
-filter bitwise; the samplers' index streams and `collate` exactly.
+Tolerances: the port's numpy oracles (its native entry points patched
+to them) against the JAX package's numpy / scipy oracles (its native
+library patched away): every array within 1e-5 on [0, 1] images (it
+matches bitwise here), the hull mask exactly; the port's native library
+against the JAX package's (when built) within one 8-bit level (1/255) on
+<= 0.1 % of pixels, since a 1-ulp warp difference can flip CLAHE's u8
+rounding; CLAHE and the box filter bitwise; the samplers' index streams
+and `collate` exactly.
 """
 import numpy as np
 import pytest
@@ -31,6 +33,7 @@ from smirk_tpu.data import tracks as JTR
 from smirk_tpu.data import transforms as JT
 from smirk_tpu_torch.config import Config
 from smirk_tpu_torch.config import load_config
+from smirk_tpu_torch import native as PN
 from smirk_tpu_torch.data import base as PB
 from smirk_tpu_torch.data import datasets as PD
 from smirk_tpu_torch.data import pipeline as PP
@@ -39,8 +42,8 @@ from smirk_tpu_torch.data import transforms as PT
 from torch_cpu_share import cpu_share  # noqa: F401 (autouse: the worker's cores)
 
 # seed -> the branches its draws take (besides the crop's scale)
-BRANCH_SEEDS = {5: {"_clahe", "uniform_filter", "_warp_affine_nearest_np"},
-                16: {"_clahe", "_rotate_hue", "_warp_affine_nearest_np"},
+BRANCH_SEEDS = {5: {"_clahe", "uniform_filter", "nearest_warp"},
+                16: {"_clahe", "_rotate_hue", "nearest_warp"},
                 4: {"_rotate_hue"}, 23: set()}
 NATIVE = ("warp_affine", "warp_affine_nearest", "convex_hull_mask", "clahe_rgb")
 
@@ -63,9 +66,18 @@ def raw_face(seed, H=320, W=320):
     return img, fan, mp
 
 
+# the port's native entry points -> their numpy oracles
+PORT_ORACLES = {"warp_affine": lambda img, M, shape: PT.warp_affine_np(img, M, shape),
+                "warp_affine_nearest": PT._warp_affine_nearest_np,
+                "convex_hull_mask": PT.convex_hull_mask_np, "clahe_rgb": PT._clahe_np}
+
+
 def numpy_path(monkeypatch):
+    """Both packages on their numpy oracles: the JAX package's native
+    library patched away, the port's entry points patched to its oracles."""
     for name in NATIVE:
         monkeypatch.setattr(native, name, lambda *a, **k: None)
+        monkeypatch.setattr(PN, name, PORT_ORACLES[name])
 
 
 def test_prepare_sample_and_augment_match_jax(monkeypatch):
@@ -73,10 +85,23 @@ def test_prepare_sample_and_augment_match_jax(monkeypatch):
     sample under one seeded Generator, in training and test mode, with and
     without FAN landmarks; against the numpy oracles, then native."""
     calls = []
-    for name in ("_clahe", "uniform_filter", "_rotate_hue", "_warp_affine_nearest_np"):
+    for name in ("_clahe", "uniform_filter", "_rotate_hue"):
         fn = getattr(PT, name)
         monkeypatch.setattr(PT, name, lambda *a, _f=fn, _n=name, **k: (calls.append(_n),
                                                                        _f(*a, **k))[1])
+
+    class CountedNative:
+        """The port's native module as transforms calls it, its nearest
+        warp (the entry point that runs, whichever is patched in) counted."""
+
+        def __getattr__(self, name):
+            return getattr(PN, name)
+
+        def warp_affine_nearest(self, *a, **k):
+            calls.append("nearest_warp")
+            return PN.warp_affine_nearest(*a, **k)
+
+    monkeypatch.setattr(PT, "native", CountedNative())
     cases = [(s, False, True) for s in BRANCH_SEEDS] + [(3, False, False), (0, True, True)]
 
     def run(tol):
