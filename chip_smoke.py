@@ -224,6 +224,26 @@ Phases (any failure exits non-zero):
     the ranks combine them, the ranks bitwise equal; the steps timed
     alternately with and without the group; each step's ms and its
     collectives' share (replayed alone). No run spans two cards;
+ 5n. the binning and fold modes (after 5m), on infer's faces (b64, 224 px,
+    the face region, capacity 384): flat binning at approx 0.95, hier
+    (exact and at 0.95) and sorted binning give bins and counts bitwise
+    equal to exact flat binning (sorted on the images without a span clip,
+    whose count is printed), with no selection misses;
+    `SmirkSystem.infer` under the default, hier and sorted modes (the
+    dispatch reaching each) bitwise equal, K1 launched once a call; one
+    b32 train step (p0, learning rate 0, fresh systems of one seed) under
+    sorted and flat binning with bitwise equal losses, K3 and K4's fold
+    launched; the "scatter", "sorted_scatter" and "cumsum" fold modes on
+    K4's store rows (the training backward) and on K7's rows (the op
+    path's) within 1e-5 x the sum of magnitudes of K4's fold epilogue and
+    of K5, neither launched; at b4 the gradients of both backwards
+    end to end under each mode (rasterize_planes_diff: K4's store and
+    the mode's fold, K4's fold epilogue under "matmul"; rasterize at
+    D = 9: K7, then the mode's fold, K5 under "matmul") within 1e-4 x
+    `dense_gradient_and_scale`'s rounding scale of "matmul"'s; CUDA-event medians of 5 of
+    each binning function at b64, each fold mode, and `infer` with the
+    miss check armed and disarmed, alternating; the modes restored
+    however the phase ends;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -2652,6 +2672,279 @@ def dp_phase(bundle, train_ms, card) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 5n. the binning and fold modes
+# ---------------------------------------------------------------------------
+
+BIN_APPROX = 0.95  # the Renderer's default recall target
+MODE_TIMES = 5  # CUDA-event calls whose median a time of [5n] is
+
+
+def event_ms(fn, n: int = MODE_TIMES) -> float:
+    """Median ms of n warm calls, each between two CUDA events."""
+    import torch
+
+    fn()
+    ms = []
+    for _ in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    return statistics.median(ms)
+
+
+def bin_modes_phase(bundle, system, img, face_verts, train_rows, op_rows, card) -> dict:
+    """Phase 5n on infer's faces (b64, 224 px, the face region, the
+    renderer's capacity): the binning functions against exact flat
+    binning, `SmirkSystem.infer` and a b32 train step under the binning
+    modes, the fold modes on both backwards' rows, and their times.
+    train_rows: (slots (B,Tp,1024), g tile-major, bins, the per-slot
+    magnitudes of the moments) of phase 4c; op_rows: (K7's rows, K6's
+    bins) of phase 4f. The modes are restored however it ends."""
+    import torch
+
+    from smirk_tpu_torch.render import rasterizer as R
+    from smirk_tpu_torch.train.trainer import SmirkSystem
+
+    t_phase = time.perf_counter()
+    S, cap = system.renderer.image_size, system.renderer.bin_capacity
+    B, F = face_verts.shape[:2]
+    fv = face_verts.detach()
+    log(f"[5n] binning and fold modes: flat, approx {BIN_APPROX}, hier and sorted binning "
+        f"at b{B}, {S} px, F={F}, capacity {cap}; infer and a b{TRAIN_B} train step under "
+        "the modes; the four fold modes on both backwards")
+    res = {}
+    dispatched = []
+    real = {n: getattr(R, n) for n in ("bin_faces_hier", "bin_faces_sorted")}
+
+    def spy(name):
+        def call(*a, **k):
+            dispatched.append(name)
+            return real[name](*a, **k)
+        return call
+
+    cudnn = torch.backends.cudnn
+    saved = cudnn.deterministic, cudnn.benchmark
+    try:
+        for n in real:
+            setattr(R, n, spy(n))
+        with torch.inference_mode():
+            # the binning functions against exact flat binning, bitwise
+            ref = R.bin_faces_flat(fv, S, cap, with_misses=True)
+            check(int(ref[2].sum()) == 0, "exact flat binning misses no face")
+            variants = {
+                "flat_approx": lambda: R.bin_faces_flat(fv, S, cap, BIN_APPROX, True),
+                "hier": lambda: real["bin_faces_hier"](fv, S, cap, with_misses=True),
+                "hier_approx": lambda: real["bin_faces_hier"](
+                    fv, S, cap, approx=BIN_APPROX, with_misses=True),
+                "sorted": lambda: real["bin_faces_sorted"](fv, S, cap, with_misses=True),
+            }
+            band = -(-S // (R.TILE_ROWS * R.BAND_TILES))
+            per_band = torch.stack(R._bbox_and_priority(fv, S)[2:4], -1)
+            r0 = torch.arange(band, device=fv.device) * R.TILE_ROWS * R.BAND_TILES
+            in_band = ((per_band[..., 1][:, None] >= r0[None, :, None])
+                       & (per_band[..., 0][:, None] <= r0[None, :, None] + 31)).sum(-1)
+            log(f"    faces in the densest 32 px band {int(in_band.max())} (the coarse "
+                f"list holds {R.COARSE_CAPACITY})")
+            for name, fn in variants.items():
+                bins, counts, misses = fn()
+                if name == "sorted":
+                    ok = misses == 0
+                    log(f"    sorted: span-clipped incidences {int(misses.sum())} over "
+                        f"{int((~ok).sum())} of {B} images; equality gated on the other "
+                        f"{int(ok.sum())}")
+                    check(bool(ok.any()), "sorted: some image has no span clip")
+                    check(torch.equal(bins[ok], ref[0][ok]) and torch.equal(counts[ok],
+                                                                           ref[1][ok]),
+                          "sorted binning's bins and counts == exact flat's, bitwise")
+                    continue
+                check(int(misses.sum()) == 0, f"{name}: no selection misses")
+                check(torch.equal(bins, ref[0]) and torch.equal(counts, ref[1]),
+                      f"{name} binning's bins and counts == exact flat's, bitwise")
+            # the times of the binning functions at b64
+            timed = {"flat": lambda: R.bin_faces_flat(fv, S, cap),
+                     "flat_misses": lambda: R.bin_faces_flat(fv, S, cap, with_misses=True),
+                     **{k: variants[k] for k in ("flat_approx", "hier", "hier_approx")},
+                     "hier_nomisses": lambda: real["bin_faces_hier"](fv, S, cap),
+                     "sorted": variants["sorted"],
+                     "sorted_nomisses": lambda: real["bin_faces_sorted"](fv, S, cap)}
+            for name, fn in timed.items():
+                res[f"bin_{name}_ms"] = event_ms(fn)
+
+        # infer under the default, the hier and the sorted modes: bitwise, K1 each
+        modes = {"default": (False, None, False), "hier": (True, None, False),
+                 "sorted": (False, None, True)}
+        outs = {}
+        for name, mode in modes.items():
+            R.set_bin_mode(*mode)
+            dispatched.clear()
+            launches = {}
+            outs[name] = _counted(launches, lambda: system.infer(img))
+            want = {"default": [], "hier": ["bin_faces_hier"],
+                    "sorted": ["bin_faces_sorted"]}[name]
+            check(dispatched == want and launches["raster_fused_windows"] == 1,
+                  f"infer under the {name} mode: dispatched {dispatched or ['flat']}, K1 "
+                  f"launched {launches['raster_fused_windows']} time(s)")
+            if name != "default":
+                same = [k for k, v in outs[name].items() if not torch.equal(
+                    v, outs["default"][k])]
+                check(not same, f"infer under the {name} mode == the default's, bitwise "
+                      f"({len(outs[name])} outputs; differing: {same})")
+            check(int(outs[name]["raster_overflow"].sum()) == 0,
+                  f"infer under the {name} mode: raster_overflow 0")
+        R.set_bin_mode(False)
+
+        # one b32 train step (p0) under sorted and under flat, lr 0, fresh
+        # systems of one seed: the losses bitwise, K3 and K4's fold launched
+        from smirk_tpu_torch import bench
+
+        cudnn.deterministic, cudnn.benchmark = True, False
+        batch = bench.train_batch(TRAIN_B, S, 0)
+        metrics = {}
+        for name, mode in (("sorted", (False, None, True)), ("flat", (False, None, False))):
+            R.set_bin_mode(*mode)
+            tsys = SmirkSystem(_variant(lr=0.0), bundle)
+            gen = torch.Generator(device=tsys.device).manual_seed(0)
+            launches = {}
+            dispatched.clear()
+            metrics[name] = _counted(launches, lambda: tsys.train_step(batch, 0, gen))[0]
+            check(launches["raster_planes_windows"] >= 1
+                  and launches["segment_moments_to_faces"] >= 1
+                  and (name == "flat") == ("bin_faces_sorted" not in dispatched),
+                  f"train_step p0 under {name}: K3 {launches['raster_planes_windows']}, K4's "
+                  f"fold {launches['segment_moments_to_faces']} launch(es), "
+                  f"{dispatched.count('bin_faces_sorted')} sorted binnings")
+            del tsys
+        R.set_bin_mode(False)
+        diff = [k for k in metrics["flat"] if metrics["flat"][k] != metrics["sorted"][k]]
+        check(not diff and len(metrics["flat"]) > 0,
+              f"train_step p0 losses under sorted == flat, bitwise ({len(metrics['flat'])} "
+              f"metrics; differing: {diff})")
+        cudnn.deterministic, cudnn.benchmark = saved
+
+        # the fold modes: the training backward's rows (K4's store; "matmul"
+        # = K4's fold epilogue) and the op path's (K7's rows; "matmul" = K5)
+        slots, g_t, bins_t, k4_scale = train_rows
+        rows7, bins7 = op_rows
+        with torch.inference_mode():
+            store = R.segment_moments(slots, g_t, cap, S)
+            scale_t = R.fold_slots_to_faces_plain(k4_scale, bins_t, F)
+            scale_o = R.fold_slots_to_faces_plain(rows7.abs(), bins7, F)
+            ratios = {}
+            for mode in R.FOLD_MODES:
+                R.set_fold_mode(mode)
+                launches = {}
+                if mode == "matmul":
+                    want_t = _counted(launches, lambda: R.segment_moments_to_faces(
+                        slots, g_t, bins_t, cap, S, F))
+                    want_o = _counted(launches, lambda: R.fold_slots_to_faces(
+                        rows7, bins7, F))
+                    check(launches["segment_moments_to_faces"] == 1
+                          and launches["fold_slots_to_faces"] == 1,
+                          "matmul: K4's fold and K5 launched")
+                    res["fold_train_matmul_ms"] = event_ms(lambda: R.segment_moments_to_faces(
+                        slots, g_t, bins_t, cap, S, F))
+                    res["fold_op_matmul_ms"] = event_ms(lambda: R.fold_slots_to_faces(
+                        rows7, bins7, F))
+                    continue
+                got_t = _counted(launches, lambda: R.fold_slots_to_faces(store, bins_t, F))
+                got_o = _counted(launches, lambda: R.fold_slots_to_faces(rows7, bins7, F))
+                check(launches["fold_slots_to_faces"] == 0, f"{mode}: K5 not launched")
+                ratios[mode] = (
+                    within(got_t, want_t, scale_t, f"{mode} fold of K4's store rows vs "
+                           "K4's fold epilogue (training backward)")[0],
+                    within(got_o, want_o, scale_o, f"{mode} fold of K7's rows vs K5 "
+                           "(op path backward)")[0])
+                res[f"fold_train_{mode}_ms"] = event_ms(
+                    lambda: R.fold_slots_to_faces(store, bins_t, F))
+                res[f"fold_op_{mode}_ms"] = event_ms(
+                    lambda: R.fold_slots_to_faces(rows7, bins7, F))
+        R.set_fold_mode("matmul")
+        # the fold modes reach both backwards end to end, at b4: the
+        # training backward (rasterize_planes_diff: K4's store and the
+        # mode's fold, K4's fold epilogue under "matmul") and the op path's
+        # (rasterize at D = 9: K7, then the mode's fold, K5 under "matmul"),
+        # each gradient within 1e-4 x `dense_gradient_and_scale`'s rounding
+        # scale of "matmul"'s
+        fvg = face_verts[:4].detach().clone()
+        nrm = torch.nn.functional.normalize(fvg, dim=-1)
+        attr9 = torch.cat([nrm, nrm * 0.5, fvg], -1)
+        gen = torch.Generator(device=fvg.device).manual_seed(15)
+        g3 = torch.randn((len(fvg), S, S, 3), generator=gen, device=fvg.device)
+        g9 = torch.randn((len(fvg), S, S, 9), generator=gen, device=fvg.device)
+        grads = {}
+        for mode in ("matmul",) + tuple(m for m in R.FOLD_MODES if m != "matmul"):
+            R.set_fold_mode(mode)
+            launches = {}
+
+            def step():
+                a, n = fvg.clone().requires_grad_(True), nrm.clone().requires_grad_(True)
+                vals, _, p2f, _ = R.rasterize_planes_diff(
+                    a, n, S, cap, compact=system.renderer.raster_compact)
+                return p2f, torch.autograd.grad((vals * g3).sum(), (a, n))
+            p2f, grads[mode] = _counted(launches, step)
+            fold_k = ("segment_moments_to_faces" if mode == "matmul" else "segment_moments")
+            check(launches[fold_k] == 1 and launches["fold_slots_to_faces"] == 0
+                  and all(bool(torch.isfinite(x).all()) for x in grads[mode]),
+                  f"rasterize_planes_diff's backward under {mode}: {fold_k} launched, K5 not")
+            launches = {}
+
+            def op_step():
+                a9 = attr9.clone().requires_grad_(True)
+                vals9, _, p9, _ = R.rasterize(fvg, a9, S, 512)
+                return p9, torch.autograd.grad((vals9 * g9).sum(), (a9,))
+            p9, g_op = _counted(launches, op_step)
+            grads[mode] += g_op
+            check(launches["segment_reduce_tiles"] == 1
+                  and launches["fold_slots_to_faces"] == (mode == "matmul")
+                  and bool(torch.isfinite(g_op[0]).all()),
+                  f"rasterize's D=9 backward under {mode}: K7 launched, K5 "
+                  f"{launches['fold_slots_to_faces']} time(s)")
+        R.set_fold_mode("matmul")
+        _, sc_fv, _, sc_n = R.dense_gradient_and_scale(p2f, fvg, nrm, g3)
+        _, _, _, sc_9 = R.dense_gradient_and_scale(p9, fvg, attr9, g9, weighted=False)
+        for mode in R.FOLD_MODES:
+            if mode == "matmul":
+                continue
+            worst = [within(got, want, sc, f"{mode}: the {what} gradient vs matmul's",
+                            rtol=1e-4)[0]
+                     for got, want, sc, what in zip(
+                         grads[mode], grads["matmul"], (sc_fv, sc_n, sc_9),
+                         ("training backward's face_verts", "training backward's normals",
+                          "op path's D=9 attribute"))]
+            ratios[mode] += tuple(worst)
+        check(float(grads["matmul"][2].abs().sum()) > 0, "the op path's gradient is nonzero")
+
+        # infer with the miss check armed and disarmed, alternating
+        rnd = system.renderer
+        armed0 = rnd.bin_miss_check_fused
+        times = {True: [], False: []}
+        for i in range(2 * MODE_TIMES):
+            rnd.bin_miss_check_fused = i % 2 == 0
+            times[rnd.bin_miss_check_fused].append(event_ms(lambda: system.infer(img), 1))
+        rnd.bin_miss_check_fused = armed0
+        res["infer_miss_check_armed_ms"] = statistics.median(times[True])
+        res["infer_miss_check_disarmed_ms"] = statistics.median(times[False])
+    finally:
+        for n, fn in real.items():
+            setattr(R, n, fn)
+        R.set_bin_mode(False)
+        R.set_fold_mode("matmul")
+        cudnn.deterministic, cudnn.benchmark = saved
+    for k, v in res.items():
+        log(f"    {k:34s} {v:10.4f} ms (CUDA events, median of {MODE_TIMES}) {card}")
+    log(f"    fold modes' worst ratios (training rows, op path rows: of 1e-5 x the sum "
+        f"of magnitudes; face_verts, normals, D=9 gradients: of 1e-4 x the rounding "
+        f"scale): {json.dumps({k: [round(x, 4) for x in v] for k, v in ratios.items()})}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"    [5n] took {res['phase_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -2845,7 +3138,7 @@ def main(argv=None) -> int:
         tk3_plain = R.raster_planes_windows_plain(tkept3, bins_t, prec, S, TX, D)
         for nm, a, b in zip(K3_OUT, tk3, tk3_plain):
             check(torch.equal(a, b), f"K3 {nm} == plain at budget {tb}")
-        _, _, _, ovf3 = R.rasterize_planes_diff(fvt, fnt, S, cap, tb)
+        _, _, _, ovf3 = R.rasterize_planes_diff(fvt, fnt, S, cap, compact=tb)
         check(torch.equal(ovf3, tdrop3) and int(tdrop3.min()) > 0,
               f"rasterize_planes_diff overflow at budget {tb} == the plan's "
               f"(min {int(tdrop3.min())}, max {int(tdrop3.max())})")
@@ -3668,6 +3961,10 @@ def main(argv=None) -> int:
     log("    " + json.dumps(native_info))
     dp_info = dp_phase(bundle, train_ms, card)
     log("    " + json.dumps(dp_info))
+    # ---------------- 5n. the binning and fold modes ----------------
+    modes_info = bin_modes_phase(bundle, system, img, face_verts,
+                                 (slots3, g_t, bins_t, k4_scale), (k7, b5op), card)
+    log("    " + json.dumps(modes_info))
 
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())

@@ -12,10 +12,17 @@ centre at ((2c+1-W)/W, (2r+1-H)/H); smaller z is closer. Background is
 pix_to_face = -1 and zbuf = 1e10.
 
 Pipeline (`rasterize_normals_fused`):
-1. `bin_faces_flat`: bounding-box overlap of every face with every 8x128
-   pixel tile, then an exact top-k per tile keeps the `capacity` nearest
-   overlapping faces (near-to-far priority: a 255-bucket mean z, then the
-   face id). Bins are -1 padded; the tile count is padded to a multiple of 8.
+1. `bin_faces` (the dispatch of `set_bin_mode`'s mode): `bin_faces_flat`
+   tests the bounding box of every face against every 8x128 pixel tile,
+   then a top-k per tile keeps the `capacity` nearest overlapping faces
+   (near-to-far priority: a 255-bucket mean z, then the face id). Bins are
+   -1 padded; the tile count is padded to a multiple of 8.
+   `bin_faces_hier` (per-band candidates, then tiles) and
+   `bin_faces_sorted` (one sort of (tile, priority) incidence keys) give
+   the same bins. The approximate mode's selector (`approx_max_k`) is
+   exact here, as the JAX package's lowering of its TPU primitive is on
+   the CPU and GPUs; `selection_misses` counts the overlapping faces a
+   selector drops, which the rasters' `bin_miss_check` adds to overflow.
 2. `face_records_shaded`: one 32-lane record per face with its three
    sign-normalized edge functions, its depth plane and its three normal
    planes, all affine in the pixel centre.
@@ -72,6 +79,8 @@ and attributes. For D > 6, K6 gives the coverage and
 `interpolate_attributes_fast` interpolates by per-pixel gathers; its
 backward reduces the per-pixel gradients per (tile, slot) with
 `segment_reduce_tiles` (K7) and folds them into faces with K5.
+`set_fold_mode` swaps both folds (K4's fold epilogue, and K5) for PyTorch
+ops: one index_add_, a sorted one, or prefix-sum differences.
 
 K1 and K3-K11 are CUDA kernels (csrc/; K2 has none, its packing being
 folded into K1's and K3's staging). Each wrapper checks its arguments,
@@ -195,58 +204,282 @@ def _pad_bins(bins, counts, capacity, k, T):
     return bins, counts
 
 
+def selection_misses(pre: torch.Tensor, counts: torch.Tensor, k: int) -> torch.Tensor:
+    """Overlapping faces the selector failed to return: pre (B, ...) the
+    overlap count per tile (or per band) before selection, counts the
+    valid count after it, k the selection width -> (B,) int32, the sum
+    over tiles of max(min(pre, k) - counts, 0). A capacity overflow (pre
+    > k with k returned) is no miss. `bin_faces_hier`'s coarse stage
+    counts a missed face once per band, however many of the band's tiles
+    it overlaps, so its total is a lower bound in other units than the
+    flat path's."""
+    per_tile = (pre.clamp(max=k) - counts).clamp_min(0)
+    return per_tile.reshape(per_tile.shape[0], -1).sum(-1, dtype=torch.int32)
+
+
+def approx_max_k(x: torch.Tensor, k: int, recall_target: float):
+    """The selector of the approximate binning: -> (values, indices) of the
+    k largest entries of x's last axis, largest first. The JAX package
+    calls `jax.lax.approx_max_k`, a TPU primitive that XLA lowers to an
+    exact top-k on the CPU and on GPUs; this is that exact top-k, so
+    `recall_target` changes nothing here. Every approximate selection of
+    the binning goes through this one function, so that a test can put
+    a lossy selector in its place."""
+    return torch.topk(x, k, dim=-1, largest=True, sorted=True)
+
+
+def _select(overlap, prio_key, key_span: int, k: int, approx):
+    """The k highest-priority overlapping entries of the last axis:
+    overlap (..., N) bool, prio_key (N,)-broadcastable int32 in [1,
+    key_span] (higher = nearer) -> (valid (..., k) bool, idx (..., k)
+    int64). One top-k over the int32 key overlap * key_span + prio_key -
+    key_span, which is positive exactly where the entry overlaps and
+    unique among those: exact with `approx` None, else through
+    `approx_max_k` with `approx` its recall target."""
+    key = overlap.to(torch.int32) * key_span + (prio_key - key_span)
+    if approx is None:
+        vals, idx = torch.topk(key, k, dim=-1, largest=True, sorted=True)
+    else:
+        vals, idx = approx_max_k(key, k, recall_target=approx)
+    return vals > 0, idx
+
+
 def bin_faces_flat(
     face_verts: torch.Tensor, image_size: int, capacity: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    approx: Optional[float] = None,
+    with_misses: bool = False,
+):
     """Assign triangles to pixel tiles by bounding box.
 
-    -> (bins (B,Tp,C) int32 -1 padded, counts (B,Tp) int32), where
-    T = ceil(H/8) * ceil(W/128) and Tp rounds T up to a multiple of 8.
-    Each tile keeps its `capacity` nearest overlapping faces, nearest
-    first: an exact top-k over the integer key overlap * prio_span - prio,
-    so a tile's count is min(overlapping faces, capacity) and no face is
-    missed (the JAX package's approximate top-k needs a miss count). Faces
-    the backface cull drops (`set_backface_cull`) bin nowhere.
+    -> (bins (B,Tp,C) int32 -1 padded, counts (B,Tp) int32[, misses (B,)
+    int32]), where T = ceil(H/8) * ceil(W/128) and Tp rounds T up to a
+    multiple of 8. Each tile keeps its `capacity` nearest overlapping
+    faces, nearest first: a top-k over all F faces of the key overlap *
+    prio_span - prio. approx (None: the module's `set_bin_mode` value) is
+    the JAX package's `approx_max_k` recall target; the port's selector
+    (`approx_max_k`) is exact, so the bins are the exact ones either way.
+    with_misses appends `selection_misses` of the overlap counts before
+    selection. Faces the backface cull drops (`set_backface_cull`) bin
+    nowhere.
     """
     F = face_verts.shape[1]
     overlap, prio, prio_span = _tile_overlap(face_verts, image_size)
     T = overlap.shape[1]
-
     k = min(capacity, F)
-    key = overlap.to(torch.int32) * prio_span - prio[:, None, :]
-    vals, idx = torch.topk(key, k, dim=-1, largest=True, sorted=True)
-    valid = vals > 0
+    if approx is None:
+        approx = _BIN_APPROX
+    valid, idx = _select(overlap, (prio_span - prio)[:, None, :], prio_span, k, approx)
     bins = torch.where(valid, idx.to(torch.int32), -1)
     counts = valid.sum(-1, dtype=torch.int32)  # (B,T)
-    return _pad_bins(bins, counts, capacity, k, T)
+    padded = _pad_bins(bins, counts, capacity, k, T)
+    if with_misses:
+        pre = overlap.sum(-1, dtype=torch.int32)  # (B,T)
+        return (*padded, selection_misses(pre, counts, k))
+    return padded
 
 
-_OTHER_BINNING = ("the port bins exactly with bin_faces_flat; the JAX package's "
-                  "approximate, hierarchical and sorted binning are not ported "
-                  "(ROADMAP.md, Queue 1)")
+# Hierarchical binning: BAND_TILES tile rows (32 px) per coarse band, and
+# the coarse candidate list's length per band
+BAND_TILES = 4
+COARSE_CAPACITY = 1024
+
+
+def bin_faces_hier(
+    face_verts: torch.Tensor,
+    image_size: int,
+    capacity: int,
+    band_tiles: int = BAND_TILES,
+    coarse_capacity: int = COARSE_CAPACITY,
+    approx: Optional[float] = None,
+    with_misses: bool = False,
+):
+    """Two-level binning with `bin_faces_flat`'s output contract.
+
+    The coarse stage keeps, per band of `band_tiles` tile rows, the
+    `coarse_capacity` nearest faces whose box meets the band (a top-k over
+    all F faces for ceil(ty / band_tiles) rows instead of ty * tx); the
+    top-k returns them nearest first. The fine stage picks each tile's
+    faces from its band's candidates with the candidate's position as the
+    priority (a top-k over coarse_capacity), so a tile keeps the same
+    nearest faces as the flat binning, and its exact variant gives the
+    flat bins and counts. approx as `bin_faces_flat` (both stages select
+    through `approx_max_k`); with_misses counts both stages' misses (the
+    coarse one per band, see `selection_misses`).
+    """
+    B, F = face_verts.shape[:2]
+    ty, tx = _tile_grid(image_size)
+    T = ty * tx
+    nb = -(-ty // band_tiles)
+    dev = face_verts.device
+    xmin, xmax, ymin, ymax, prio, prio_span, keep = _bbox_and_priority(
+        face_verts, image_size)
+
+    # coarse: faces -> bands of band_tiles * TILE_ROWS pixel rows
+    band_rows = band_tiles * TILE_ROWS
+    band_r0 = (torch.arange(nb, device=dev) * band_rows).to(torch.float32)
+    ov_band = (ymax[:, None, :] >= band_r0[None, :, None]) & (
+        ymin[:, None, :] <= band_r0[None, :, None] + band_rows - 1)  # (B,nb,F)
+    if keep is not None:
+        ov_band = ov_band & keep[:, None, :]
+    C1 = min(coarse_capacity, F)
+    if approx is None:
+        approx = _BIN_APPROX
+    valid_c, cand = _select(ov_band, (prio_span - prio)[:, None, :], prio_span, C1, approx)
+
+    def gather_bf(a):  # (B,F) -> (B,nb,C1)
+        return torch.gather(a[:, None, :].expand(B, nb, F), 2, cand)
+
+    cxmin, cxmax = gather_bf(xmin), gather_bf(xmax)
+    cymin, cymax = gather_bf(ymin), gather_bf(ymax)
+
+    # fine: a band's candidates -> its 8x128 tiles
+    sub_r0 = band_r0[:, None] + (torch.arange(band_tiles, device=dev)
+                                 * TILE_ROWS).to(torch.float32)[None, :]  # (nb,bt)
+    ov_r = (cymax[:, :, None, :] >= sub_r0[None, :, :, None]) & (
+        cymin[:, :, None, :] <= sub_r0[None, :, :, None] + TILE_ROWS - 1)  # (B,nb,bt,C1)
+    tile_c0 = (torch.arange(tx, device=dev) * TILE_COLS).to(torch.float32)
+    ov_c = (cxmax[:, :, None, :] >= tile_c0[None, None, :, None]) & (
+        cxmin[:, :, None, :] <= tile_c0[None, None, :, None] + TILE_COLS - 1)  # (B,nb,tx,C1)
+    ov = (ov_r[:, :, :, None, :] & ov_c[:, :, None, :, :]
+          & valid_c[:, :, None, None, :])  # (B,nb,bt,tx,C1)
+    k = min(capacity, C1)
+    pos_key = C1 - torch.arange(C1, dtype=torch.int32, device=dev)  # nearer = larger
+    valid_f, idx_f = _select(ov, pos_key, C1 + 1, k, approx)
+    ids = torch.gather(cand[:, :, None, None, :].expand(B, nb, band_tiles, tx, C1),
+                       -1, idx_f)
+    bins = torch.where(valid_f, ids.to(torch.int32), -1)
+    counts_full = valid_f.sum(-1, dtype=torch.int32)  # (B,nb,bt,tx)
+    # (B, nb * bt, tx, ...) -> the bands' padding rows cropped -> (B, T, ...)
+    bins = bins.reshape(B, nb * band_tiles, tx, k)[:, :ty].reshape(B, T, k)
+    counts = counts_full.reshape(B, nb * band_tiles, tx)[:, :ty].reshape(B, T)
+    padded = _pad_bins(bins, counts, capacity, k, T)
+    if with_misses:
+        # a coarse miss drops the face from every tile of its band, a fine
+        # one from one tile; the fine counts only over the cropped tiles
+        miss_c = selection_misses(ov_band.sum(-1, dtype=torch.int32),
+                                  valid_c.sum(-1, dtype=torch.int32), C1)
+        pre_f = ov.sum(-1, dtype=torch.int32)
+        per_f = (pre_f.clamp(max=k) - counts_full).clamp_min(0)
+        miss_f = per_f.reshape(B, nb * band_tiles, tx)[:, :ty].reshape(B, -1).sum(
+            -1, dtype=torch.int32)
+        return (*padded, miss_c + miss_f)
+    return padded
+
+
+def bin_faces_sorted(
+    face_verts: torch.Tensor, image_size: int, capacity: int,
+    max_row_span: int = 8, max_col_span: int = 4,
+    with_misses: bool = False,
+):
+    """Sort-based exact binning with `bin_faces_flat`'s output contract,
+    built per (face, tile) incidence instead of a top-k over all F faces
+    for every tile.
+
+    Each face expands to NI = max_row_span x min(tx, max_col_span)
+    incidence keys tile * prio_span + prio (unique, int32); one ascending
+    sort per image lays each tile's faces out nearest first, back to back;
+    a batched searchsorted over the T + 1 tile boundaries gives each
+    tile's run, one take_along_dim its first min(run, capacity) keys, and
+    key % F the face id (prio = zbucket * F + id, and tile * prio_span is
+    a multiple of F). The bins and counts equal the exact flat binning's,
+    capacity drops included, wherever no face is clipped: a face whose box
+    spans more tile rows or columns than the spans keeps its first
+    (top / left) ones, and with_misses counts the dropped incidences.
+    """
+    B, F = face_verts.shape[:2]
+    ty, tx = _tile_grid(image_size)
+    T = ty * tx
+    dev = face_verts.device
+    xmin, xmax, ymin, ymax, prio, prio_span, keep = _bbox_and_priority(
+        face_verts, image_size)
+    if T * prio_span >= 2 ** 31:
+        raise ValueError(f"bin_faces_sorted: {T} tiles x {prio_span} priorities "
+                         "overflow the int32 keys")
+
+    # inclusive tile spans, bin_faces_flat's overlap test: tile row r
+    # overlaps iff ymax >= 8r and ymin <= 8r + 7. lo clips to [0, ty] and
+    # hi to ty - 1, so that an off-screen face has hi < lo (clamping lo
+    # down would bin it into the last row)
+    rlo = torch.ceil((ymin - (TILE_ROWS - 1)) / TILE_ROWS).to(torch.int32).clamp(0, ty)
+    rhi = torch.floor(ymax / TILE_ROWS).to(torch.int32).clamp(max=ty - 1)
+    clo = torch.ceil((xmin - (TILE_COLS - 1)) / TILE_COLS).to(torch.int32).clamp(0, tx)
+    chi = torch.floor(xmax / TILE_COLS).to(torch.int32).clamp(max=tx - 1)
+
+    NIR = max_row_span
+    NIC = min(tx, max_col_span)
+    NI = NIR * NIC
+    r = rlo[..., None] + torch.arange(NIR, dtype=torch.int32, device=dev)  # (B,F,NIR)
+    c = clo[..., None] + torch.arange(NIC, dtype=torch.int32, device=dev)  # (B,F,NIC)
+    valid = (r <= rhi[..., None])[..., :, None] & (c <= chi[..., None])[..., None, :]
+    if keep is not None:
+        valid = valid & keep[..., None, None]
+    key = (r[..., :, None] * tx + c[..., None, :]) * prio_span + prio[..., None, None]
+    key = torch.where(valid, key, torch.iinfo(torch.int32).max).reshape(B, F * NI)
+    skey = torch.sort(key, dim=-1).values  # ascending: (tile, nearest first) runs
+
+    bounds = (torch.arange(T + 1, dtype=torch.int32, device=dev) * prio_span).expand(B, T + 1)
+    starts = torch.searchsorted(skey, bounds.contiguous())  # (B,T+1)
+    k = min(capacity, F)
+    counts = (starts[:, 1:] - starts[:, :-1]).clamp(max=k).to(torch.int32)  # (B,T)
+    slot = torch.arange(k, device=dev)
+    idx = (starts[:, :-1, None] + slot).clamp(max=F * NI - 1)  # (B,T,k)
+    got = torch.take_along_dim(skey, idx.reshape(B, T * k), dim=1).reshape(B, T, k)
+    bins = torch.where(slot < counts[..., None], got % F, -1).to(torch.int32)
+    padded = _pad_bins(bins, counts, capacity, k, T)
+    if with_misses:
+        # span clipping is this path's only selection loss (a capacity
+        # overflow is the shared drop, counted apart)
+        lost_r = (rhi - rlo + 1 - NIR).clamp_min(0)
+        ncols = (chi - clo + 1).clamp_min(0)
+        lost_c = (chi - clo + 1 - NIC).clamp_min(0)
+        nrows_kept = (rhi - rlo + 1).clamp(0, NIR)
+        lost = lost_r * ncols + lost_c * nrows_kept
+        if keep is not None:
+            lost = torch.where(keep, lost, 0)
+        lost = torch.where((rhi >= rlo) & (chi >= clo), lost, 0)
+        return (*padded, lost.sum(-1, dtype=torch.int32))
+    return padded
+
+
+# The binning mode, process globals as in the JAX package (which bakes them
+# into a program when it traces it): `set_bin_mode` sets them, `bin_faces`
+# reads them at each call (a `torch.export` artifact holds the mode of its
+# export). Hierarchical binning (measured slower than flat on the TPU, kept
+# for reference); the recall target of the approximate selection (None =
+# exact; the port's selector is exact either way); sort-based binning.
+_BIN_HIER = False
+_BIN_APPROX: Optional[float] = None
+_BIN_SORTED = False
 
 
 def set_bin_mode(hier: bool, approx: Optional[float] = None,
                  sorted_: bool = False) -> None:
-    """The JAX package's binning switch. Only the exact flat mode (False,
-    None, False) exists here; the others raise NotImplementedError."""
-    if hier or approx is not None or sorted_:
-        raise NotImplementedError(_OTHER_BINNING)
+    """The JAX package's binning switch: hierarchical binning in the
+    dispatch (`bin_faces`), the recall target `bin_faces_flat` and
+    `bin_faces_hier` fall back to, and sort-based binning (which wins over
+    hier)."""
+    global _BIN_HIER, _BIN_APPROX, _BIN_SORTED
+    _BIN_HIER = hier
+    _BIN_APPROX = approx
+    _BIN_SORTED = sorted_
 
 
 def bin_faces(face_verts: torch.Tensor, image_size: int, capacity: int,
               approx: Optional[float] = None, with_misses: bool = False):
-    """The JAX package's binning dispatch: exact flat binning
-    (`bin_faces_flat`) -> (bins, counts[, misses (B,) int32]). An exact
-    top-k misses no overlapping face, so `with_misses` appends zeros;
-    `approx` raises NotImplementedError."""
-    if approx is not None:
-        raise NotImplementedError(_OTHER_BINNING)
-    bins, counts = bin_faces_flat(face_verts, image_size, capacity)
-    if with_misses:
-        misses = torch.zeros((bins.shape[0],), dtype=torch.int32, device=bins.device)
-        return bins, counts, misses
-    return bins, counts
+    """The binning dispatch -> (bins, counts[, misses (B,) int32]):
+    `bin_faces_sorted` in the sorted mode; `bin_faces_hier` in the hier
+    mode where the coarse list is a real reduction (F > 2 x
+    COARSE_CAPACITY) and the image has more than one band of tiles;
+    `bin_faces_flat` otherwise."""
+    F = face_verts.shape[1]
+    ty = -(-image_size // TILE_ROWS)
+    if _BIN_SORTED:
+        return bin_faces_sorted(face_verts, image_size, capacity,
+                                with_misses=with_misses)
+    if _BIN_HIER and F > 2 * COARSE_CAPACITY and ty > BAND_TILES:
+        return bin_faces_hier(face_verts, image_size, capacity,
+                              approx=approx, with_misses=with_misses)
+    return bin_faces_flat(face_verts, image_size, capacity, approx, with_misses)
 
 
 def _tile_grid(image_size: int):
@@ -928,10 +1161,17 @@ def rasterize_normals_fused(
     tps: Optional[int] = None,
     sort_tiles: bool = False,
     compact: Optional[int] = None,
+    bin_approx: Optional[float] = None,
     return_overflow: bool = False,
+    bin_miss_check: bool = False,
 ):
     """Fused inference raster -> (normal image (B,H,W,3), pix_to_face
     (B,H,W) int32, zbuf (B,H,W)[, overflow (B,) int32]).
+
+    Binning goes through the dispatch (`bin_faces`, the `set_bin_mode`
+    mode) with `bin_approx` as its recall target. bin_miss_check adds the
+    binning's `selection_misses` to overflow, its only output surface, so
+    it needs return_overflow (ValueError otherwise).
 
     compact: chunk budget of the compact layout (rounded up to 8; K1);
     None = the padded layout, where each tile walks its own bin: K1 on its
@@ -945,12 +1185,18 @@ def rasterize_normals_fused(
     compact chunks dropped past the budget (0 on the padded layout).
     """
     _check_capacity(capacity)
+    if bin_miss_check and not return_overflow:
+        raise ValueError(
+            "bin_miss_check computes selection misses that surface only through "
+            "the overflow output; pass return_overflow=True")
     if sort_tiles and compact is not None:
         raise ValueError(
             "sort_tiles is incompatible with compact: the compact raster derives "
             "each tile's pixel coordinates from its row index, so sorted bins "
             "would be tested against the wrong pixels")
-    bins, counts = bin_faces_flat(face_verts, image_size, capacity)
+    binned = bin_faces(face_verts, image_size, capacity, bin_approx,
+                       with_misses=bin_miss_check)
+    bins, counts = binned[:2]
     tx = -(-image_size // TILE_COLS)
     records = fused_records(face_verts, face_normals)
     tps = MERGED_TPS if tps is None else tps
@@ -973,6 +1219,8 @@ def rasterize_normals_fused(
     zbuf = _tiles_to_image(outs[1], image_size)
     normals = torch.stack([_tiles_to_image(o, image_size) for o in outs[2:5]], dim=-1)
     if return_overflow:
+        if bin_miss_check:
+            overflow = overflow + binned[2]
         return normals, p2f, zbuf, overflow
     return normals, p2f, zbuf
 
@@ -1646,17 +1894,70 @@ def _fold_index(bins: torch.Tensor, F: int) -> torch.Tensor:
 
 
 def fold_slots_to_faces_plain(per_slot, bins, F: int):
-    """Plain version of K5: one index_add_ over (B*F) rows. -> (B,F,CHN)."""
+    """Plain version of K5, and the "scatter" fold mode: one index_add_
+    over (B*F) rows. -> (B,F,CHN)."""
     B, Tp, C, CHN = per_slot.shape
     out = per_slot.new_zeros((B * F + 1, CHN))
     out.index_add_(0, _fold_index(bins, F), per_slot.reshape(-1, CHN))
     return out[:B * F].reshape(B, F, CHN)
 
 
+def _fold_sorted(per_slot, bins, F: int, mode: str):
+    """The "sorted_scatter" and "cumsum" fold modes, per image as the JAX
+    package's: the ids (outside [0, F) -> F, last) sorted stably with their
+    rows, then an index_add_ in that order ("sorted_scatter"), or each
+    face's total as the difference of the rows' prefix sums at its run's
+    bounds, found by searchsorted ("cumsum"). -> (B,F,CHN). The prefix
+    sums are float64: in fp32 they round at the scale of all the image's
+    rows before the face (the JAX package's do), while a total should keep
+    the precision of a sum of its own rows."""
+    B, Tp, C, CHN = per_slot.shape
+    ids = bins.reshape(B, Tp * C).long()
+    ids = torch.where((ids >= 0) & (ids < F), ids, F)
+    sids, order = torch.sort(ids, dim=1, stable=True)
+    rows = torch.take_along_dim(per_slot.reshape(B, Tp * C, CHN), order[..., None], dim=1)
+    if mode == "sorted_scatter":
+        flat = sids + torch.arange(B, device=ids.device)[:, None] * (F + 1)
+        out = per_slot.new_zeros((B * (F + 1), CHN))
+        out.index_add_(0, flat.reshape(-1), rows.reshape(-1, CHN))
+        return out.reshape(B, F + 1, CHN)[:, :F]
+    csum = torch.cumsum(rows, dim=1, dtype=torch.float64)
+    faces = torch.arange(F, device=ids.device).expand(B, F).contiguous()
+    lo = torch.searchsorted(sids, faces, side="left")
+    hi = torch.searchsorted(sids, faces, side="right")
+
+    def take(i):
+        return torch.take_along_dim(csum, i.clamp_min(0)[..., None], dim=1)
+
+    lower = torch.where((lo > 0)[..., None], take(lo - 1), 0.0)
+    return torch.where((hi > lo)[..., None], take(hi - 1) - lower, 0.0).to(per_slot.dtype)
+
+
+# The fold of per-(tile, slot) rows into faces, a process global as in the
+# JAX package: "matmul" (the JAX package's Pallas fold; here K5, and on the
+# training backward K4's fold epilogue), "scatter" (one index_add_),
+# "sorted_scatter" (a stable sort of the ids, then index_add_ in that
+# order), "cumsum" (a stable sort, prefix sums and searchsorted
+# differences).
+FOLD_MODES = ("matmul", "scatter", "sorted_scatter", "cumsum")
+_FOLD_MODE = "matmul"
+
+
+def set_fold_mode(mode: str) -> None:
+    """Set the fold mode of `fold_slots_to_faces` and of the training
+    backward (`rasterize_planes_diff`): one of FOLD_MODES."""
+    global _FOLD_MODE
+    if mode not in FOLD_MODES:
+        raise ValueError(f"fold mode must be one of {FOLD_MODES}, got {mode!r}")
+    _FOLD_MODE = mode
+
+
 def fold_slots_to_faces(per_slot, bins, F: int):
     """K5: per-face totals of per-(tile, slot) rows; per_slot (B,Tp,C,CHN)
     f32, bins (B,Tp,C) int32 face ids (< 0 or >= F dropped) -> (B,F,CHN)
-    f32. The rows of dropped slots are never read.
+    f32. The rows of dropped slots are never read. Outside the "matmul"
+    fold mode (`set_fold_mode`) the mode's PyTorch ops fold instead, on
+    any device, and K5 is not launched.
 
     Replaces `_fold_kernel` (`_fold_matmul` / `fold_slots_to_faces`,
     smirk_tpu/render/rasterizer.py); served after K7 on the op path.
@@ -1670,6 +1971,10 @@ def fold_slots_to_faces(per_slot, bins, F: int):
     atomics rarely collide. The float order varies, so it matches the
     plain version within a tolerance. CPU tensors take the plain version.
     """
+    if _FOLD_MODE == "scatter":
+        return fold_slots_to_faces_plain(per_slot, bins, F)
+    if _FOLD_MODE != "matmul":
+        return _fold_sorted(per_slot, bins, F, _FOLD_MODE)
     if per_slot.device.type == "cpu":
         return fold_slots_to_faces_plain(per_slot, bins, F)
     if per_slot.device.type != "cuda":
@@ -1967,18 +2272,25 @@ KERNELS = (raster_fused_windows, raster_planes_windows,
 
 
 def _v5_impl(face_verts, attributes, image_size: int, capacity: int,
-             compact: Optional[int] = None):
+             compact: Optional[int] = None, *, bin_approx: Optional[float] = None,
+             bin_miss_check: bool = False):
     """The differentiable raster's forward on detached inputs -> (vals
     (B,H,W,D), pix_to_face (B,H,W), zbuf (B,H,W), slots (B,Tp,1024)
     tile-major per-tile slots, bins (B,Tp,C), overflow (B,) int32).
 
     compact: chunk budget of the compact layout (rounded up to 8, as the
     inference raster's); None = padded layout. overflow counts compact
-    chunks dropped past the budget.
+    chunks dropped past the budget, plus the binning's `selection_misses`
+    under bin_miss_check. Binning goes through `bin_faces` with
+    `bin_approx` as its recall target.
     """
     _check_capacity(capacity)
-    bins, counts = bin_faces_flat(face_verts, image_size, capacity)
+    binned = bin_faces(face_verts, image_size, capacity, bin_approx,
+                       with_misses=bin_miss_check)
+    bins, counts = binned[:2]
     kept, overflow = _windows(counts, compact)
+    if bin_miss_check:
+        overflow = overflow + binned[2]
     D = attributes.shape[-1]
     tx = -(-image_size // TILE_COLS)
     p2f, zbuf, slots, vals = raster_planes_windows(
@@ -2083,16 +2395,20 @@ def dense_gradient_and_scale(pix_to_face, face_verts, attributes, g,
 class _RasterizePlanesDiff(torch.autograd.Function):
     """Forward `_v5_impl` (K3); backward image_to_tiles -> K4 with its fold
     epilogue (`segment_moments_to_faces`: the moments folded straight into
-    faces) -> the vector-Jacobian product of attr_planes. The cotangent of
-    an affine plane is its first moments over the pixels it won, so the
-    backward gathers nothing per pixel. Coverage is not differentiable:
-    the gradient reaches the vertices through the planes only, and the
+    faces) in the "matmul" fold mode, else K4's store (`segment_moments`)
+    and `fold_slots_to_faces` in the mode set (`set_fold_mode`) -> the
+    vector-Jacobian product of attr_planes. The cotangent of an affine
+    plane is its first moments over the pixels it won, so the backward
+    gathers nothing per pixel. Coverage is not differentiable: the
+    gradient reaches the vertices through the planes only, and the
     gradient to z is zero."""
 
     @staticmethod
-    def forward(ctx, face_verts, attributes, image_size, capacity, compact):
+    def forward(ctx, face_verts, attributes, image_size, capacity, compact,
+                bin_approx, bin_miss_check):
         vals, p2f, _, slots, bins, overflow = _v5_impl(
-            face_verts.detach(), attributes.detach(), image_size, capacity, compact)
+            face_verts.detach(), attributes.detach(), image_size, capacity, compact,
+            bin_approx=bin_approx, bin_miss_check=bin_miss_check)
         mask = (p2f >= 0)[..., None].to(vals.dtype)
         ctx.mark_non_differentiable(mask, p2f, overflow)
         ctx.save_for_backward(face_verts, attributes, slots, bins)
@@ -2104,29 +2420,38 @@ class _RasterizePlanesDiff(torch.autograd.Function):
     def backward(ctx, g_vals, _g_mask, _g_p2f, _g_overflow):
         face_verts, attributes, slots, bins = ctx.saved_tensors
         if g_vals is None:
-            return None, None, None, None, None
+            return (None,) * 7
         g_t = image_to_tiles(g_vals, ctx.image_size).contiguous()
-        plane_ct = segment_moments_to_faces(slots, g_t, bins, ctx.capacity,
-                                            ctx.image_size, face_verts.shape[1])
+        F = face_verts.shape[1]
+        if _FOLD_MODE == "matmul":
+            plane_ct = segment_moments_to_faces(slots, g_t, bins, ctx.capacity,
+                                                ctx.image_size, F)
+        else:
+            plane_ct = fold_slots_to_faces(
+                segment_moments(slots, g_t, ctx.capacity, ctx.image_size), bins, F)
         with torch.enable_grad():
             fv = face_verts.detach().requires_grad_(True)
             at = attributes.detach().requires_grad_(True)
             dfv, dat = torch.autograd.grad(attr_planes(fv, at), (fv, at), plane_ct)
         needs = ctx.needs_input_grad
         return (dfv if needs[0] else None, dat if needs[1] else None,
-                None, None, None)
+                None, None, None, None, None)
 
 
 def rasterize_planes_diff(face_verts, attributes, image_size: int,
-                          capacity: int, compact: Optional[int] = None):
+                          capacity: int, *, compact: Optional[int] = None,
+                          bin_approx: Optional[float] = None,
+                          bin_miss_check: bool = False):
     """Fused differentiable raster -> (vals (B,H,W,D), mask (B,H,W,1),
     pix_to_face (B,H,W) int32, overflow (B,) int32). Value- and
     gradient-equivalent to coverage + barycentric interpolation of the
     corner attributes; mask, pix_to_face and overflow carry no gradient.
     overflow > 0 means trailing tiles rendered EMPTY and carry no
-    gradients."""
+    gradients. bin_approx / bin_miss_check: `_v5_impl`'s (the misses
+    added to overflow). The arguments after capacity are keyword-only:
+    the JAX package's fifth is `interpret`."""
     return _RasterizePlanesDiff.apply(face_verts, attributes, image_size,
-                                      capacity, compact)
+                                      capacity, compact, bin_approx, bin_miss_check)
 
 
 # ---------------------------------------------------------------------------
@@ -2274,19 +2599,23 @@ def interpolate_attributes_fast(face_verts, attributes, pix_to_face, pix_to_slot
 
 
 def rasterize(face_verts, attributes, image_size: int, capacity: int = 512, *,
-              compact: Optional[int] = None):
+              compact: Optional[int] = None, bin_approx: Optional[float] = None,
+              bin_miss_check: bool = False):
     """Full differentiable raster (the JAX package's `rasterize` on its
     Pallas path) -> (vals (B,H,W,D), mask (B,H,W,1), pix_to_face (B,H,W)
     int32, overflow (B,) int32). D attribute channels with 13 + 3D <= 32
     (D <= 6) take the planes raster (`rasterize_planes_diff`, K3 + K4's
-    fold, on the `compact` layout); wider attributes take the coverage raster
-    K6 and `interpolate_attributes_fast` (K7 + K5), which bins the padded
-    layout, so `compact` does not apply and overflow is 0. Coverage carries
-    no gradient."""
+    fold, on the `compact` layout, binned with `bin_approx`, its misses
+    added to overflow under `bin_miss_check`); wider attributes take the
+    coverage raster K6 and `interpolate_attributes_fast` (K7 + K5), which
+    bins the padded layout with the module's mode, so `compact`,
+    `bin_approx` and `bin_miss_check` do not apply and overflow is 0.
+    Coverage carries no gradient."""
     D = attributes.shape[-1]
     if 13 + 3 * D <= REC5_LANES:
         return rasterize_planes_diff(face_verts, attributes, image_size, capacity,
-                                     compact)
+                                     compact=compact, bin_approx=bin_approx,
+                                     bin_miss_check=bin_miss_check)
     p2f, _, p2slot, bins = rasterize_coverage_pallas_v3_full(
         face_verts, image_size, capacity)
     vals, mask = interpolate_attributes_fast(

@@ -37,9 +37,22 @@ class Renderer(nn.Module):
     bin_capacity / raster_compact default to the JAX package's auto sizes
     (capacity 384 and a 216-chunk budget at 224 px on the 3408-face
     region). raster_compact=0, or env SMIRK_RASTER_COMPACT=0, selects the
-    padded per-tile layout. Binning is an exact top-k, so no overlapping
-    face is lost to selection and `raster_overflow` counts only chunks
-    dropped past the compact budget.
+    padded per-tile layout.
+
+    bin_approx / diff_bin_approx: the recall target of the approximate
+    binning of the inference / differentiable raster (the JAX package's
+    defaults, 0.95; None = exact). The port's selector is exact either
+    way (`rasterizer.approx_max_k`). A non-empty SMIRK_DIFF_BIN_EXACT
+    clears diff_bin_approx. bin_miss_check: None arms each path's
+    selection-miss check where its approx binning is on
+    (`bin_miss_check_fused`, `bin_miss_check_diff`); True / False arms /
+    disarms both, as SMIRK_BIN_MISS_CHECK does when the argument is None
+    ("0" disarms, any other non-empty value arms, empty is unset). An
+    armed path adds its misses to `raster_overflow`.
+
+    The arguments after bin_capacity are keyword-only: the JAX package's
+    fifth is use_pallas, which the port does not take (the device picks
+    each kernel or its plain version).
     """
 
     def __init__(
@@ -48,12 +61,29 @@ class Renderer(nn.Module):
         render_full_head: bool = False,
         image_size: int = 224,
         bin_capacity: Optional[int] = None,
+        *,
+        bin_approx: Optional[float] = 0.95,
+        diff_bin_approx: Optional[float] = 0.95,
+        bin_miss_check: Optional[bool] = None,
         raster_compact: Optional[int] = None,
         device: Optional[str] = None,
     ):
         super().__init__()
         device = resolve_device(device)
         self.image_size = image_size
+        self.bin_approx = bin_approx
+        self.diff_bin_approx = diff_bin_approx
+        if _env_set("SMIRK_DIFF_BIN_EXACT") is not None:
+            self.diff_bin_approx = None
+        env = _env_set("SMIRK_BIN_MISS_CHECK")
+        if bin_miss_check is None and env is not None:
+            bin_miss_check = env != "0"
+        if bin_miss_check is None:
+            self.bin_miss_check_diff = self.diff_bin_approx is not None
+            self.bin_miss_check_fused = self.bin_approx is not None
+        else:
+            self.bin_miss_check_diff = bool(bin_miss_check)
+            self.bin_miss_check_fused = bool(bin_miss_check)
 
         faces = np.asarray(bundle["faces"], np.int64)
         if render_full_head:
@@ -117,7 +147,7 @@ class Renderer(nn.Module):
         budget for a scene, and headroom = budget / occupancy."""
         tv = self.project(vertices, cam)
         face_verts, _ = self._face_geometry(vertices, tv)
-        _, counts = raster_lib.bin_faces_flat(
+        _, counts = raster_lib.bin_faces(
             face_verts, self.image_size, self.bin_capacity)
         CH = raster_lib.V3_CHUNK
         occupied = int(((counts + CH - 1) // CH).sum(dim=1).max())
@@ -151,9 +181,10 @@ class Renderer(nn.Module):
         out["rendered_img"] = rendered
         out["rendered_mask"] = mask
         out["pix_to_face"] = pix_to_face
-        # (B,) int32 compact chunks dropped past the budget: 0 = exact
-        # render; > 0 = trailing tiles rendered EMPTY (and, in training,
-        # carry no gradient)
+        # (B,) int32 compact chunks dropped past the budget, plus the
+        # binning's selection misses where the path's check is armed: 0 =
+        # exact render; > 0 = trailing tiles rendered EMPTY or faces missed
+        # (and, in training, no gradient there)
         out["raster_overflow"] = overflow
         return out
 
@@ -167,6 +198,8 @@ class Renderer(nn.Module):
             face_verts, face_normals, self.image_size,
             capacity=self.bin_capacity,
             compact=self.raster_compact or None,
+            bin_approx=self.diff_bin_approx,
+            bin_miss_check=self.bin_miss_check_diff,
         )
         shade = shading.directional_shading(normal_img)
         return shading.GRAY_ALBEDO * shade * mask, mask, pix_to_face, overflow
@@ -181,7 +214,9 @@ class Renderer(nn.Module):
             face_verts, face_normals, self.image_size,
             capacity=self.bin_capacity,
             compact=self.raster_compact or None,
+            bin_approx=self.bin_approx,
             return_overflow=True,
+            bin_miss_check=self.bin_miss_check_fused,
         )
         mask = (pix_to_face >= 0)[..., None].to(normal_img.dtype)
         shade = shading.directional_shading(normal_img)

@@ -19,6 +19,12 @@ Shapes are static: export one artifact per serving batch size and let
 convolutions read the process's global TF32 flags, so the pin is what keeps
 a served artifact fp32.
 
+The binning mode (`rasterizer.set_bin_mode`) and the fold mode
+(`rasterizer.set_fold_mode`) are process globals that the Python code
+reads at each call; an artifact holds the ops of the mode set when it was
+exported, as the JAX package's holds the mode set when it was traced, and
+a later `set_bin_mode` does not reach it.
+
 Differences from the JAX package, by design:
   * the weights live in the system, so the export functions take the
     system alone (no encoder / generator variables) and export on the
@@ -53,7 +59,8 @@ OUTPUT_KEYS = (
     "pose_params", "cam", "shape_params", "expression_params",
     "eyelid_params", "jaw_params", "vertices", "landmarks_fan",
     "landmarks_mp", "rendered_img", "rendered_mask",
-    # (B,) int32: compact-raster chunks dropped past the budget; 0 = exact
+    # (B,) int32: compact-raster chunks dropped past the budget, plus the
+    # binning's selection misses where the check is armed; 0 = exact
     "raster_overflow",
 )
 RECONSTRUCT_OUTPUTS = OUTPUT_KEYS + ("masked_img", "reconstructed_img")

@@ -300,9 +300,13 @@ def test_rasterize_arguments_after_capacity_are_keyword_only():
     assert vals.shape == (1, 32, 32, 3) and int(ovf[0]) == 0
 
 
-def test_bin_faces_dispatch():
-    """bin_faces is the exact flat binning: no misses; the approximate,
-    hierarchical and sorted modes raise."""
+def test_bin_faces_dispatch(monkeypatch):
+    """bin_faces dispatches on set_bin_mode's mode as the JAX package's
+    does: flat by default and under an approximate recall target, sorted
+    in the sorted mode, hier in the hier mode where F > 2 x
+    COARSE_CAPACITY and the image has more than one band of tiles, and
+    flat for a small F in the hier mode (test_rasterizer.py:678). Every
+    mode gives the flat bins and counts and no misses here."""
     fv = T(random_mesh(1, 60))
     bins, counts, misses = TR.bin_faces(fv, 64, 64, with_misses=True)
     b2, c2 = TR.bin_faces_flat(fv, 64, 64)
@@ -312,9 +316,31 @@ def test_bin_faces_dispatch():
     np.testing.assert_array_equal(bins.numpy(), np.asarray(bj))
     np.testing.assert_array_equal(counts.numpy(), np.asarray(cj))
     assert np.asarray(mj).tolist() == [0, 0]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TR.bin_faces(fv, 64, 64, approx=0.95)
-    for mode in ((True, None, False), (False, 0.95, False), (False, None, True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    big = T(random_mesh(2, 2 * TR.COARSE_CAPACITY + 8, B=1) * [0.3, 0.3, 1.0])
+    calls = []
+    for name in ("bin_faces_flat", "bin_faces_hier", "bin_faces_sorted"):
+        def spy(*a, _real=getattr(TR, name), _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+        monkeypatch.setattr(TR, name, spy)
+    try:
+        for mode, fv_, size, want in (
+                ((False, None, False), fv, 64, "bin_faces_flat"),
+                ((False, 0.95, False), fv, 64, "bin_faces_flat"),
+                ((False, None, True), fv, 64, "bin_faces_sorted"),
+                ((True, None, False), fv, 64, "bin_faces_flat"),  # F <= 2 x 1024
+                ((True, None, False), big, 32, "bin_faces_flat"),  # one band
+                ((True, None, False), big, 64, "bin_faces_hier"),
+                ((True, 0.95, True), big, 64, "bin_faces_sorted")):
             TR.set_bin_mode(*mode)
-    TR.set_bin_mode(False)
+            calls.clear()
+            got = TR.bin_faces(fv_, size, 64, with_misses=True)
+            assert calls[0] == want, (mode, size, calls)
+            TR.set_bin_mode(False)
+            want_b, want_c = TR.bin_faces_flat(fv_, size, 64)
+            assert torch.equal(got[0], want_b) and torch.equal(got[1], want_c), mode
+            assert got[2].tolist() == [0] * fv_.shape[0], mode
+        got = TR.bin_faces(fv, 64, 64, approx=0.95)
+        assert torch.equal(got[0], b2) and torch.equal(got[1], c2)
+    finally:
+        TR.set_bin_mode(False)
