@@ -145,9 +145,8 @@ Phases (any failure exits non-zero):
     before them leave;
  5f. the training CLI (`smirk_tpu_torch.cli.train.main`, in this process)
     at full width with --synthetic: the recipe's values as dotted overrides
-    (no YAML file: the card's machine has no PyYAML), b32, one epoch of 4
-    steps, a checkpoint every 2 steps, 8 loader workers, no image panels
-    (no PIL there), the port's `assets.load_all` patched to the recentred
+    (no YAML file), b32, one epoch of 4 steps, a checkpoint every 2 steps,
+    8 loader workers, no image panels, the port's `assets.load_all` patched to the recentred
     procedural head: the loader alone (images/s, the card idle), then the
     CLI: every metrics.jsonl record finite, last_state.pt and model_0.pt
     written, every step launched K1, K3 and K4's fold and neither K5 nor
@@ -244,6 +243,40 @@ Phases (any failure exits non-zero):
     each binning function at b64, each fold mode, and `infer` with the
     miss check armed and disarmed, alternating; the modes restored
     however the phase ends;
+ 5o. the reference's shape, batch 1 (after 5n): (a) `Predictor.__call__`
+    on 20 seeded 480x640 frames through the landmark crop (the main path's
+    landmarks_mp mapped into each frame as in 5e), one frame a call on the
+    card: every output finite, no overflow, K1 launched once a call, each
+    frame against its row of b8 calls on the same frames (parameters,
+    vertices and landmarks within 1e-4; pix_to_face on >= 99.5 % of each
+    frame's pixels; the render within 1e-4 where pix_to_face agrees, each
+    pixel past it printed with its face's area before the phase fails;
+    the row's vertices rendered alone bitwise equal to the row's render,
+    so the render does not depend on the batch), the p50 /
+    p90 ms a frame (host preparation, the crop and the copy back included)
+    and every call's; (b) `cli.demo.main` on one seeded PNG with its landmark
+    .npy, --crop, without and with --use_smirk_generator --render_orig, no
+    --device: the panel written in the JAX CLI's shape ((224, 448, 3) and
+    (480, 1920, 3)), finite, K1 launched once; (c) `cli.demo_video.main` on
+    16 seeded frames with a landmark track, --crop, at --batch 1 and 8,
+    without and with the generator, no --device: 16 panels written each
+    time, K1 once a chunk, each frame's outputs at --batch 1 against
+    --batch 8 under (a)'s rule, each run's ms a frame by the demo's own
+    clock and by the whole run's. PIL, which reads and writes the demos'
+    files, must be installed (a gate);
+ 5p. the pretrain recipe: `cli.train.main` on configs/config_pretrain.yaml
+    --synthetic at b32, 4 steps, 8 loader workers, in this process, with
+    SMIRK_MICA at a seeded full-depth mica.tar (5k's writer) and the port's
+    `assets.load_all` patched to the recentred head: every metrics.jsonl
+    record finite, landmark_loss_fan, landmark_loss_mp and mica_loss
+    nonzero at every step, no generator, no loss_second_path and no cycle
+    metric, no raster overflow, K1 once a step and neither K3 nor K4's fold,
+    all three sub-encoders moved between the first and the last step; one
+    b32 `_loss1` and its gradient: K1's render reaches no gradient (the
+    landmarks do) and no warning comes from K1's op or the port; then
+    `SmirkSystem.train_step` under the recipe at lr 0, the median of 5
+    after 2 warm steps on the host clock (each ended by a synchronize),
+    every run printed beside [6]'s fp32 p0 step;
  6. timings, warm, each beside the card's name and power limit: with CUDA
     events around back-to-back calls each kernel, its plain version, its
     library yardstick where
@@ -268,9 +301,9 @@ Phases (any failure exits non-zero):
     a call that cannot be captured fails the run);
  7. a `kernels` JSON line (13 rows: K1, K1b, K2, K3, K3b, K4, K5, K6, K7, K8,
     K9, K10, K11; K2's row "folded into K1/K3 staging" with 0 launches;
-    K1's launches those of the main path, of the reconstruct call and of
-    the served calls of 5i, its `direct_ms` the launch without the custom
-    op's dispatch;
+    K1's launches those of the main path, of the reconstruct call, of
+    the served calls of 5i, of 5j's and 5k's steps and of 5o's and 5p's
+    calls, its `direct_ms` the launch without the custom op's dispatch;
     each row's `device_ms` beside its `ms`),
     with the rasters' bounds counted from this run's inputs as the work
     their function needs (the face-pixel pairs in the faces' boxes, the
@@ -727,10 +760,7 @@ def reconstruct_phase(bundle, encoder_state, out, B, S, card):
     # scale that makes the 1.4 x bbox crop CROP_OVER_S x 224 px: the crop is
     # a downscale and the hull covers the rendered face
     frames = np.random.default_rng(5).integers(0, 256, (B, FH, FW, 3), dtype=np.uint8)
-    lmk_ndc = out["landmarks_mp"][..., :2]
-    bbox = np.ptp(lmk_ndc, axis=1).mean() * S / 2  # mean side in the render's pixels
-    lmk_scale = CROP_OVER_S * S / (1.4 * bbox)
-    lmks = lmk_ndc * (S / 2 * lmk_scale) + np.float32([FW / 2, FH / 2])
+    lmks, lmk_scale = frame_landmarks(out["landmarks_mp"][..., :2], S)
     tforms, kpts = T.crop_tforms(lmks, S)
     crop_side = (S - 1) / np.hypot(tforms[:, 0, 0], tforms[:, 0, 1])
     log(f"    {lmks.shape[1]} landmarks a frame, the render's at x{lmk_scale:.3f}; crop "
@@ -885,12 +915,11 @@ def reconstruct_phase(bundle, encoder_state, out, B, S, card):
 
 def train_cli_phase(bundle, images, S, train_ms, card):
     """Phase 5f: `smirk_tpu_torch.cli.train.main` in this process at full
-    width (the recipe's values as dotted overrides, no YAML: the card's
-    machine has no PyYAML), --synthetic, b32, 4 steps, 8 loader workers (a
+    width (the recipe's values as dotted overrides, no YAML file),
+    --synthetic, b32, 4 steps, 8 loader workers (a
     loader starts no more workers than its epoch has batches), the port's
     `assets.load_all` patched to the recentred procedural head, and one
-    direct `make_visualizations` (the machine has no PIL to write the
-    grid) -> {"loader_images_s", "cli_steps_s", "launches"} (K1, K3 and
+    direct `make_visualizations` (its grid, not written to a file) -> {"loader_images_s", "cli_steps_s", "launches"} (K1, K3 and
     K4's fold summed over the steps)."""
     import os
     import shutil
@@ -1817,7 +1846,6 @@ def teachers_phase(bundle, train_ms, card):
     from smirk_tpu_torch.masking import masking as masking_lib
     from smirk_tpu_torch.models import teachers
     from smirk_tpu_torch.models.emoca_resnet import EmocaResNet50, emotion_embedding_distance
-    from smirk_tpu_torch.models.mica import Mica
     from smirk_tpu_torch.models.vgg import VGG16_BLOCK_CONVS, perceptual_loss
     from smirk_tpu_torch.train.trainer import SmirkSystem
 
@@ -1842,12 +1870,8 @@ def teachers_phase(bundle, train_ms, card):
             vgg_sd[f"features.{idx}.bias"] = torch.randn((ch,), generator=gen) * 0.05
             in_ch = ch
         emo = {f"backbone.{k}": v for k, v in _he_state_dict(EmocaResNet50(), gen).items()}
-        mica = _he_state_dict(Mica(), gen)
         files = {"vgg16.pth": vgg_sd, "emotion.ckpt": {"state_dict": emo},
-                 "mica.tar": {"arcface": {k[8:]: v for k, v in mica.items()
-                                          if k.startswith("arcface.")},
-                              "flameModel": {k: v for k, v in mica.items()
-                                             if k.startswith("regressor.")}}}
+                 "mica.tar": _mica_tar(gen)}
         paths = {}
         for name, obj in files.items():
             paths[name] = os.path.join(tmp, name)
@@ -2945,6 +2969,444 @@ def bin_modes_phase(bundle, system, img, face_verts, train_rows, op_rows, card) 
     return res
 
 
+# the reference's shape (phase 5o): seeded frames of FRAME_HW through the
+# landmark crop, one at a time, held against b8 calls on the same frames
+# (the parameters, vertices and landmarks within B1_ATOL; pix_to_face on
+# B1_AGREE of each frame's pixels, the render within B1_ATOL where it
+# agrees); the video demo's frames
+B1_FRAMES, B1_REF_B, B1_ATOL, B1_AGREE = 20, 8, 1e-4, 0.995
+VIDEO_FRAMES = 16
+B1_KEYS = ("pose_params", "cam", "shape_params", "expression_params", "eyelid_params",
+           "jaw_params", "vertices", "landmarks_fan", "landmarks_mp")
+# the pretrain recipe (phase 5p): CLI steps at TRAIN_B, then the step timed
+# at lr 0: warm steps, then timed ones (their median)
+PRETRAIN_RECIPE = "configs/config_pretrain.yaml"
+PRETRAIN_WARM, PRETRAIN_TIMED = 2, 5
+
+
+def frame_landmarks(lmk_ndc, S):
+    """Landmarks (B,K,2) in NDC of the render -> (the same points in a
+    FRAME_HW frame about its centre, at the scale that makes the 1.4 x
+    bbox crop CROP_OVER_S x S px, so that the crop is a downscale and the
+    hull covers the rendered face; that scale)."""
+    import numpy as np
+
+    FH, FW = FRAME_HW
+    bbox = np.ptp(lmk_ndc, axis=1).mean() * S / 2  # mean side in the render's pixels
+    scale = CROP_OVER_S * S / (1.4 * bbox)
+    return lmk_ndc * (S / 2 * scale) + np.float32([FW / 2, FH / 2]), scale
+
+
+def batch1_rule(one, ref, renderer, what):
+    """One frame's outputs (each (1, ...)) against its row of a batched
+    call, all gates: B1_KEYS within B1_ATOL, pix_to_face on >= B1_AGREE
+    of the pixels, and the render within B1_ATOL where pix_to_face agrees
+    (each pixel past it printed first, with the winning face's area in
+    pixels); and the row's own vertices and cam rendered alone at b1
+    (`renderer`) bitwise equal to the row's render and pix_to_face (the
+    render does not depend on the batch, so what differs comes from the
+    encoder). -> (worst |diff| of B1_KEYS, the pixels' agreement, the
+    render's worst |diff| where it agrees)."""
+    import numpy as np
+    import torch
+
+    from smirk_tpu_torch.device import fp32_math
+
+    err = max(float(np.abs(one[k] - ref[k]).max()) for k in B1_KEYS)
+    agree = one["pix_to_face"] == ref["pix_to_face"]
+    share = float(agree.mean())
+    diff = np.where(agree[..., None], np.abs(one["rendered_img"] - ref["rendered_img"]),
+                    0).max(-1)
+    r_err, past = float(diff.max()), int((diff > B1_ATOL).sum())
+    check(err <= B1_ATOL and share >= B1_AGREE,
+          f"{what}: parameters, vertices, landmarks within {err:.2e} <= {B1_ATOL:g}; "
+          f"pix_to_face agrees on {share:.5f} >= {B1_AGREE}")
+    dev, S = renderer.faces.device, renderer.image_size
+    with fp32_math(), torch.inference_mode():
+        v, cam = (torch.as_tensor(ref[k], device=dev) for k in ("vertices", "cam"))
+        alone = {k: t.cpu().numpy() for k, t in renderer(v, cam, inference=True).items()}
+        fv = renderer._face_geometry(v, renderer.project(v, cam))[0][0].cpu().numpy()
+    check(all(np.array_equal(alone[k], ref[k]) for k in ("rendered_img", "pix_to_face")),
+          f"{what}: the row's vertices rendered alone == the row's render (bitwise)")
+    if past:
+        worst5 = np.argsort(diff, axis=None)[::-1][:5]  # the worst pixels' faces
+        areas = []
+        for _, y, x in zip(*np.unravel_index(worst5[diff.flat[worst5] > B1_ATOL], diff.shape)):
+            tri = fv[int(one["pix_to_face"][0, y, x]), :, :2] * (S / 2)
+            e1, e2 = tri[1] - tri[0], tri[2] - tri[0]
+            areas.append(0.5 * abs(float(e1[0] * e2[1] - e1[1] * e2[0])))
+        log(f"    {what}: {past} pixel(s) where pix_to_face agrees differ by more than "
+            f"{B1_ATOL:g} (worst {r_err:.4e}); the winning faces' areas at the worst "
+            f"{len(areas)}: {[round(a, 4) for a in areas]} px^2; the vertices differ by "
+            f"{float(np.abs(one['vertices'] - ref['vertices']).max()):.2e}")
+    check(r_err <= B1_ATOL,
+          f"{what}: the render within {r_err:.2e} <= {B1_ATOL:g} where pix_to_face agrees")
+    return err, share, r_err
+
+
+def batch1_phase(pred, bundle, lmk_ndc, card) -> dict:
+    """Phase 5o, the reference's shape: batch 1, one frame at a time. (a)
+    `Predictor.__call__` on B1_FRAMES seeded FRAME_HW frames through the
+    landmark crop, one call each on the card, K1 once a call, each frame
+    against its row of b8 calls, p50 / p90 ms a frame (host preparation
+    and the copy back included); (b) `cli.demo.main` on one seeded PNG
+    with its landmarks, --crop, with and without --use_smirk_generator
+    --render_orig; (c) `cli.demo_video.main` on VIDEO_FRAMES seeded frames
+    with a landmark track, --crop, at --batch 1 and 8, with and without
+    the generator. Neither demo is given --device. lmk_ndc: the main
+    path's landmarks_mp, mapped into the frames -> ({field: value},
+    launches)."""
+    import contextlib
+    import importlib.util
+    import io
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from smirk_tpu_torch import assets
+    from smirk_tpu_torch.render import rasterizer as R
+    from smirk_tpu_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    S = pred.image_size
+    FH, FW = FRAME_HW
+    log(f"[5o] the reference's shape: Predictor.__call__ at b1 on {B1_FRAMES} {FH}x{FW} "
+        f"frames through the landmark crop, cli.demo, cli.demo_video at --batch 1 and "
+        f"{B1_REF_B} {card}")
+    res, launches = {}, {}
+    n = max(B1_FRAMES, VIDEO_FRAMES)
+    frames = np.random.default_rng(16).integers(0, 256, (n, FH, FW, 3), dtype=np.uint8)
+    lmks, _ = frame_landmarks(lmk_ndc[:n], S)
+
+    # (a) one frame a call; the first call (b1's cuDNN plans) is not timed
+    pred(frames[0], lmks[0])
+    torch.cuda.synchronize()
+    ones, ms, per_call = [], [], []
+    for i in range(B1_FRAMES):
+        R.reset_launch_counts()
+        t = time.perf_counter()
+        ones.append(pred(frames[i], lmks[i]))
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_call.append(R.raster_fused_windows.launches)
+        launches["raster_fused_windows"] = (launches.get("raster_fused_windows", 0)
+                                            + per_call[-1])
+    check(per_call == [1] * B1_FRAMES, f"K1 launched once a b1 call ({per_call})")
+    for o in ones:
+        check(o["rendered_img"].shape == (1, S, S, 3) and all(
+            np.isfinite(v).all() for v in o.values()), "a b1 call: (1, S, S, 3), finite")
+        check(int(o["raster_overflow"].max()) == 0, "a b1 call: no raster overflow")
+    rows = {}
+    for c0 in sorted({*range(0, B1_FRAMES - B1_REF_B + 1, B1_REF_B), B1_FRAMES - B1_REF_B}):
+        ref = pred(frames[c0:c0 + B1_REF_B], lmks[c0:c0 + B1_REF_B])
+        rows.update((c0 + j, {k: v[j:j + 1] for k, v in ref.items()})
+                    for j in range(B1_REF_B))
+    rule = [batch1_rule(ones[i], rows[i], pred.system.renderer,
+                        f"frame {i} at b1 against its row of a b{B1_REF_B} call")
+            for i in range(B1_FRAMES)]
+    res.update(b1_worst_param_err=max(r[0] for r in rule), b1_min_agree=min(r[1] for r in rule),
+               b1_worst_render_err=max(r[2] for r in rule))
+    q = np.percentile(ms, [50, 90])
+    res["predictor_b1_p50_ms"], res["predictor_b1_p90_ms"] = float(q[0]), float(q[1])
+    log(f"    Predictor.__call__ at b1 (host preparation, the crop and the copy back "
+        f"included): p50 {q[0]:.3f} ms, p90 {q[1]:.3f} ms a frame over {B1_FRAMES} calls "
+        f"(min {min(ms):.3f}, max {max(ms):.3f}, spread {spread(sorted(ms)):.1f} %); every "
+        f"call {json.dumps([round(x, 3) for x in ms])} {card}")
+
+    check(importlib.util.find_spec("PIL") is not None,
+          "PIL is installed (the demos read and write their image files with it)")
+    from smirk_tpu_torch.cli import demo, demo_video
+    from smirk_tpu_torch.utils.viz import save_image
+
+    def save_frame(frame, path):  # uint8 -> the same uint8 in the file
+        save_image((frame + 0.5) / 255.0, path)
+
+    def read_image(out_dir):  # the one image file the run wrote there
+        return next(demo_video.iter_frames(out_dir))
+
+    tmp = tempfile.mkdtemp(prefix="smirk_demo_")
+    load_all, panel, infer = assets.load_all, demo.panel, trainer.SmirkSystem.infer
+    assets.load_all = lambda *a, **kw: bundle
+    try:
+        # (b) the image demo, no --device: the card
+        img_path, lmk_path = os.path.join(tmp, "face.png"), os.path.join(tmp, "face.npy")
+        save_frame(frames[0], img_path)
+        np.save(lmk_path, lmks[0])
+        grids = []
+
+        def kept_panel(*a, **kw):
+            grids.append(panel(*a, **kw))
+            return grids[-1]
+
+        demo.panel = kept_panel
+        for flags, shape in (([], (S, 2 * S, 3)),
+                             (["--use_smirk_generator", "--render_orig"], (FH, 3 * FW, 3))):
+            out_dir = os.path.join(tmp, "demo_" + str(len(flags)))
+            R.reset_launch_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                demo.main(["--input_path", img_path, "--landmarks", lmk_path, "--crop",
+                           "--out_path", out_dir, *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            k1 = R.raster_fused_windows.launches
+            launches["raster_fused_windows"] += k1
+            written = read_image(out_dir)
+            what = ("cli.demo --crop " + " ".join(flags)).rstrip()
+            check(grids[-1].shape == written.shape == shape and np.isfinite(grids[-1]).all(),
+                  f"{what}: the panel {written.shape} written, the JAX CLI's {shape}, finite")
+            check(k1 == 1, f"{what}: K1 launched ({k1})")
+            res[f"demo_{'generator' if flags else 'plain'}_s"] = wall
+        demo.panel = panel
+
+        # (c) the video demo on a directory of frames with a landmark track
+        frame_dir = os.path.join(tmp, "frames")
+        os.makedirs(frame_dir)
+        for i in range(VIDEO_FRAMES):
+            save_frame(frames[i], os.path.join(frame_dir, f"{i:03d}.png"))
+        track = os.path.join(tmp, "track.npy")
+        np.save(track, lmks[:VIDEO_FRAMES])
+        seen = {}
+
+        def kept_infer(self, img):
+            out = infer(self, img)
+            seen[run].append({k: v.cpu().numpy() for k, v in out.items()})
+            return out
+
+        trainer.SmirkSystem.infer = kept_infer
+        for gen_flag in ([], ["--use_smirk_generator"]):
+            for batch in (1, B1_REF_B):
+                run = (batch, bool(gen_flag))
+                seen[run] = []
+                out_dir = os.path.join(tmp, f"video_{batch}_{len(gen_flag)}")
+                R.reset_launch_counts()
+                buf = io.StringIO()
+                t = time.perf_counter()
+                with contextlib.redirect_stdout(buf):
+                    demo_video.main(["--input_path", frame_dir, "--landmarks", track, "--crop",
+                                     "--batch", str(batch), "--out_path", out_dir, *gen_flag])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+                k1 = R.raster_fused_windows.launches
+                launches["raster_fused_windows"] += k1
+                chunks = -(-VIDEO_FRAMES // batch)
+                what = f"cli.demo_video --crop --batch {batch} {' '.join(gen_flag)}".rstrip()
+                names = sorted(f for f in os.listdir(out_dir) if f.startswith("frame_"))
+                cols = 3 if gen_flag else 2
+                shape = read_image(out_dir).shape
+                check(len(names) == VIDEO_FRAMES and shape == (S, cols * S, 3),
+                      f"{what}: {len(names)} frames written, {shape}")
+                check(k1 == chunks and len(seen[run]) == chunks,
+                      f"{what}: K1 launched once a chunk ({k1} for {chunks})")
+                fps = [ln for ln in buf.getvalue().splitlines() if ln.startswith("device fps:")]
+                dev_fps = float(fps[0].split()[2]) if fps else float("nan")
+                key = f"video_b{batch}{'_generator' if gen_flag else ''}"
+                res[f"{key}_ms_per_frame"] = 1e3 / dev_fps
+                res[f"{key}_wall_ms_per_frame"] = wall * 1e3 / VIDEO_FRAMES
+                log(f"    {what}: {1e3 / dev_fps:.3f} ms a frame (the demo's own clock: "
+                    f"prepare + infer{' + generator' if gen_flag else ''} + synchronize, the "
+                    f"first chunk left out); the whole run {wall * 1e3 / VIDEO_FRAMES:.3f} ms a "
+                    f"frame (system build, file IO and the video's assembly included) {card}")
+        b1 = {k: np.concatenate([o[k] for o in seen[(1, False)]]) for k in seen[(1, False)][0]}
+        b8 = {k: np.concatenate([o[k] for o in seen[(B1_REF_B, False)]])
+              for k in seen[(B1_REF_B, False)][0]}
+        rule = [batch1_rule({k: v[i:i + 1] for k, v in b1.items()},
+                            {k: v[i:i + 1] for k, v in b8.items()}, pred.system.renderer,
+                            f"cli.demo_video frame {i}: --batch 1 against --batch {B1_REF_B}")
+                for i in range(VIDEO_FRAMES)]
+        res["video_worst_render_err"] = max(r[2] for r in rule)
+    finally:
+        assets.load_all, demo.panel, trainer.SmirkSystem.infer = load_all, panel, infer
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"    [5o] took {res['phase_s']:.1f} s")
+    return res, launches
+
+
+def _mica_tar(generator):
+    """A seeded mica.tar object in the reference layout: {'arcface': ...,
+    'flameModel': {'regressor.*'}} at full depth (`_he_state_dict`)."""
+    from smirk_tpu_torch.models.mica import Mica
+
+    mica = _he_state_dict(Mica(), generator)
+    return {"arcface": {k[8:]: v for k, v in mica.items() if k.startswith("arcface.")},
+            "flameModel": {k: v for k, v in mica.items() if k.startswith("regressor.")}}
+
+
+class _RenderKept:
+    """The system's renderer, every call's outputs kept in `seen`."""
+
+    def __init__(self, renderer, seen):
+        self.renderer, self.seen = renderer, seen
+
+    def __call__(self, *a, **kw):
+        out = self.renderer(*a, **kw)
+        self.seen.append(out)
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.renderer, name)
+
+
+def pretrain_phase(bundle, train_ms, card) -> dict:
+    """Phase 5p, the pretrain recipe: `cli.train.main` on
+    configs/config_pretrain.yaml --synthetic at TRAIN_B for CLI_STEPS steps
+    in this process, SMIRK_MICA at a seeded full-depth mica.tar: every
+    metric finite, the landmark and MICA losses nonzero, no generator and no
+    cycle metric, no raster overflow, K1 once a step and K3 never, all three
+    sub-encoders moved; one `_loss1` whose render (K1) does not reach the
+    total and raises no warning from the op; then `SmirkSystem.train_step`
+    under the recipe at lr 0, timed -> ({field: value}, launches)."""
+    import os
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from smirk_tpu_torch import assets, bench, kernels
+    from smirk_tpu_torch.cli import train as train_cli
+    from smirk_tpu_torch.config import load_config
+    from smirk_tpu_torch.device import fp32_math
+    from smirk_tpu_torch.models import teachers
+    from smirk_tpu_torch.render import rasterizer as R
+    from smirk_tpu_torch.train.trainer import SUB_ENCODERS, SmirkSystem
+
+    t_phase = time.perf_counter()
+    recipe = os.path.join(os.path.dirname(os.path.abspath(__file__)), PRETRAIN_RECIPE)
+    log(f"[5p] the pretrain recipe: cli.train {PRETRAIN_RECIPE} --synthetic at b{TRAIN_B}, "
+        f"{CLI_STEPS} steps, MICA at full depth from a seeded file; then its train_step "
+        f"timed at lr 0 {card}")
+    res, launches = {}, {}
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="pretrain_", dir=kernels.BUILD_DIR)
+    mica_path = os.path.join(tmp, "mica.tar")
+    torch.save(_mica_tar(torch.Generator().manual_seed(0)), mica_path)
+    logdir = os.path.join(tmp, "run")
+    overrides = [f"train.batch_size={TRAIN_B}", "train.num_epochs=1",
+                 f"train.num_workers={CLI_WORKERS}",
+                 "train.visualize_every=0", "train.log_losses_every=1",
+                 f"train.log_path={logdir}"]
+    steps, state = [], {}
+    step_fn, load_all = SmirkSystem.train_step, assets.load_all
+    saved_env = {k: os.environ.get(k) for k in ("SMIRK_MICA", "SMIRK_SYNTH_LEN")}
+
+    def counted_step(self, *a, **kw):
+        if not steps:
+            state["system"] = self
+            state["first"] = {n: p.detach().clone() for n, p in self.encoder.named_parameters()}
+        R.reset_launch_counts()
+        out = step_fn(self, *a, **kw)
+        torch.cuda.synchronize()
+        steps.append({k.__name__: k.launches for k in R.KERNELS})
+        return out
+
+    SmirkSystem.train_step = counted_step
+    assets.load_all = lambda *a, **kw: bundle
+    os.environ["SMIRK_MICA"] = mica_path
+    os.environ["SMIRK_SYNTH_LEN"] = str(CLI_STEPS * TRAIN_B)  # the epoch: CLI_STEPS steps
+    try:
+        t = time.perf_counter()
+        train_cli.main([recipe, "--synthetic", *overrides])
+        res["cli_s"] = time.perf_counter() - t
+        SmirkSystem.train_step = step_fn
+        system = state["system"]
+        with open(os.path.join(logdir, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        train_recs = [r for r in recs if r["phase"] == "train"]
+        check(len(train_recs) == CLI_STEPS == len(steps), f"{CLI_STEPS} pretrain steps logged")
+        check(all(math.isfinite(v) for r in recs for v in r.values() if isinstance(v, float)),
+              f"every metrics.jsonl record finite ({len(recs)} records)")
+        check(all(r[k] > 0 for r in train_recs for k in (
+            "landmark_loss_fan", "landmark_loss_mp", "mica_loss")),
+            "landmark_loss_fan, landmark_loss_mp and mica_loss nonzero at every step ("
+            + ", ".join(f"{k} {train_recs[-1][k]:.5g}" for k in (
+                "landmark_loss_fan", "landmark_loss_mp", "mica_loss")) + " at the last)")
+        check(system.generator is None and system.mica is not None
+              and not any(k in r for r in train_recs for k in (
+                  "loss_second_path", "cycle_loss", "raster_overflow_2nd")),
+              "no generator, no loss_second_path and no cycle metric; the MICA teacher loaded")
+        check(all(r["raster_overflow"] == 0 for r in train_recs), "raster_overflow == 0")
+        check(all(st["raster_fused_windows"] == 1 and st["raster_planes_windows"] == 0
+                  and st["segment_moments_to_faces"] == 0 for st in steps),
+              f"K1 once a step, and neither K3 nor K4's fold ({steps[0]})")
+        launches = {k: sum(st[k] for st in steps) for k in steps[0]}
+        last = dict(system.encoder.named_parameters())
+        moved = {sub: max(float((last[n].detach() - p).abs().max())
+                          for n, p in state["first"].items() if n.startswith(sub))
+                 for sub in SUB_ENCODERS}
+        check(all(v > 0 for v in moved.values()),
+              f"all three sub-encoders moved between the first and the last step "
+              f"(max |change| {json.dumps({k: float(f'{v:.3g}') for k, v in moved.items()})})")
+        t_steps = [r["t"] for r in train_recs]
+        res["cli_steps_s"] = (len(t_steps) - 1) / max(t_steps[-1] - t_steps[0], 1e-9)
+
+        # the render under a requires-grad encoder: K1, no grad to the image
+        batch = system._batch(bench.train_batch(TRAIN_B, system.config.image_size, 0))
+        seen = []
+        system.renderer = _RenderKept(system.renderer, seen)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                with fp32_math():
+                    total, _ = _counted(launches, lambda: system._loss1(batch, True))
+                    system._grads(total, system.enc_params)
+                torch.cuda.synchronize()
+        finally:
+            system.renderer = system.renderer.renderer
+            system._eval_mode()
+        rend = seen[0]
+        check(total.requires_grad and rend["landmarks_fan"].requires_grad
+              and not rend["rendered_img"].requires_grad
+              and rend["rendered_img"].grad_fn is None,
+              "the total reaches the landmarks and not rendered_img (K1's outputs carry no "
+              "graph)")
+        ours = [str(w.message) for w in caught if any(s in str(w.message) + w.filename for s in (
+            "autograd", "raster_fused", "smirk_tpu_torch"))]
+        check(not ours, f"no warning from K1's op or the port in the step ({ours}; "
+              f"{len(caught)} warnings in all)")
+
+        # the step at lr 0 on the recipe's config: host clock, synchronized
+        config = load_config(recipe, tuple(overrides) + ("train.lr=0",))
+        timed = SmirkSystem(config, bundle,
+                            mica_variables=teachers.load_mica_teacher(mica_path, None))
+        tb = bench.train_batch(TRAIN_B, config.image_size, 0)
+        gen = torch.Generator(device=timed.device).manual_seed(0)
+        ms = []
+        for i in range(PRETRAIN_WARM + PRETRAIN_TIMED):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m, _ = _counted(launches, lambda: timed.train_step(tb, i, gen))
+            ms.append((time.perf_counter() - t) * 1e3)
+        ms = sorted(ms[PRETRAIN_WARM:])
+        check(math.isfinite(m["loss_first_path"]) and m["raster_overflow"] == 0,
+              "the timed steps: finite, no raster overflow")
+        res["pretrain_step_ms"] = statistics.median(ms)
+        res["pretrain_step_spread_pct"] = spread(ms)
+        log(f"    pretrain train_step at b{TRAIN_B}, lr 0: median {res['pretrain_step_ms']:.3f} "
+            f"ms of {PRETRAIN_TIMED} after {PRETRAIN_WARM} warm (host clock, each ended by a "
+            f"synchronize; every run {json.dumps([round(x, 3) for x in ms])}, spread "
+            f"{res['pretrain_step_spread_pct']:.1f} %) against [6]'s fp32 p0 step "
+            f"{train_ms[0]:.3f} ms; the CLI {res['cli_steps_s']:.3f} steps/s, its run "
+            f"{res['cli_s']:.1f} s {card}")
+        del timed, system, state
+        torch.cuda.empty_cache()
+    finally:
+        SmirkSystem.train_step = step_fn
+        assets.load_all = load_all
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["phase_s"] = time.perf_counter() - t_phase
+    log(f"    [5p] took {res['phase_s']:.1f} s")
+    return res, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -3966,6 +4428,12 @@ def main(argv=None) -> int:
                                  (slots3, g_t, bins_t, k4_scale), (k7, b5op), card)
     log("    " + json.dumps(modes_info))
 
+    # ---------------- 5o-5p. batch 1 and the demos, the pretrain recipe ----------------
+    b1_info, b1_launches = batch1_phase(pred, bundle, out["landmarks_mp"][..., :2], card)
+    log("    " + json.dumps(b1_info))
+    pre_info, pre_launches = pretrain_phase(bundle, train_ms, card)
+    log("    " + json.dumps(pre_info))
+
     # ---------------- 7. kernels line ----------------
     win_c = int(kept.sum())
     win_p = int(kept_p.sum())
@@ -4053,7 +4521,8 @@ def main(argv=None) -> int:
          "replaces": "smirk_tpu/render/rasterizer.py:1331",
          "launches": launches["raster_fused_windows"] + rec_launches["raster_fused_windows"]
          + serve_info["launches"] + prec_launches.get("raster_fused_windows", 0)
-         + teach_launches.get("raster_fused_windows", 0),
+         + teach_launches.get("raster_fused_windows", 0)
+         + b1_launches["raster_fused_windows"] + pre_launches["raster_fused_windows"],
          "max_abs_err": k1_err,
          "ms": res["k1_ms"], "device_ms": dev_ms["k1_ms"],
          "direct_ms": res["k1_direct_ms"], "plain_ms": res["k1_plain_ms"],

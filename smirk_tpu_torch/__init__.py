@@ -17,10 +17,19 @@ Layout:
                         in exact fp32: device.fp32_math)
   data/                 the landmark crop (batched warp) and hull mask;
                         the training samples, datasets and loader
-  utils/                weight conversion, checkpoints, the metric log,
-                        profiling, visualisation, MJPEG-AVI IO
-  cli/                  the training CLI, the image and video demos, the
+  native/               the loader's host ops (warps, CLAHE, hull fill):
+                        fastops.cpp, built with g++ at first use
+  parallel/             data-parallel training over torch.distributed;
+                        dryrun, its CPU rehearsal
+  ops/                  the kernel-level op namespace (the rasterizers,
+                        geometry, masking, FLAME math, shading)
+  utils/                weight conversion, checkpoints (the one model
+                        reader), the metric log, profiling, visualisation,
+                        MJPEG-AVI IO
+  cli/                  the training CLI and its supervisor, the image and
+                        video demos, the serving CLIs, check_parity, the
                         mediapipe wrapper
+  examples/             predict, expression_edit, reconstruct
   api.py                Predictor (resize or landmark crop; reconstruct)
   serving.py            torch.export artifacts (inference, sharded,
                         reconstruct), load_inference, InferenceServer, the

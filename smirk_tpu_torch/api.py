@@ -2,7 +2,7 @@
 
     from smirk_tpu_torch import Predictor
 
-    pred = Predictor(checkpoint="model.pt")  # reference-layout state dict
+    pred = Predictor(checkpoint="model.pt")  # or the JAX package's .npz export
     out = pred(images)                       # (B,H,W,3) uint8 or float
     out["expression_params"], out["vertices"], out["rendered_img"], ...
     out = pred(frames, landmarks=lmk)        # scale-1.4 landmark crop
@@ -30,6 +30,7 @@ from smirk_tpu_torch.config import Config
 from smirk_tpu_torch.data import transforms as T
 from smirk_tpu_torch.device import fp32_math
 from smirk_tpu_torch.train.trainer import SmirkSystem
+from smirk_tpu_torch.utils.checkpoint import load_model, read_model
 
 __all__ = ["Predictor"]
 
@@ -102,45 +103,28 @@ def _pil_resize(q: torch.Tensor, size) -> torch.Tensor:
     return torch.cat(outs)
 
 
-def load_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(encoder, generator) state dicts of a reference-layout checkpoint, a
-    .pt/.tar torch pickle or an .npz: a joint SMIRK checkpoint holds
-    `smirk_encoder.*` and `smirk_generator.*` keys; without the first
-    prefix the whole dict is the encoder's. The generator's dict is empty
-    when the checkpoint has none."""
-    if path.endswith(".npz"):
-        with np.load(path) as z:
-            sd = {k: torch.from_numpy(z[k]) for k in z.files}
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if isinstance(sd, dict) and "state_dict" in sd:
-            sd = sd["state_dict"]
-
-    def part(prefix):
-        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-
-    enc = part("smirk_encoder.")
-    return (enc or sd), part("smirk_generator.")
+# the port's one model reader (a reference-layout .pt / .tar or flat .npz,
+# or the JAX package's .npz model export); kept under this name for callers
+load_checkpoint = read_model
 
 
 def load_weights(system: SmirkSystem, checkpoint: Optional[str],
                  use_generator: bool) -> None:
-    """Load a checkpoint's encoder and, with use_generator, its generator
-    (when it holds one) into the system's modules."""
-    if not checkpoint:
-        return
-    enc, gen = load_checkpoint(checkpoint)
-    system.encoder.load_state_dict(enc)
-    if use_generator and gen and system.generator is not None:
-        system.generator.load_state_dict(gen)
+    """Load a model file's encoder and, with use_generator, its generator
+    (when the file and the system have one) into the system's modules
+    (`utils.checkpoint.load_model`)."""
+    if checkpoint:
+        load_model(system, checkpoint, generator=use_generator)
 
 
 class Predictor:
     """Batched single-call inference over the SMIRK pipeline.
 
     Args:
-      checkpoint: reference-layout state dict (see `load_checkpoint`);
-        None = random init (layout/shape-compatible, for smoke tests).
+      checkpoint: a model file (`utils.checkpoint.read_model`: a
+        reference-layout .pt / .tar or flat .npz, or the JAX package's .npz
+        model export); None = random init (layout/shape-compatible, for
+        smoke tests).
       use_generator: also load the fuse generator's weights (needed only
         for `reconstruct`).
       device: None = the CUDA card (raises without one); "cpu" runs the

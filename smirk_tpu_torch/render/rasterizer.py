@@ -559,6 +559,30 @@ def attr_planes(face_verts: torch.Tensor, attributes: torch.Tensor) -> torch.Ten
     return torch.cat([PA, PB, PC], dim=-1)
 
 
+def normal_planes(face_verts: torch.Tensor, normals: torch.Tensor) -> torch.Tensor:
+    """`attr_planes`' planes in the form K1's records carry: the slopes
+    from the edges and normal steps out of corner 0, the constant from
+    corner 0, PC = n0 - PA*x0 - PB*y0. The same plane as `attr_planes`,
+    without its cancelling constants x_j*y_k - y_j*x_k: at a sliver face
+    their rounding, divided by the tiny area, moved the shaded render by up
+    to 1e-3 under a one-ulp change of the vertices, past the 1e-4 that
+    batch 1 is held to against a batched call; here the coefficients stay
+    within a few ulps of their float64 values. The training raster keeps
+    `attr_planes`, the JAX package's form, which its render and gradient
+    are held to. (B,F,3,3) verts + (B,F,3,D) -> (B,F,3D)."""
+    x0, y0 = face_verts[..., 0, 0], face_verts[..., 0, 1]
+    dx1, dy1 = face_verts[..., 1, 0] - x0, face_verts[..., 1, 1] - y0
+    dx2, dy2 = face_verts[..., 2, 0] - x0, face_verts[..., 2, 1] - y0
+    denom = dx1 * dy2 - dy1 * dx2
+    inv = (1.0 / torch.where(denom.abs() >= AREA_EPS, denom, 1.0))[..., None]
+    n0 = normals[..., 0, :]
+    d1, d2 = normals[..., 1, :] - n0, normals[..., 2, :] - n0
+    PA = (d1 * dy2[..., None] - d2 * dy1[..., None]) * inv
+    PB = (d2 * dx1[..., None] - d1 * dx2[..., None]) * inv
+    PC = n0 - PA * x0[..., None] - PB * y0[..., None]
+    return torch.cat([PA, PB, PC], dim=-1)
+
+
 def face_records_shaded(
     face_verts: torch.Tensor, face_normals: torch.Tensor
 ) -> torch.Tensor:
@@ -566,10 +590,10 @@ def face_records_shaded(
 
     Lanes 0-12 as face_records (lane 12 = face id, set by the caller);
     lanes 16-24 hold the affine normal planes
-    [NAx NAy NAz | NBx NBy NBz | NCx NCy NCz].
+    [NAx NAy NAz | NBx NBy NBz | NCx NCy NCz] (`normal_planes`).
     """
     base = face_records(face_verts)
-    nplane = attr_planes(face_verts, face_normals)
+    nplane = normal_planes(face_verts, face_normals)
     pad = face_verts.new_zeros(face_verts.shape[:-2] + (7,))
     return torch.cat([base, nplane, pad], dim=-1)
 

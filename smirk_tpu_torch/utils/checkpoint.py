@@ -9,11 +9,15 @@ export (port of smirk_tpu/utils/checkpoint.py).
     every entry against the system first: a missing one raises KeyError, a
     shape that differs ValueError, each naming the entry.
   * `save_model` / `load_model`: the reference state-dict layout
-    (`smirk_encoder.*`, `smirk_generator.*`) that `api.load_checkpoint` and
-    `Predictor(checkpoint=)` read. `load_model` also reads the JAX
-    package's `.npz` model export (`encoder/params/...`, `generator/...`)
-    through `utils.weights`. A generator in the file is ignored by a system
-    without one.
+    (`smirk_encoder.*`, `smirk_generator.*`). `read_model` is the port's one
+    reader of a model file (`api.load_checkpoint` is a name for it) and
+    `load_model` its one loader: `api.load_weights` (so
+    `Predictor(checkpoint=)`, the demos, `cli.export_serving` and the
+    examples) calls it. `read_model` reads a `.pt` /
+    `.tar` torch pickle (with or without a `state_dict` entry), a flat
+    reference-layout `.npz`, and the JAX package's `.npz` model export
+    (`encoder/params/...`, `generator/...`) through `utils.weights`. A
+    generator in the file is ignored by a system without one.
 
 There is one format. The JAX package writes orbax directories beside its
 `.npz` because of multi-host arrays; a directory path raises here. Its
@@ -23,7 +27,7 @@ as torch's.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -146,8 +150,20 @@ def _unflatten(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def _read_model(path: str):
-    """(encoder, generator or {}) state dicts of a model file."""
+def read_model(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(encoder, generator) state dicts of a model file; the generator's is
+    empty when the file holds none.
+
+      * a `.pt` / `.tar` torch pickle, its dict under `state_dict` or bare,
+        or a flat `.npz` of the same keys: a joint SMIRK checkpoint holds
+        `smirk_encoder.*` and `smirk_generator.*` keys; without the first
+        prefix the whole dict is the encoder's;
+      * the JAX package's `.npz` model export (`save_model`: keys under
+        `encoder/` and `generator/`), converted by `utils.weights`; a flat
+        `.npz` is taken for it only when a key starts with `encoder/`;
+      * the JAX package's full-state `.npz` (keys under `.`) and a
+        directory (its orbax layout) raise ValueError.
+    """
     _no_directory(path)
     if path.endswith(".npz"):
         with np.load(path) as z:
@@ -162,18 +178,26 @@ def _read_model(path: str):
             gen = tree.get("generator")
             return (encoder_state_dict_from_jax(tree["encoder"]),
                     generator_state_dict_from_jax(gen) if gen else {})
-    from smirk_tpu_torch.api import load_checkpoint
+        sd = {k: torch.from_numpy(v) for k, v in flat.items()}
+    else:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        if isinstance(sd, dict) and "state_dict" in sd:
+            sd = sd["state_dict"]
 
-    return load_checkpoint(path)
+    def part(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    enc = part("smirk_encoder.")
+    return (enc or sd), part("smirk_generator.")
 
 
-def load_model(system, path: str) -> None:
-    """Load a model export into `system` in place: the encoder, and the
-    generator when both the file and the system have one. Reads
-    `save_model`'s layout (any reference-layout state dict) and the JAX
-    package's `.npz` model export."""
-    enc, gen = _read_model(path)
+def load_model(system, path: str, generator: bool = True) -> None:
+    """Load a model export into `system` in place: the encoder, and, with
+    `generator`, the generator when both the file and the system have one.
+    Reads `save_model`'s layout (any reference-layout state dict) and the
+    JAX package's `.npz` model export (`read_model`)."""
+    enc, gen = read_model(path)
     system.encoder.load_state_dict(enc)
-    if gen and system.generator is not None:
+    if generator and gen and system.generator is not None:
         system.generator.load_state_dict(gen)
 

@@ -12,6 +12,7 @@ geometry 1e-4; pix_to_face on >= 99.5 % of pixels, the render within 1e-4
 where it agrees). The backbone init equals the JAX package's on the same
 state dict exactly (a copy of the same float32 values).
 """
+import functools
 import json
 import os
 
@@ -212,10 +213,22 @@ def jax_state(bundle):
         mp.undo()
 
 
-def test_jax_model_export_loads(bundle, jax_state, tmp_path):
+def test_jax_model_export_loads(bundle, jax_state, tmp_path, monkeypatch):
     """The JAX package's .npz model export (smirk_tpu.utils.checkpoint.
     save_model) loads through load_model and gives the JAX infer's
-    outputs; its full-state .npz raises with a clear message."""
+    outputs. `Predictor(checkpoint=)` and `cli.demo.build_system` read it
+    through the same reader (`read_model`) and hold load_model's encoder
+    and generator bitwise. `api.load_checkpoint` still reads the reference
+    layouts: a .pt with and without `state_dict`, an encoder-only dict and
+    a flat .npz (whose keys may hold '/'). The JAX full-state .npz and a
+    directory raise ValueError through every reader."""
+    from smirk_tpu_torch import api
+    from smirk_tpu_torch import assets as port_assets
+    from smirk_tpu_torch import config as port_config
+    from smirk_tpu_torch.cli import demo
+    from smirk_tpu_torch.models import mobilenetv3 as mnv3
+    from smirk_tpu_torch.train import trainer
+
     state, img, ref = jax_state
     path = str(tmp_path / "model_0.npz")
     jax_ckpt.save_model(state, path)
@@ -235,11 +248,54 @@ def test_jax_model_export_loads(bundle, jax_state, tmp_path):
     for k, v in system.generator.state_dict().items():
         assert torch.equal(v, gen_sd[k]), k
 
+    # Predictor and the demos' build_system on the same file; build_system
+    # builds Config() on assets.load_all(): both patched to this test's sizes
+    small_system = functools.partial(trainer.SmirkSystem, generator_features=8,
+                                     generator_res_blocks=1)
+    monkeypatch.setattr(api, "SmirkSystem", small_system)
+    monkeypatch.setattr(trainer, "SmirkSystem", small_system)
+    monkeypatch.setattr(port_config, "Config", lambda: system.config)
+    monkeypatch.setattr(port_assets, "load_all", lambda *a, **k: bundle)
+    monkeypatch.setitem(mnv3.ARCHS, SMALL, TINY_SMALL)
+    monkeypatch.setitem(mnv3.ARCHS, LARGE, TINY_LARGE)
+    pred = Predictor(checkpoint=path, use_generator=True, device="cpu", bundle=bundle,
+                     config=system.config, backbone_stages=STAGES)
+    built = demo.build_system(path, True, "cpu")
+    for other in (pred.system, built):
+        for module in ("encoder", "generator"):
+            want = getattr(system, module).state_dict()
+            got = getattr(other, module).state_dict()
+            assert set(got) == set(want)
+            assert all(torch.equal(got[k], v) for k, v in want.items()), module
+    got = pred(img)
+    for k in ("expression_params", "vertices", "rendered_img"):
+        np.testing.assert_array_equal(got[k], out[k], err_msg=k)
+
+    # the reference layouts through api.load_checkpoint, as before
+    enc_sd = {k: v.clone() for k, v in system.encoder.state_dict().items()}
+    joint = {**{f"smirk_encoder.{k}": v for k, v in enc_sd.items()},
+             **{f"smirk_generator.{k}": v for k, v in gen_sd.items()}}
+    torch.save({"state_dict": joint}, str(tmp_path / "joint.pt"))
+    torch.save(enc_sd, str(tmp_path / "encoder.pt"))
+    np.savez(str(tmp_path / "flat.npz"), **{k: v.numpy() for k, v in joint.items()},
+             **{"notes/step": np.zeros(1)})
+    for name, want_gen in (("joint.pt", gen_sd), ("encoder.pt", {}), ("flat.npz", gen_sd)):
+        enc, gen = api.load_checkpoint(str(tmp_path / name))
+        assert set(enc) == set(enc_sd) and set(gen) == set(want_gen), name
+        assert all(torch.equal(enc[k], v) for k, v in enc_sd.items()), name
+        assert all(torch.equal(gen[k], v) for k, v in want_gen.items()), name
+
     full = str(tmp_path / "last_state.npz")
     jax_ckpt.save_state(state, full)
-    for fn in (ckpt.load_model, ckpt.restore_state):
+    readers = (lambda p: ckpt.load_model(system, p), lambda p: ckpt.restore_state(system, p),
+               lambda p: Predictor(checkpoint=p, device="cpu", bundle=bundle,
+                                   config=system.config, backbone_stages=STAGES),
+               lambda p: demo.build_system(p, True, "cpu"))
+    for read in readers:
         with pytest.raises(ValueError, match="full-state"):
-            fn(system, full)
+            read(full)
+        with pytest.raises(ValueError, match="orbax"):
+            read(str(tmp_path))
 
 
 def test_backbone_init_matches_jax(bundle, jax_state, tmp_path):

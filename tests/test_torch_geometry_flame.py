@@ -219,8 +219,9 @@ def _python_files():
 
 def test_port_imports_no_jax():
     """Nothing in smirk_tpu_torch/ or chip_smoke.py imports jax, flax,
-    optax, scipy or the JAX package; chip_smoke.py imports no PIL (the
-    card's machine has none)."""
+    optax, scipy or the JAX package; chip_smoke.py imports no PIL itself:
+    it reads and writes image files through the port's own `utils.viz` and
+    `cli.demo_video`, so that those readers and writers are what it runs."""
     banned = {"jax", "jaxlib", "flax", "optax", "scipy", "smirk_tpu"}
     found = []
     for path in _python_files():
