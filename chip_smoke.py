@@ -289,8 +289,8 @@ Phases (any failure exits non-zero):
     path's forward and backward, the coverage forward with its inputs
     (`_v3_impl`, b32, capacity 512), the whole calls of the five inference
     rasters (compact, padded, merged, sort_tiles, chunk-skip), the stages
-    of infer (and K3 with its inputs, the training raster's forward) and of
-    one train step, a torch.profiler trace of one train step per parity
+    of infer (and K3 with its inputs, the training raster's forward), a
+    torch.profiler trace of one train step per parity
     (device time by kernel class, busy share) and its convolution FLOPs;
     on the host clock the median and spread of 5 windows of 50 infer calls
     (ms/batch, images/s), of 3 windows of 20 Predictor calls and of 3
@@ -712,25 +712,6 @@ def conv_flops(modules, fn):
         for h in handles:
             h.remove()
     return total[0]
-
-
-def train_stages(system, batch, parity, gen):
-    """CUDA-event ms of one train step's stages: phase-1 forward, phase-1
-    backward + both Adam steps, phase 2 (forward, backward, Adam)."""
-    import torch
-
-    bt = system._batch(batch)
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    ev[0].record()
-    loss1, aux = system._loss1(bt, True, gen)
-    ev[1].record()
-    system._update_path1(loss1)
-    ev[2].record()
-    system._phase2(bt, aux["encoder_output"], aux["transformed_vertices"], parity, gen)
-    ev[3].record()
-    torch.cuda.synchronize()
-    system._eval_mode()
-    return [ev[i].elapsed_time(ev[i + 1]) for i in range(3)]
 
 
 def reconstruct_phase(bundle, encoder_state, out, B, S, card):
@@ -4349,7 +4330,6 @@ def main(argv=None) -> int:
     infer_ms, call_ms = statistics.median(infer_w), statistics.median(call_w)
     train_w = {p: timed_windows(lambda p=p: tsys.train_step(tbatch, p, gen_t),
                                 TRAIN_WINDOWS, TRAIN_STEPS) for p in (0, 1)}
-    stage_runs = {p: [train_stages(tsys, tbatch, p, gen_t) for _ in range(3)] for p in (0, 1)}
     profiles = {p: profile_train_step(tsys, tbatch, p, gen_t) for p in (0, 1)}
     conv_flops = {p: conv_flops_of_step(tsys, tbatch, p, gen_t) for p in (0, 1)}
     occ = renderer.measure_compact_occupancy(fl["vertices"], enc["cam"])
@@ -4371,10 +4351,6 @@ def main(argv=None) -> int:
             f"{TRAIN_WINDOWS} windows of {TRAIN_STEPS} steps (min {w[0]:.3f}, max "
             f"{w[-1]:.3f}, spread {spread(w):.1f} %) {card}")
     log(f"    train_ms_batch{TB}_fp32_avg {(train_ms[0] + train_ms[1]) / 2:.3f} {card}")
-    for p, runs in stage_runs.items():
-        med = [statistics.median(r[i] for r in runs) for i in range(3)]
-        log(f"    train stages p{p} (median of 3, ms): phase1_forward {med[0]:.3f} "
-            f"phase1_backward_adam {med[1]:.3f} phase2 {med[2]:.3f} {card}")
     for p, prof in profiles.items():
         if prof is None:
             log(f"    train profile p{p}: no device time in the trace; not measured")

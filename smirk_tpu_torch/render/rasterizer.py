@@ -97,6 +97,7 @@ import numpy as np
 import torch
 
 from smirk_tpu_torch import kernels
+from smirk_tpu_torch.utils.profiling import span
 
 AREA_EPS = 1e-10  # degenerate-triangle guard
 BIG_Z = 1e10
@@ -470,16 +471,18 @@ def bin_faces(face_verts: torch.Tensor, image_size: int, capacity: int,
     `bin_faces_sorted` in the sorted mode; `bin_faces_hier` in the hier
     mode where the coarse list is a real reduction (F > 2 x
     COARSE_CAPACITY) and the image has more than one band of tiles;
-    `bin_faces_flat` otherwise."""
+    `bin_faces_flat` otherwise. Every raster bins through here, inside the
+    `smirk.render.bin` span."""
     F = face_verts.shape[1]
     ty = -(-image_size // TILE_ROWS)
-    if _BIN_SORTED:
-        return bin_faces_sorted(face_verts, image_size, capacity,
-                                with_misses=with_misses)
-    if _BIN_HIER and F > 2 * COARSE_CAPACITY and ty > BAND_TILES:
-        return bin_faces_hier(face_verts, image_size, capacity,
-                              approx=approx, with_misses=with_misses)
-    return bin_faces_flat(face_verts, image_size, capacity, approx, with_misses)
+    with span("smirk.render.bin"):
+        if _BIN_SORTED:
+            return bin_faces_sorted(face_verts, image_size, capacity,
+                                    with_misses=with_misses)
+        if _BIN_HIER and F > 2 * COARSE_CAPACITY and ty > BAND_TILES:
+            return bin_faces_hier(face_verts, image_size, capacity,
+                                  approx=approx, with_misses=with_misses)
+        return bin_faces_flat(face_verts, image_size, capacity, approx, with_misses)
 
 
 def _tile_grid(image_size: int):

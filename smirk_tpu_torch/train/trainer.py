@@ -66,6 +66,12 @@ Every entry point (`infer`, `train_step`, `eval_step`, `masked_input`,
 `infer`, `masked_input` and `reconstruct` without their pins, on every draw
 given (`reconstruct_draws`); the served artifacts trace them
 (`smirk_tpu_torch.serving`), so they cannot drift from the in-process path.
+
+`train_step` and `infer` open a `utils.profiling.span` at each layer
+boundary (`profiling.SPANS`: the phases, encoders, teachers, FLAME, the
+render, masking, the augmentation, the generator, the losses, the backward,
+Adam, the read-back); they are recorded only while the torch profiler
+records.
 """
 from __future__ import annotations
 
@@ -96,6 +102,7 @@ from smirk_tpu_torch.models.teachers import freeze
 from smirk_tpu_torch.models.vgg import perceptual_loss, resize_bilinear
 from smirk_tpu_torch.render import geometry
 from smirk_tpu_torch.render.renderer import Renderer
+from smirk_tpu_torch.utils.profiling import span
 
 SUB_ENCODERS = ("pose_encoder", "shape_encoder", "expression_encoder")
 # the masks' random hint-drop rates: path 1's and the cycle path's
@@ -389,114 +396,120 @@ class SmirkSystem:
         draws = draws or {}
         img = batch["img"]
         B = img.shape[0]
-        zero = img.new_zeros(())
-
         share = parallel.share
-        if self.generator is not None:
-            draws = self._rank_draws(draws, B, 1, RANDOM_MASK, generator)
 
         self.encoder.train(train)
-        enc_out = self.encoder(img, self.compute_dtype)
-        flame_out = self.flame(enc_out)
-        rend = self.renderer(
-            flame_out["vertices"], enc_out["cam"],
-            {"landmarks_fan": flame_out["landmarks_fan"],
-             "landmarks_mp": flame_out["landmarks_mp"]},
-            # no generator: no image-space loss, the render is for viewing
-            inference=self.generator is None,
-        )
-
-        losses = {}
-        # monitoring only: max compact chunks dropped past the budget; > 0
-        # means some tiles rendered EMPTY with zero gradients
-        losses["raster_overflow"] = rend["raster_overflow"].max().to(torch.float32)
-        flags = batch["flag_landmarks_fan"]
-        losses["landmark_loss_fan"] = masked_landmark_mse(
-            rend["landmarks_fan"], batch["landmarks_fan"][..., :2], flags,
-            count=(parallel.all_sum(flags.to(torch.float32).sum())
-                   if parallel.active() else None))
-        losses["landmark_loss_mp"] = share(landmark_mse(
-            rend["landmarks_mp"], batch["landmarks_mp"][..., :2]))
-
+        with span("smirk.encoder"):
+            enc_out = self.encoder(img, self.compute_dtype)
+        with span("smirk.flame"):
+            flame_out = self.flame(enc_out)
+        with span("smirk.render"):
+            rend = self.renderer(
+                flame_out["vertices"], enc_out["cam"],
+                {"landmarks_fan": flame_out["landmarks_fan"],
+                 "landmarks_mp": flame_out["landmarks_mp"]},
+                # no generator: no image-space loss, the render is for viewing
+                inference=self.generator is None,
+            )
+        base_out = mica_shape = None
         if c.train.use_base_model_for_regularization:
-            with torch.no_grad():
+            with torch.no_grad(), span("smirk.teacher"):
                 base_out = self._base_encoder()(img, self.compute_dtype)
-        else:
-            base_out = {
-                "expression_params": img.new_zeros((B, c.arch.num_expression)),
-                "shape_params": img.new_zeros((B, c.arch.num_shape)),
-                "jaw_params": img.new_zeros((B, 3)),
-            }
-        for k in ("expression", "shape", "jaw"):
-            losses[f"{k}_regularization"] = share(param_regularization(
-                enc_out[f"{k}_params"], base_out[f"{k}_params"]))
+        if self.mica is not None and w.mica_loss > 0:
+            with torch.no_grad(), span("smirk.teacher"):
+                mica_shape = self.mica(batch["img_mica"])[..., :c.arch.num_shape]
 
-        recon_img = masked_img = rec_err = None
+        recon_img = masked_img = emotion = None
         if self.generator is not None:
-            npoints, _ = masking_lib.sample_mesh_points(
-                rend["transformed_vertices"].detach(), self.flame.faces,
-                self.face_probabilities, self.num_mask_points, c.image_size,
-                coords=draws.get("coords"), incidence=self.flame_incidence,
-                generator=generator, u=draws.get("u"), bary=draws.get("bary"))
-            extra = masking_lib.transfer_pixels(img, npoints, npoints)
-            masked_img = masking_lib.compose_mask(
-                img, batch["mask"], extra,
-                dilation_radius=c.train.mask_dilation_radius,
-                rendered_mask=rend["rendered_mask"], random_mask=RANDOM_MASK,
-                generator=generator, noise=draws.get("noise"),
-                drop_centers=draws.get("drop_centers"))
-            gen_in = torch.cat([rend["rendered_img"], masked_img], dim=-1)
+            with span("smirk.masking"):
+                draws = self._rank_draws(draws, B, 1, RANDOM_MASK, generator)
+                npoints, _ = masking_lib.sample_mesh_points(
+                    rend["transformed_vertices"].detach(), self.flame.faces,
+                    self.face_probabilities, self.num_mask_points, c.image_size,
+                    coords=draws.get("coords"), incidence=self.flame_incidence,
+                    generator=generator, u=draws.get("u"), bary=draws.get("bary"))
+                extra = masking_lib.transfer_pixels(img, npoints, npoints)
+                masked_img = masking_lib.compose_mask(
+                    img, batch["mask"], extra,
+                    dilation_radius=c.train.mask_dilation_radius,
+                    rendered_mask=rend["rendered_mask"], random_mask=RANDOM_MASK,
+                    generator=generator, noise=draws.get("noise"),
+                    drop_centers=draws.get("drop_centers"))
+                gen_in = torch.cat([rend["rendered_img"], masked_img], dim=-1)
             if self.emotion is not None and w.emotion_loss > 0:
                 # the generator re-applied with its parameters detached and
                 # eval-mode batch norm on a copy of the running statistics
                 # as they stand before this step's train-mode forward moves
                 # them in place (the backward reads the copy); the gradient
                 # still reaches the encoder through gen_in
-                self.generator.eval()
-                frozen_gen = {n: p.detach() for n, p in self.generator.named_parameters()}
-                frozen_gen.update((n, b.clone()) for n, b in self.generator.named_buffers())
-                recon_p = functional_call(self.generator, frozen_gen,
-                                          (gen_in, self.compute_dtype))
-                emotion = share(emotion_embedding_distance(self.emotion, recon_p, img,
-                                                           metric="l2").mean())
-            else:
-                emotion = zero
+                with span("smirk.losses"):
+                    self.generator.eval()
+                    frozen_gen = {n: p.detach() for n, p in self.generator.named_parameters()}
+                    frozen_gen.update((n, b.clone()) for n, b in self.generator.named_buffers())
+                    recon_p = functional_call(self.generator, frozen_gen,
+                                              (gen_in, self.compute_dtype))
+                    emotion = share(emotion_embedding_distance(self.emotion, recon_p, img,
+                                                               metric="l2").mean())
             self.generator.train(train)
-            recon_img = self.generator(gen_in, self.compute_dtype)
-            rec_err = (recon_img - img).abs()
-            losses["reconstruction_loss"] = share(rec_err.mean())
-            losses["perceptual_vgg_loss"] = (
-                share(perceptual_loss(self.vgg, recon_img, img))
-                if self.vgg is not None and w.perceptual_vgg_loss > 0 else zero)
-            losses["emotion_loss"] = emotion
-        else:
-            losses["reconstruction_loss"] = zero
-            losses["perceptual_vgg_loss"] = zero
-            losses["emotion_loss"] = zero
-        if self.mica is not None and w.mica_loss > 0:
-            with torch.no_grad():
-                mica_shape = self.mica(batch["img_mica"])[..., :c.arch.num_shape]
-            losses["mica_loss"] = share(((enc_out["shape_params"] - mica_shape) ** 2).mean())
-        else:
-            losses["mica_loss"] = zero
+            with span("smirk.generator"):
+                recon_img = self.generator(gen_in, self.compute_dtype)
 
-        shape_losses = (losses["shape_regularization"] * w.shape_regularization
-                        + losses["mica_loss"] * w.mica_loss)
-        expression_losses = (
-            losses["expression_regularization"] * w.expression_regularization
-            + losses["jaw_regularization"] * w.jaw_regularization)
-        landmark_losses = (losses["landmark_loss_fan"]
-                           + losses["landmark_loss_mp"]) * w.landmark_loss
-        fuse_losses = (losses["perceptual_vgg_loss"] * w.perceptual_vgg_loss
-                       + losses["reconstruction_loss"] * w.reconstruction_loss
-                       + losses["emotion_loss"] * w.emotion_loss)
-        total = landmark_losses
-        if c.train.optimize_shape:
-            total = total + shape_losses
-        if c.train.optimize_expression:
-            total = total + expression_losses
-        if self.generator is not None:
-            total = total + fuse_losses
+        with span("smirk.losses"):
+            zero = img.new_zeros(())
+            losses = {}
+            # monitoring only: max compact chunks dropped past the budget; > 0
+            # means some tiles rendered EMPTY with zero gradients
+            losses["raster_overflow"] = rend["raster_overflow"].max().to(torch.float32)
+            flags = batch["flag_landmarks_fan"]
+            losses["landmark_loss_fan"] = masked_landmark_mse(
+                rend["landmarks_fan"], batch["landmarks_fan"][..., :2], flags,
+                count=(parallel.all_sum(flags.to(torch.float32).sum())
+                       if parallel.active() else None))
+            losses["landmark_loss_mp"] = share(landmark_mse(
+                rend["landmarks_mp"], batch["landmarks_mp"][..., :2]))
+            if base_out is None:
+                base_out = {
+                    "expression_params": img.new_zeros((B, c.arch.num_expression)),
+                    "shape_params": img.new_zeros((B, c.arch.num_shape)),
+                    "jaw_params": img.new_zeros((B, 3)),
+                }
+            for k in ("expression", "shape", "jaw"):
+                losses[f"{k}_regularization"] = share(param_regularization(
+                    enc_out[f"{k}_params"], base_out[f"{k}_params"]))
+
+            rec_err = None
+            if recon_img is not None:
+                rec_err = (recon_img - img).abs()
+                losses["reconstruction_loss"] = share(rec_err.mean())
+                losses["perceptual_vgg_loss"] = (
+                    share(perceptual_loss(self.vgg, recon_img, img))
+                    if self.vgg is not None and w.perceptual_vgg_loss > 0 else zero)
+                losses["emotion_loss"] = zero if emotion is None else emotion
+            else:
+                losses["reconstruction_loss"] = zero
+                losses["perceptual_vgg_loss"] = zero
+                losses["emotion_loss"] = zero
+            losses["mica_loss"] = (
+                zero if mica_shape is None
+                else share(((enc_out["shape_params"] - mica_shape) ** 2).mean()))
+
+            shape_losses = (losses["shape_regularization"] * w.shape_regularization
+                            + losses["mica_loss"] * w.mica_loss)
+            expression_losses = (
+                losses["expression_regularization"] * w.expression_regularization
+                + losses["jaw_regularization"] * w.jaw_regularization)
+            landmark_losses = (losses["landmark_loss_fan"]
+                               + losses["landmark_loss_mp"]) * w.landmark_loss
+            fuse_losses = (losses["perceptual_vgg_loss"] * w.perceptual_vgg_loss
+                           + losses["reconstruction_loss"] * w.reconstruction_loss
+                           + losses["emotion_loss"] * w.emotion_loss)
+            total = landmark_losses
+            if c.train.optimize_shape:
+                total = total + shape_losses
+            if c.train.optimize_expression:
+                total = total + expression_losses
+            if self.generator is not None:
+                total = total + fuse_losses
 
         def det(x):
             return None if x is None else x.detach()
@@ -573,40 +586,45 @@ class SmirkSystem:
         # the augmentation permutes rows across the global batch: with a
         # process group it runs on every rank's rows, each rank keeping its
         # own of the result
-        rows = {k: v.detach() for k, v in enc_out.items()}
-        if parallel.active():
-            rows = parallel.all_gather_rows(rows)
-        feats = {k: torch.cat([v] * Ke, dim=0) for k, v in rows.items()}
-        feats = self._augment_feats(feats, generator, draws.get("augment"))
-        feats = {k: parallel.local_rows(v, Ke) for k, v in feats.items()}
-        draws = self._rank_draws(draws, img.shape[0], Ke, CYCLE_RANDOM_MASK, generator)
+        with span("smirk.augment"):
+            rows = {k: v.detach() for k, v in enc_out.items()}
+            if parallel.active():
+                rows = parallel.all_gather_rows(rows)
+            feats = {k: torch.cat([v] * Ke, dim=0) for k, v in rows.items()}
+            feats = self._augment_feats(feats, generator, draws.get("augment"))
+            feats = {k: parallel.local_rows(v, Ke) for k, v in feats.items()}
 
         # the augmented parameters' render carries no gradient: the fused
         # inference raster
         with torch.no_grad():
-            flame2 = self.flame(feats)
-            rend2 = self.renderer(flame2["vertices"], feats["cam"], inference=True)
+            with span("smirk.flame"):
+                flame2 = self.flame(feats)
+            with span("smirk.render"):
+                rend2 = self.renderer(flame2["vertices"], feats["cam"], inference=True)
         rendered_img_2nd = rend2["rendered_img"]
 
-        points1, coords = masking_lib.sample_mesh_points(
-            trans_verts, self.flame.faces, self.face_probabilities,
-            self.num_mask_points, c.image_size, coords=draws.get("coords"),
-            incidence=self.flame_incidence, generator=generator,
-            u=draws.get("u"), bary=draws.get("bary"))
-        coords = {k: torch.cat([v] * Ke, dim=0) for k, v in coords.items()}
-        points2, _ = masking_lib.sample_mesh_points(
-            rend2["transformed_vertices"], self.flame.faces,
-            self.face_probabilities, self.num_mask_points, c.image_size,
-            coords=coords)
-        img_k = torch.cat([img] * Ke, dim=0)
-        extra = masking_lib.transfer_pixels(img_k, torch.cat([points1] * Ke, dim=0), points2)
-        masked_img_2nd = masking_lib.compose_mask(
-            img_k, torch.cat([batch["mask"]] * Ke, dim=0), extra,
-            dilation_radius=c.train.mask_dilation_radius,
-            rendered_mask=rend2["rendered_mask"], extra_noise=True,
-            random_mask=CYCLE_RANDOM_MASK, generator=generator, noise=draws.get("noise"),
-            drop_centers=draws.get("drop_centers"))
-        gen_in = torch.cat([rendered_img_2nd, masked_img_2nd], dim=-1).detach()
+        with span("smirk.masking"):
+            draws = self._rank_draws(draws, img.shape[0], Ke, CYCLE_RANDOM_MASK, generator)
+            points1, coords = masking_lib.sample_mesh_points(
+                trans_verts, self.flame.faces, self.face_probabilities,
+                self.num_mask_points, c.image_size, coords=draws.get("coords"),
+                incidence=self.flame_incidence, generator=generator,
+                u=draws.get("u"), bary=draws.get("bary"))
+            coords = {k: torch.cat([v] * Ke, dim=0) for k, v in coords.items()}
+            points2, _ = masking_lib.sample_mesh_points(
+                rend2["transformed_vertices"], self.flame.faces,
+                self.face_probabilities, self.num_mask_points, c.image_size,
+                coords=coords)
+            img_k = torch.cat([img] * Ke, dim=0)
+            extra = masking_lib.transfer_pixels(img_k, torch.cat([points1] * Ke, dim=0),
+                                                points2)
+            masked_img_2nd = masking_lib.compose_mask(
+                img_k, torch.cat([batch["mask"]] * Ke, dim=0), extra,
+                dilation_radius=c.train.mask_dilation_radius,
+                rendered_mask=rend2["rendered_mask"], extra_noise=True,
+                random_mask=CYCLE_RANDOM_MASK, generator=generator, noise=draws.get("noise"),
+                drop_centers=draws.get("drop_centers"))
+            gen_in = torch.cat([rendered_img_2nd, masked_img_2nd], dim=-1).detach()
 
         # the frozen module runs at frozen_dtype, the training one at
         # compute_dtype; train.remat_cycle recomputes the four applies in
@@ -633,27 +651,31 @@ class SmirkSystem:
             self.encoder.train()
             return self.encoder(x, self.compute_dtype)
 
-        if freeze_generator:
-            with torch.no_grad():
-                recon = wrap(generator_frozen)(gen_in)
-        else:
-            recon = wrap(generator_train)(gen_in)
-        recon_feats = wrap(encoder_frozen if freeze_encoder else encoder_train)(recon)
+        with span("smirk.generator"):
+            if freeze_generator:
+                with torch.no_grad():
+                    recon = wrap(generator_frozen)(gen_in)
+            else:
+                recon = wrap(generator_train)(gen_in)
+        with span("smirk.encoder"):
+            recon_feats = wrap(encoder_frozen if freeze_encoder else encoder_train)(recon)
 
-        cycle = (landmark_mse(recon_feats["expression_params"], feats["expression_params"])
-                 + 10.0 * landmark_mse(recon_feats["jaw_params"], feats["jaw_params"]))
-        if c.arch.use_eyelids:
-            cycle = cycle + 10.0 * landmark_mse(recon_feats["eyelid_params"],
-                                                feats["eyelid_params"])
-        if not freeze_generator:
-            cycle = cycle + landmark_mse(recon_feats["shape_params"], feats["shape_params"])
-
-        cycle = parallel.share(cycle)
-        total = cycle * c.train.loss_weights.cycle_loss
+        with span("smirk.losses"):
+            cycle = (landmark_mse(recon_feats["expression_params"], feats["expression_params"])
+                     + 10.0 * landmark_mse(recon_feats["jaw_params"], feats["jaw_params"]))
+            if c.arch.use_eyelids:
+                cycle = cycle + 10.0 * landmark_mse(recon_feats["eyelid_params"],
+                                                    feats["eyelid_params"])
+            if not freeze_generator:
+                cycle = cycle + landmark_mse(recon_feats["shape_params"],
+                                             feats["shape_params"])
+            cycle = parallel.share(cycle)
+            total = cycle * c.train.loss_weights.cycle_loss
+            overflow_2nd = rend2["raster_overflow"].max().to(torch.float32)
         aux = {
             "losses": {
                 "cycle_loss": cycle,
-                "raster_overflow_2nd": rend2["raster_overflow"].max().to(torch.float32),
+                "raster_overflow_2nd": overflow_2nd,
             },
             "viz": {
                 "rendered_img_2nd": rendered_img_2nd,
@@ -670,41 +692,48 @@ class SmirkSystem:
     def _grads(total, params):
         """d total / d params (zeros where unused), summed across ranks in a
         data-parallel step."""
-        grads = torch.autograd.grad(total, params, allow_unused=True)
-        return parallel.all_reduce_grads(
-            [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
+        with span("smirk.backward"):
+            grads = torch.autograd.grad(total, params, allow_unused=True)
+            return parallel.all_reduce_grads(
+                [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)])
 
     def _phase1(self, batch, generator=None, draws=None):
         """Path-1 gradients + both Adam steps -> (metrics, aux)."""
-        loss1, aux = self._loss1(batch, True, generator, draws)
-        self._update_path1(loss1)
-        metrics = dict(aux["losses"])
-        metrics["loss_first_path"] = loss1.detach()
-        return metrics, aux
+        with span("smirk.phase1"):
+            loss1, aux = self._loss1(batch, True, generator, draws)
+            self._update_path1(loss1)
+            metrics = dict(aux["losses"])
+            metrics["loss_first_path"] = loss1.detach()
+            return metrics, aux
 
     def _update_path1(self, loss1) -> None:
         """Path 1's backward and both Adam steps at the iteration's rates."""
         grads = self._grads(loss1, self.enc_params + self.gen_params)
         n_enc = len(self.enc_params)
-        adam_step(self.enc_opt, grads[:n_enc], self.enc_lr(self.step))
-        adam_step(self.gen_opt, grads[n_enc:], self.gen_lr(self.step))
+        with span("smirk.adam"):
+            adam_step(self.enc_opt, grads[:n_enc], self.enc_lr(self.step))
+            adam_step(self.gen_opt, grads[n_enc:], self.gen_lr(self.step))
 
     def _phase2(self, batch, enc_out, trans_verts, parity: int,
                 generator=None, draws=None):
         """Cycle-path gradients + the unfrozen module's Adam step, on the
         phase-1-updated parameters, at the iteration's learning rate."""
         freeze_encoder = parity % 2 == 0
-        loss2, aux = self._loss2(batch, enc_out, trans_verts, freeze_encoder,
-                                 not freeze_encoder, generator, draws)
-        if not freeze_encoder:
-            adam_step(self.enc_opt, self._grads(loss2, self.enc_params),
-                      self.enc_lr(self.step))
-        else:
-            grads = clip_by_global_norm(self._grads(loss2, self.gen_params), 0.1)
-            adam_step(self.gen_opt, grads, self.gen_lr(self.step))
-        metrics = dict(aux["losses"])
-        metrics["loss_second_path"] = loss2.detach()
-        return metrics, aux["viz"]
+        with span("smirk.phase2"):
+            loss2, aux = self._loss2(batch, enc_out, trans_verts, freeze_encoder,
+                                     not freeze_encoder, generator, draws)
+            if not freeze_encoder:
+                grads = self._grads(loss2, self.enc_params)
+                with span("smirk.adam"):
+                    adam_step(self.enc_opt, grads, self.enc_lr(self.step))
+            else:
+                grads = self._grads(loss2, self.gen_params)
+                with span("smirk.adam"):
+                    adam_step(self.gen_opt, clip_by_global_norm(grads, 0.1),
+                              self.gen_lr(self.step))
+            metrics = dict(aux["losses"])
+            metrics["loss_second_path"] = loss2.detach()
+            return metrics, aux["viz"]
 
     @staticmethod
     def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
@@ -733,22 +762,25 @@ class SmirkSystem:
         many), the generator is seeded alike on every rank and the draws
         given are the global batch's.
         """
-        batch = self._batch(batch)
-        draws = draws or {}
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(self.step)
-        try:
-            metrics, aux = self._phase1(batch, generator, draws.get("path1"))
-            if self._cycle_enabled():
-                metrics2, viz2 = self._phase2(
-                    batch, aux["encoder_output"], aux["transformed_vertices"],
-                    parity, generator, draws.get("path2"))
-                metrics.update(metrics2)
-                aux["second_path"] = viz2
-        finally:
-            self._eval_mode()
-        self.step += 1
-        return self._floats(metrics), aux
+        with span("smirk.train_step"):
+            with span("smirk.batch"):
+                batch = self._batch(batch)
+            draws = draws or {}
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(self.step)
+            try:
+                metrics, aux = self._phase1(batch, generator, draws.get("path1"))
+                if self._cycle_enabled():
+                    metrics2, viz2 = self._phase2(
+                        batch, aux["encoder_output"], aux["transformed_vertices"],
+                        parity, generator, draws.get("path2"))
+                    metrics.update(metrics2)
+                    aux["second_path"] = viz2
+            finally:
+                self._eval_mode()
+            self.step += 1
+            with span("smirk.readback"):
+                return self._floats(metrics), aux
 
     @fp32_math()
     @torch.no_grad()
@@ -773,23 +805,27 @@ class SmirkSystem:
 
         The renderer's 2D projected `landmarks_fan`/`landmarks_mp` replace
         FLAME's 3D ones in the result, as in the JAX package."""
-        img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
-        self.encoder.eval()
-        return self.infer_body(img)
+        with span("smirk.infer"):
+            img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+            self.encoder.eval()
+            return self.infer_body(img)
 
     def infer_body(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
         """`infer` without its pins and conversions: the encoder (in the mode
         it is in), FLAME and the inference render. The served artifacts
         trace this body (`serving.make_inference_fn`), so that they run what
         `infer` runs."""
-        enc_out = self.encoder(img, self.compute_dtype)
-        flame_out = self.flame(enc_out)
-        rend = self.renderer(
-            flame_out["vertices"], enc_out["cam"],
-            {"landmarks_fan": flame_out["landmarks_fan"],
-             "landmarks_mp": flame_out["landmarks_mp"]},
-            inference=True,
-        )
+        with span("smirk.encoder"):
+            enc_out = self.encoder(img, self.compute_dtype)
+        with span("smirk.flame"):
+            flame_out = self.flame(enc_out)
+        with span("smirk.render"):
+            rend = self.renderer(
+                flame_out["vertices"], enc_out["cam"],
+                {"landmarks_fan": flame_out["landmarks_fan"],
+                 "landmarks_mp": flame_out["landmarks_mp"]},
+                inference=True,
+            )
         return {**enc_out, **flame_out, **rend}
 
     def _reconstruct_budget(self):

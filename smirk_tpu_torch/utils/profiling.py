@@ -3,8 +3,8 @@
   * `trace(logdir)`: a `torch.profiler.profile` context over the CPU and,
     when there is one, the CUDA card, exporting a Chrome trace
     (`logdir/trace.json`, viewable in Perfetto) on exit;
-  * `Timer`: the median wall time of a callable, each call ended by
-    `torch.cuda.synchronize()` when the card is in use;
+  * `span(name)`: a named range of the program (`SPANS`) on the
+    profiler's own clock, recorded only while a profiler records;
   * `enable_nan_debugging()`: autograd's anomaly detection, which names
     the forward operation of a backward that produced NaN.
 """
@@ -12,10 +12,48 @@ from __future__ import annotations
 
 import contextlib
 import os
-import time
-from typing import Callable
 
 import torch
+
+# The program's spans, each opened by `span` at a layer boundary of
+# `train.trainer.SmirkSystem` (the renderer's binning excepted). A name may
+# repeat under different parents; `smirk.train_step` and `smirk.infer` are
+# the roots, `smirk.phase1` / `smirk.phase2` the training step's phases.
+SPANS = (
+    "smirk.train_step",  # SmirkSystem.train_step, its whole body
+    "smirk.infer",       # SmirkSystem.infer, its whole body
+    "smirk.batch",       # the batch to the device (_batch)
+    "smirk.phase1",      # path 1: forward, backward, both Adam updates
+    "smirk.phase2",      # the cycle path: forward, backward, one Adam update
+    "smirk.encoder",     # an encoder apply: trained, frozen or serving
+    "smirk.teacher",     # a no-grad teacher apply: the base encoder, MICA
+    "smirk.flame",       # an apply of the FLAME layer
+    "smirk.render",      # a Renderer call, binning included
+    "smirk.render.bin",  # the raster's binning (rasterizer.bin_faces)
+    "smirk.masking",     # the mask's draws, sample_mesh_points,
+                         # transfer_pixels, compose_mask, the generator input
+    "smirk.augment",     # the cycle path's row gather and _augment_feats
+    "smirk.generator",   # a generator apply: trained or frozen
+    "smirk.losses",      # loss arithmetic, VGG16's perceptual pass and the
+                         # emotion term (its frozen generator apply included)
+    "smirk.backward",    # a _grads call: autograd.grad, the all-reduce
+    "smirk.adam",        # a phase's Adam update(s), the generator's clip
+    "smirk.readback",    # the step's metrics to the host (_floats)
+)
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `torch.profiler.record_function(name)` range while the torch
+    profiler records, else one shared no-op context (enter and exit cost
+    well under a microsecond). Also a no-op while torch.compile or
+    torch.export traces, so that no profiler op enters a traced graph.
+    `name` is one of `SPANS`."""
+    if (not torch._C._autograd._profiler_enabled() or torch.compiler.is_compiling()
+            or torch.compiler.is_exporting()):
+        return _OFF
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -29,31 +67,6 @@ def trace(logdir: str):
     with profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
-def _sync() -> None:
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-
-
-class Timer:
-    """Median wall time in seconds of `fn(*args)`, warm-up calls excluded."""
-
-    def __init__(self, fn: Callable, warmup: int = 1, iters: int = 10):
-        self.fn, self.warmup, self.iters = fn, warmup, iters
-
-    def __call__(self, *args, **kwargs) -> float:
-        for _ in range(self.warmup):
-            self.fn(*args, **kwargs)
-        _sync()
-        times = []
-        for _ in range(self.iters):
-            t0 = time.perf_counter()
-            self.fn(*args, **kwargs)
-            _sync()
-            times.append(time.perf_counter() - t0)
-        times.sort()
-        return times[len(times) // 2]
 
 
 def enable_nan_debugging(enable: bool = True) -> None:
