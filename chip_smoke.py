@@ -228,8 +228,9 @@ Phases (any failure exits non-zero):
     (exact and at 0.95) and sorted binning give bins and counts bitwise
     equal to exact flat binning (sorted on the images without a span clip,
     whose count is printed), with no selection misses;
-    `SmirkSystem.infer` under the default, hier and sorted modes (the
-    dispatch reaching each) bitwise equal, K1 launched once a call; one
+    `SmirkSystem.infer` under the default, hier and sorted modes, each
+    mode a capture of its own (the dispatch reaching it in the warm-up and
+    the capture) then a replay, bitwise equal, K1 launched once a call; one
     b32 train step (p0, learning rate 0, fresh systems of one seed) under
     sorted and flat binning with bitwise equal losses, K3 and K4's fold
     launched; the "scatter", "sorted_scatter" and "cumsum" fold modes on
@@ -1108,12 +1109,10 @@ def bench_phase(card):
 
 def f1_phase(system, img):
     """Phase 5h: F1 on the card. With both global TF32 flags True,
-    `SmirkSystem.infer` equals (bitwise) a call with them False; the same
-    call with the pin bypassed runs TF32 and differs by more; the globals
-    read True after the pinned call."""
+    `SmirkSystem.infer` equals (bitwise) a call with them False, its graph
+    captured under them; its body with the pin bypassed runs TF32 and
+    differs by more; the globals read True after the pinned call."""
     import torch
-
-    from smirk_tpu_torch.train.trainer import SmirkSystem
 
     log(f"[5h] F1: SmirkSystem.infer at b{img.shape[0]} with the global TF32 flags "
         "True vs False; the pin bypassed")
@@ -1131,11 +1130,14 @@ def f1_phase(system, img):
         off = system.infer(img)
         flags(True)
         seen.clear()
+        system.infer_graphs.graphs.clear()  # so that this call captures: warm-up, capture
         on = system.infer(img)
-        check(seen == [(False, False)], f"inside the pinned call both flags read False ({seen})")
+        check(seen == [(False, False)] * 2,
+              f"inside the pinned call both flags read False ({seen})")
         check((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
               == (True, True), "the globals read True after the pinned call")
-        unpinned = SmirkSystem.infer.__wrapped__(system, img)  # fp32_math bypassed
+        with torch.inference_mode():
+            unpinned = system.infer_body(img)  # fp32_math bypassed
         torch.cuda.synchronize()
         d_pin = max(float((on[k] - off[k]).abs().max()) for k in keys)
         if all(torch.equal(on[k], off[k]) for k in keys):
@@ -2780,20 +2782,37 @@ def bin_modes_phase(bundle, system, img, face_verts, train_rows, op_rows, card) 
             for name, fn in timed.items():
                 res[f"bin_{name}_ms"] = event_ms(fn)
 
-        # infer under the default, the hier and the sorted modes: bitwise, K1 each
+        # infer under the default, the hier and the sorted modes. A mode's
+        # first call captures a graph of its own (the binning dispatched in
+        # the warm-up and in the capture), its second replays it (nothing
+        # dispatched); K1 launched once a call; the replays bitwise equal
+        # to the captures' eager answers and to the default mode's replay
         modes = {"default": (False, None, False), "hier": (True, None, False),
                  "sorted": (False, None, True)}
+        graphs = system.infer_graphs
+        graphs.graphs.clear()  # so that the default mode captures here too
         outs = {}
         for name, mode in modes.items():
             R.set_bin_mode(*mode)
-            dispatched.clear()
-            launches = {}
-            outs[name] = _counted(launches, lambda: system.infer(img))
             want = {"default": [], "hier": ["bin_faces_hier"],
                     "sorted": ["bin_faces_sorted"]}[name]
-            check(dispatched == want and launches["raster_fused_windows"] == 1,
-                  f"infer under the {name} mode: dispatched {dispatched or ['flat']}, K1 "
-                  f"launched {launches['raster_fused_windows']} time(s)")
+            got = {}
+            for call, runs, moves in (("capture", want * 2, (1, 0)), ("replay", [], (0, 1))):
+                dispatched.clear()
+                launches = {}
+                before = graphs.captures, graphs.replays
+                got[call] = _counted(launches, lambda: system.infer(img))
+                moved = graphs.captures - before[0], graphs.replays - before[1]
+                check(dispatched == runs and moved == moves
+                      and launches["raster_fused_windows"] == 1,
+                      f"infer's {call} under the {name} mode: dispatched "
+                      f"{dispatched or ['flat']}, captures and replays +{moved}, K1 "
+                      f"launched {launches['raster_fused_windows']} time(s)")
+            differ = [k for k, v in got["replay"].items()
+                      if not torch.equal(v, got["capture"][k])]
+            check(not differ, f"infer's replay under the {name} mode == its capture's answer, "
+                  f"bitwise (differing: {differ})")
+            outs[name] = got["replay"]
             if name != "default":
                 same = [k for k, v in outs[name].items() if not torch.equal(
                     v, outs["default"][k])]

@@ -2,12 +2,15 @@
 smirk_tpu/flame/lbs.py; reference src/FLAME/lbs.py:101-377).
 
 The 5-joint kinematic chain is walked in a Python loop over a static
-parents table; blendshape contractions are einsums.
+parents table; blendshape contractions are einsums. Joints are picked by
+Python int selects, not gathers by a host index array: such an array is
+copied to the device, with a sync, at every call.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def rot_mat_to_euler_y(rot_mats: torch.Tensor) -> torch.Tensor:
@@ -46,11 +49,9 @@ def vertices2joints(J_regressor: torch.Tensor, vertices: torch.Tensor) -> torch.
 
 
 def transform_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
-    """(N,3,3) rotations + (N,3,1) translations -> (N,4,4) rigid transforms."""
-    N = R.shape[0]
-    top = torch.cat([R, t], dim=2)  # (N,3,4)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
-    return torch.cat([top, bottom.expand(N, 1, 4)], dim=1)
+    """(N,3,3) rotations + (N,3,1) translations -> (N,4,4) rigid transforms,
+    the bottom row [0 0 0 1] padded on."""
+    return torch.cat([F.pad(R, (0, 0, 0, 1)), F.pad(t, (0, 0, 0, 1), value=1.0)], dim=2)
 
 
 def batch_rigid_transform(
@@ -63,8 +64,9 @@ def batch_rigid_transform(
     B, J = joints.shape[:2]
     parents = np.asarray(parents)
 
-    rel_joints = joints.clone()
-    rel_joints[:, 1:] = joints[:, 1:] - joints[:, parents[1:]]
+    rel_joints = torch.stack(
+        [joints[:, 0]] + [joints[:, i] - joints[:, int(parents[i])] for i in range(1, J)],
+        dim=1)
 
     transforms_mat = transform_mat(
         rot_mats.reshape(-1, 3, 3), rel_joints.reshape(-1, 3, 1)
@@ -152,8 +154,8 @@ def find_dynamic_lmk_idx_and_bcoords(
     (reference FLAME.py:117-159, +euler angle). Rounds half to even and
     clips from above only, like the reference."""
     B = pose.shape[0]
-    neck_kin_chain = np.asarray(neck_kin_chain)
-    aa_pose = pose.reshape(B, -1, 3)[:, neck_kin_chain]  # (B,C,3)
+    per_joint = pose.reshape(B, -1, 3)
+    aa_pose = torch.stack([per_joint[:, int(j)] for j in neck_kin_chain], dim=1)  # (B,C,3)
     rot_mats = batch_rodrigues(aa_pose.reshape(-1, 3)).reshape(B, -1, 3, 3)
 
     rel_rot_mat = torch.eye(3, dtype=pose.dtype, device=pose.device)[None].expand(B, 3, 3)

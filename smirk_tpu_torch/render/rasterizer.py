@@ -465,6 +465,12 @@ def set_bin_mode(hier: bool, approx: Optional[float] = None,
     _BIN_SORTED = sorted_
 
 
+def modes() -> tuple:
+    """The process-wide switches a raster reads at its call: the binning
+    mode and the backface cull."""
+    return _BIN_HIER, _BIN_APPROX, _BIN_SORTED, _CULL_SIGN
+
+
 def bin_faces(face_verts: torch.Tensor, image_size: int, capacity: int,
               approx: Optional[float] = None, with_misses: bool = False):
     """The binning dispatch -> (bins, counts[, misses (B,) int32]):
@@ -527,7 +533,7 @@ def face_records(face_verts: torch.Tensor) -> torch.Tensor:
     pad = face_verts.new_zeros(face_verts.shape[:-2] + (4,))
     rec = torch.cat([coeffs, zplane, pad], dim=-1)
     kill = face_verts.new_zeros((16,))
-    kill[2] = -1.0
+    kill[2:3].fill_(-1.0)  # on the device: `kill[2] = -1.0` copies a host scalar in
     return torch.where(valid[..., None], rec, kill)
 
 
@@ -606,8 +612,8 @@ def _gather_recs(records: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     read a kill row (edge c0 = -1, fid = -1) appended at index F."""
     B, F, L = records.shape
     kill = records.new_zeros((L,))
-    kill[2] = -1.0
-    kill[12] = -1.0
+    kill[2:3].fill_(-1.0)
+    kill[12:13].fill_(-1.0)
     ext = torch.cat([records, kill.expand(B, 1, L)], dim=1)
     idx = torch.where(ids < 0, F, ids).long()
     b = torch.arange(B, device=records.device)[:, None]

@@ -104,6 +104,10 @@ class Renderer(nn.Module):
         self.register_buffer("kept", i64(self.kept_vertices))
         self.register_buffer("inc_face", i64(fidx))
         self.register_buffer("inc_corner", i64(cidx))
+        # the shading's unit light directions, on the device (as a host
+        # array they would be copied in, with a sync, at every render)
+        self.register_buffer("light_directions", torch.as_tensor(
+            shading.unit_directions(), dtype=torch.float32, device=device), persistent=False)
 
         F = len(render_faces)
         if bin_capacity is None:
@@ -158,6 +162,14 @@ class Renderer(nn.Module):
             "headroom": (budget / occupied) if occupied else float("inf"),
         }
 
+    def inference_settings(self) -> tuple:
+        """What `render_inference` reads besides tensors: its sizes and
+        switches, and the rasterizer's process-wide modes. A captured call
+        (`SmirkSystem.infer`'s CUDA graphs) holds those it was captured
+        under."""
+        return (self.image_size, self.bin_capacity, self.raster_compact, self.bin_approx,
+                self.bin_miss_check_fused, raster_lib.modes())
+
     def project(self, vertices: torch.Tensor, cam: torch.Tensor) -> torch.Tensor:
         """Full-mesh NDC vertices (y/z flipped)."""
         return camera_lib.orth_proj_ndc(vertices, cam)
@@ -201,7 +213,7 @@ class Renderer(nn.Module):
             bin_approx=self.diff_bin_approx,
             bin_miss_check=self.bin_miss_check_diff,
         )
-        shade = shading.directional_shading(normal_img)
+        shade = shading.directional_shading(normal_img, self.light_directions)
         return shading.GRAY_ALBEDO * shade * mask, mask, pix_to_face, overflow
 
     @torch.no_grad()
@@ -219,5 +231,5 @@ class Renderer(nn.Module):
             bin_miss_check=self.bin_miss_check_fused,
         )
         mask = (pix_to_face >= 0)[..., None].to(normal_img.dtype)
-        shade = shading.directional_shading(normal_img)
+        shade = shading.directional_shading(normal_img, self.light_directions)
         return shading.GRAY_ALBEDO * shade * mask, mask, pix_to_face, overflow

@@ -31,17 +31,20 @@ SH_CONST = np.array(
 )
 
 
+def unit_directions(light_directions: np.ndarray = DEFAULT_LIGHT_DIRECTIONS) -> np.ndarray:
+    """(L,3) light directions -> the same, each of unit length."""
+    return light_directions / np.linalg.norm(light_directions, axis=-1, keepdims=True)
+
+
 def directional_shading(
     normals: torch.Tensor,  # (..., 3) unit normals
-    light_directions: np.ndarray = DEFAULT_LIGHT_DIRECTIONS,
+    light_directions: torch.Tensor,  # (L,3) unit directions on the normals' device
     intensity: float = DEFAULT_LIGHT_INTENSITY,
 ) -> torch.Tensor:
     """Mean over lights of clamp(n . dir, 0, 1) * intensity -> (..., 3).
     The per-light intensity is the same on all channels, so the shading is
-    gray."""
-    dirs = light_directions / np.linalg.norm(light_directions, axis=-1, keepdims=True)
-    dirs = torch.as_tensor(dirs, dtype=normals.dtype, device=normals.device)
-    dots = torch.einsum("...k,lk->...l", normals, dirs)
+    gray. The renderer holds `unit_directions()` as a buffer."""
+    dots = torch.einsum("...k,lk->...l", normals, light_directions.to(normals.dtype))
     shade = dots.clamp(0.0, 1.0).mean(dim=-1) * intensity
     return shade[..., None].expand(shade.shape + (3,))
 

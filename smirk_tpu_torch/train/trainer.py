@@ -3,7 +3,8 @@ serving path and the two-path training step (port of
 smirk_tpu/train/trainer.py).
 
 `SmirkSystem.infer` is the serving path: image batch -> FLAME parameters,
-geometry and the fused render; `reconstruct` takes infer's outputs on to
+geometry and the fused render, on a CUDA device one replayed CUDA graph per
+input shape (`InferGraphs`); `reconstruct` takes infer's outputs on to
 the analysis-by-neural-synthesis image (mesh-anchored pixel hints, the
 hull-masked input, the fuse generator). `train_step` is one training
 iteration:
@@ -75,10 +76,13 @@ records.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import functools
 import math
+import threading
+import time
 from typing import Dict, Mapping, Optional, Sequence
 
 import numpy as np
@@ -101,10 +105,14 @@ from smirk_tpu_torch.models.mobilenetv3 import ARCHS, Stage, frozen_stats
 from smirk_tpu_torch.models.teachers import freeze
 from smirk_tpu_torch.models.vgg import perceptual_loss, resize_bilinear
 from smirk_tpu_torch.render import geometry
+from smirk_tpu_torch.render import rasterizer as raster_lib
 from smirk_tpu_torch.render.renderer import Renderer
 from smirk_tpu_torch.utils.profiling import span
 
 SUB_ENCODERS = ("pose_encoder", "shape_encoder", "expression_encoder")
+# infer's CUDA graphs a system holds, the least recently used dropped past
+# it: a caller's batch size and its short last batch, and a few more
+INFER_GRAPHS = 4
 # the masks' random hint-drop rates: path 1's and the cycle path's
 RANDOM_MASK, CYCLE_RANDOM_MASK = 0.01, 0.005
 
@@ -229,6 +237,97 @@ def remat(fn):
     return run
 
 
+class InferGraphs:
+    """`SmirkSystem.infer`'s CUDA graphs of `infer_body`, one per key (the
+    input's shape, dtype and device, the modules, the render's settings),
+    at most INFER_GRAPHS, all in one private memory pool. A key's first
+    call runs the body eagerly on a side stream (its answer, and the
+    warm-up), then captures it there; each later call copies its input into
+    the graph's, replays it and returns clones of the graph's outputs. The
+    pool is taken anew whenever no graph holds it (`graphs` may be cleared
+    to drop them all). One lock holds a call from the input's copy to the
+    clones, and the next call's stream waits for them, so that no two
+    calls share the buffers.
+
+    Counters, plain attributes as the kernels' `launches` (each call counts
+    once): `captures`, the first calls of a key; `replays`, the later ones;
+    `eager`, calls on any other device (unlocked: threads calling at once
+    may lose a count). `capture_s`: the host seconds of the captures,
+    warm-ups apart. The kernels' own `launches` count what runs: a
+    capture's recordings are taken back out of them, and each replay adds
+    its graph's recorded launches.
+
+    No CUDA work is done before the first call on a CUDA device."""
+
+    def __init__(self):
+        self.graphs = collections.OrderedDict()  # key -> (graph, input, outputs, launches)
+        self.lock = threading.Lock()
+        self.pool = self.stream = self.done = None
+        self.captures = self.replays = self.eager = 0
+        self.capture_s = 0.0
+
+    def __call__(self, system: "SmirkSystem", img: torch.Tensor) -> Dict[str, torch.Tensor]:
+        key = (img.shape, img.dtype, img.device, system.compute_dtype, system.encoder,
+               system.flame, system.renderer, system.renderer.inference_settings())
+        with self.lock:
+            if self.stream is None:
+                self.stream = torch.cuda.Stream(img.device)
+                self.done = torch.cuda.Event()
+            if not self.graphs:
+                # a pool whose graphs are all gone (dropped, or a failed
+                # capture) may not be captured into again
+                self.pool = torch.cuda.graph_pool_handle()
+            stream = torch.cuda.current_stream(img.device)
+            stream.wait_event(self.done)
+            entry = self.graphs.get(key)
+            if entry is None:
+                with span("smirk.infer.capture"):
+                    out = self._capture(system, img, key)
+                self.captures += 1
+            else:
+                self.graphs.move_to_end(key)
+                graph, static_img, static_out, launches = entry
+                with span("smirk.infer.replay"):
+                    static_img.copy_(img)
+                    graph.replay()
+                    out = {k: v.clone() for k, v in static_out.items()}
+                for kernel, n in launches:
+                    kernel.launches += n
+                self.replays += 1
+            self.done.record(stream)
+            return out
+
+    def _capture(self, system, img, key):
+        system.encoder.eval()
+        caller, side = torch.cuda.current_stream(img.device), self.stream
+        side.wait_stream(caller)
+        with torch.cuda.stream(side):
+            static_img = torch.empty(img.shape, dtype=img.dtype, device=img.device)
+            static_img.copy_(img)
+            out = system.infer_body(static_img)
+            t0 = time.perf_counter()
+            before = [kernel.launches for kernel in raster_lib.KERNELS]
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self.pool, capture_error_mode="thread_local")
+            try:
+                static_out = system.infer_body(static_img)
+            finally:
+                graph.capture_end()
+                launches = [(kernel, kernel.launches - n)
+                            for kernel, n in zip(raster_lib.KERNELS, before)
+                            if kernel.launches != n]
+                for kernel, n in launches:  # recorded, not run
+                    kernel.launches -= n
+        caller.wait_stream(side)
+        for v in out.values():
+            v.record_stream(caller)
+        self.graphs[key] = (graph, static_img, static_out, launches)
+        while len(self.graphs) > INFER_GRAPHS:
+            self.graphs.popitem(last=False)
+        self.capture_s += time.perf_counter() - t0
+        return out
+
+
 class SmirkSystem:
     """Module bundle + the training step and the serving path.
 
@@ -328,6 +427,7 @@ class SmirkSystem:
         self.gen_opt = adam(self.gen_params, b1=0.5, b2=0.999)
         self.gen_lr = cosine_epoch_restart(c.train.lr, steps_per_epoch)
         self.step = 0
+        self.infer_graphs = InferGraphs()  # infer's CUDA graphs, none yet
 
     # ------------------------------- helpers -------------------------------
 
@@ -801,13 +901,26 @@ class SmirkSystem:
     @fp32_math()
     @torch.inference_mode()
     def infer(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """(B,S,S,3) f32 NHWC images in [0,1] -> params + geometry + render.
+        """(B,S,S,3) f32 NHWC images in [0,1] -> params + geometry + render,
+        fresh tensors.
 
         The renderer's 2D projected `landmarks_fan`/`landmarks_mp` replace
-        FLAME's 3D ones in the result, as in the JAX package."""
+        FLAME's 3D ones in the result, as in the JAX package. The encoder
+        runs in eval mode. On a CUDA device the call replays a CUDA graph
+        of `infer_body` captured, in eval mode, at the first call of its
+        input shape (`InferGraphs`); a replay leaves the encoder's mode as
+        it is (setting it walks the encoder's 332 submodules, ~1.7 ms of
+        host time). Parameters and buffers changed in place (an
+        optimizer's step, `load_state_dict`) show in a replay; a module
+        replaced on the system, or a render setting changed, captures anew;
+        a module moved or cast in place (`.to`, `.half`) does not. Other
+        devices run the body eagerly."""
         with span("smirk.infer"):
             img = torch.as_tensor(img, dtype=torch.float32, device=self.device)
+            if img.device.type == "cuda":
+                return self.infer_graphs(self, img)
             self.encoder.eval()
+            self.infer_graphs.eager += 1
             return self.infer_body(img)
 
     def infer_body(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:

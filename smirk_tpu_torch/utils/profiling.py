@@ -18,10 +18,17 @@ import torch
 # The program's spans, each opened by `span` at a layer boundary of
 # `train.trainer.SmirkSystem` (the renderer's binning excepted). A name may
 # repeat under different parents; `smirk.train_step` and `smirk.infer` are
-# the roots, `smirk.phase1` / `smirk.phase2` the training step's phases.
+# the roots, `smirk.phase1` / `smirk.phase2` the training step's phases. On
+# a CUDA device infer runs in `smirk.infer.capture` or `smirk.infer.replay`;
+# a replay runs no Python of the body, so the encoder, FLAME and render
+# spans under infer appear only in a capture.
 SPANS = (
     "smirk.train_step",  # SmirkSystem.train_step, its whole body
     "smirk.infer",       # SmirkSystem.infer, its whole body
+    "smirk.infer.capture",  # infer's first call of a key on a CUDA device:
+                            # the body run eagerly, then captured
+    "smirk.infer.replay",   # infer's later calls there: the input copied
+                            # in, the graph replayed, its outputs cloned
     "smirk.batch",       # the batch to the device (_batch)
     "smirk.phase1",      # path 1: forward, backward, both Adam updates
     "smirk.phase2",      # the cycle path: forward, backward, one Adam update

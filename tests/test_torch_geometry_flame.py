@@ -171,7 +171,7 @@ def test_camera_geometry_shading_match_jax(small_bundle):
         np.asarray(jgeo.face_vertices(jnp.asarray(verts), jnp.asarray(faces))))
     nimg = rng.normal(0, 1, (B, 8, 8, 3)).astype(np.float32)
     np.testing.assert_allclose(
-        tshade.directional_shading(T(nimg)).numpy(),
+        tshade.directional_shading(T(nimg), T(tshade.unit_directions())).numpy(),
         np.asarray(jshade.directional_shading(jnp.asarray(nimg))), atol=1e-6)
     assert tshade.GRAY_ALBEDO == jshade.GRAY_ALBEDO
 

@@ -140,7 +140,7 @@ def test_no_profiler_op_without_a_profiler(bundle, recipe, monkeypatch):
 def test_span_tree(bundle, recipe, tmp_path):
     """Under torch.profiler, each call opens exactly the spans of its tree:
     every span nested in its parent, each name as often as the tree has
-    it."""
+    it; the CPU's infer opens neither of the CUDA graph's spans."""
     system = make_system(bundle, recipe)
     calls(system)  # warm: first-use set-up outside the profile
     with profile(activities=[ProfilerActivity.CPU]) as prof:
@@ -157,6 +157,9 @@ def test_span_tree(bundle, recipe, tmp_path):
                                   if root[0] <= t <= root[1])
         assert got == want, root
     assert {n for _, _, n in spans} <= set(profiling.SPANS)
+    graphed = {"smirk.infer.capture", "smirk.infer.replay"}
+    assert graphed <= set(profiling.SPANS)
+    assert not graphed & {n for _, _, n in spans}  # the CPU's infer runs eagerly
 
 
 def test_export_holds_no_profiler_op(bundle, tmp_path):
